@@ -1,0 +1,231 @@
+"""Fused per-observation BA chain: hand-written CUDA kernels for Hopper.
+
+Replaces the two Pallas TPU kernels of the reference package
+(bundleadjustment_benchmarks_tpu/ops/pallas_chain.py):
+
+  fused_blocks_energy  <- _blocks_kernel: robustified residuals, the 2x9 and
+                          2x3 Jacobian blocks and the energy, once per outer
+                          LM iteration;
+  fused_energy         <- _energy_kernel: the trial energy, once per damping
+                          trial.
+
+The kernels (csrc/chain_kernels.cu, math in csrc/chain_math.cuh) are built on
+first use with nvcc for sm_90a into ``_build/`` beside the package and bound
+through ctypes. Each kernel has its plain PyTorch version beside it
+(``*_plain``). The wrappers take the plain version only for tensors on the
+CPU; on a CUDA tensor they launch the kernel or raise. Every launch adds one
+to ``LAUNCHES``.
+
+Both kernels are bound by device memory (see chain_kernels.cu).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+from bundleadjustment_benchmarks_tpu_torch.ops import jacobian, projection
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = ("chain_kernels.cu", "chain_math.cuh")
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
+    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+#: Launch counts of the kernels, by name. Only the wrappers' launches count.
+LAUNCHES = {"chain_blocks": 0, "chain_energy": 0}
+#: What the last build did: seconds, library path, nvcc's -Xptxas=-v output.
+BUILD_INFO: dict = {}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (CUDA_HOME or /usr/local/cuda/bin)")
+
+
+def load_library():
+    """Build (once per source content) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        major, _ = torch.cuda.get_device_capability()
+        if major != 9:
+            raise RuntimeError(
+                f"the chain kernels are built for sm_90a; this device is "
+                f"{torch.cuda.get_device_name()} (sm_{major}x)"
+            )
+        h = hashlib.sha256()
+        for name in SOURCES:
+            h.update((CSRC / name).read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"libchain_{h.hexdigest()[:16]}.so"
+        t0 = time.perf_counter()
+        log = ""
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / "chain_kernels.cu")]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            os.replace(tmp, so)
+        BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(so),
+                          ptxas=log)
+        lib = ctypes.CDLL(str(so))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.chain_blocks.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p, p, p]
+        lib.chain_blocks.restype = i
+        lib.chain_energy.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p, p]
+        lib.chain_energy.restype = i
+        lib.chain_num_partials.argtypes = [i]
+        lib.chain_num_partials.restype = i
+        lib.chain_error_string.argtypes = [i]
+        lib.chain_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(which: str, operands, tau2: float, valid_count=None):
+    """Check the operands, allocate the outputs and launch one chain kernel
+    (``which`` is "chain_blocks" or "chain_energy") on the current stream.
+
+    ``operands`` is ``chain_operands``'s tuple. Returns ((26, K) float32
+    rows or None, float64 0-dim energy over the first ``valid_count``
+    observations)."""
+    cam_nk, pts_hi, pts_lo, meas, cam_idx, pt_idx = operands
+    dev = pts_hi.device
+    if dev.type != "cuda":
+        raise ValueError(f"{which}: operands must be CUDA tensors, got {dev}")
+    k = cam_idx.shape[0]
+    n, m = cam_nk.shape[0], pts_hi.shape[1]
+    f32 = torch.float32
+    _check(cam_nk, "cam_pack", f32, (n, projection.CAM_PACK_ROWS), dev)
+    _check(pts_hi, "pts_hi", f32, (3, m), dev)
+    _check(pts_lo, "pts_lo", f32, (3, m), dev)
+    _check(meas, "measurements_pl", f32, (2, k), dev)
+    _check(cam_idx, "cam_idx", torch.int32, (k,), dev)
+    _check(pt_idx, "pt_idx", torch.int32, (k,), dev)
+    valid = k if valid_count is None else int(valid_count)
+    lib = load_library()
+    part = torch.empty(2 * lib.chain_num_partials(k), dtype=f32, device=dev)
+    energy = torch.empty((), dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in operands]
+    if which == "chain_blocks":
+        rows = torch.empty((jacobian.PLANAR_CHAIN_ROWS, k), dtype=f32, device=dev)
+        err = lib.chain_blocks(*ptrs, k, m, valid, float(tau2), rows.data_ptr(),
+                               part.data_ptr(), energy.data_ptr(), stream)
+    elif which == "chain_energy":
+        rows = None
+        err = lib.chain_energy(*ptrs, k, m, valid, float(tau2),
+                               part.data_ptr(), energy.data_ptr(), stream)
+    else:
+        raise ValueError(f"unknown chain kernel {which!r}")
+    if err != 0:
+        raise RuntimeError(
+            f"{which} launch failed: {lib.chain_error_string(err).decode()}")
+    LAUNCHES[which] += 1
+    return rows, energy
+
+
+def chain_operands(fast, obs):
+    """The kernels' operands: the (N, 27) camera pack, the DF point rows
+    (3, M), the planar measurements (2, K) and the int32 indices (K,)."""
+    cam_nk = projection.planar_camera_pack(fast).T.contiguous()
+    return (cam_nk, fast.points.hi.contiguous(), fast.points.lo.contiguous(),
+            obs.measurements_pl, obs.cam_idx, obs.pt_idx)
+
+
+# -- plain PyTorch versions ------------------------------------------------------
+
+
+def chain_blocks_plain(fast, obs, tau2, valid_count=None):
+    """Plain version of the blocks kernel: the (26, K) planar_blocks_chain
+    rows and the DF tree sum of f0^2 + f1^2 over the first valid_count
+    observations."""
+    rows = jacobian.planar_chain_rows(fast, obs, tau2)
+    return rows, projection.compensated_square_sum(rows[0:2].T[:valid_count])
+
+
+def fused_blocks_energy_plain(fast, obs, tau2, valid_count=None):
+    """residuals_and_jacobian_fast + compensated_square_sum (over the first
+    valid_count observations)."""
+    rows, energy = chain_blocks_plain(fast, obs, tau2, valid_count)
+    return jacobian.blocks_from_planar_rows(rows), energy
+
+
+def fused_energy_plain(fast, obs, tau2, valid_count=None) -> torch.Tensor:
+    """energy_fast over the first valid_count observations."""
+    if valid_count is not None:
+        obs = _prefix(obs, int(valid_count))
+    return projection.energy_fast(fast, obs, tau2)
+
+
+def _prefix(obs, n):
+    return dataclasses.replace(
+        obs, cam_idx=obs.cam_idx[:n], pt_idx=obs.pt_idx[:n],
+        measurements=obs.measurements[:n], weights=obs.weights[:n],
+        measurements_pl=obs.measurements_pl[:, :n].contiguous(),
+    )
+
+
+# -- entry points ------------------------------------------------------------------
+
+
+def fused_blocks_energy(fast, obs, tau2, valid_count=None):
+    """(JacobianBlocks, float64 energy) of the chain; drop-in for
+    residuals_and_jacobian_fast + compensated_square_sum. ``valid_count``
+    limits the energy to the first valid_count observations."""
+    if fast.points.hi.device.type == "cpu":
+        return fused_blocks_energy_plain(fast, obs, tau2, valid_count)
+    rows, energy = launch("chain_blocks", chain_operands(fast, obs), tau2,
+                          valid_count)
+    return jacobian.blocks_from_planar_rows(rows), energy
+
+
+def fused_energy(fast, obs, tau2, valid_count=None) -> torch.Tensor:
+    """Trial objective; drop-in for projection.energy_fast."""
+    if fast.points.hi.device.type == "cpu":
+        return fused_energy_plain(fast, obs, tau2, valid_count)
+    return launch("chain_energy", chain_operands(fast, obs), tau2,
+                  valid_count)[1]
+

@@ -1,0 +1,317 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the chain kernels from ``bundleadjustment_benchmarks_tpu_torch/ops/
+csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
+in-repo BAL stand-ins, drives ``lm.minimize(mode="cholesky")`` on the df32
+drive (kernels on, p257 stand-in) and on the float64 drive (p16 stand-in),
+and fails on any disagreement. Each phase prints one JSON line; then come
+one line of per-kernel numbers, and last
+``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
+or without the package beside it, it exits non-zero before printing any
+result. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+PACKAGE = HERE / "bundleadjustment_benchmarks_tpu_torch"
+P16 = HERE / "data" / "problem-16-22106-pre.txt.gz"
+P257 = HERE / "data" / "problem-257-65132-pre.txt.gz"
+
+#: Published device-memory rate (bytes/s) and float32 peak (FLOP/s, outside
+#: the tensor cores) by card name (NVIDIA data sheets).
+CARDS = (
+    ("H100 PCIe", 2.0e12, 51e12),
+    ("H100 NVL", 3.9e12, 60e12),
+    ("H200", 4.8e12, 67e12),
+    ("H100", 3.35e12, 67e12),
+)
+#: float32 operations per observation, counted from csrc/chain_math.cuh
+#: (two_prod = mul + fma; df_mul 9, df_add 11): the DF transform 180, the
+#: residual 18, the robust factor 12; blocks then add the Jacobian rows and
+#: the robust product (166) and the DF square sum (15), energy adds its DF
+#: square (15); each adds its share of the DF reduction trees (11).
+OPS_PER_OBS = {"chain_blocks": 180 + 18 + 12 + 166 + 15 + 11,
+               "chain_energy": 180 + 18 + 12 + 15 + 11}
+#: The kernel rows must equal the plain version's bit for bit: both round
+#: every operation alike (no contraction, IEEE division and square root).
+ENERGY_RTOL = 1e-12  # DF trees of different shapes sum in different orders
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_rates(name: str):
+    for key, bw, fp32 in CARDS:
+        if key in name:
+            return bw, fp32
+    raise SystemExit(f"chip_smoke: no published rates for card {name!r}")
+
+
+def time_ms(fn, reps: int, sleep_cycles: int, flush: torch.Tensor) -> float:
+    """Median device time of ``fn`` by CUDA events, cold L2: before each rep
+    a buffer larger than L2 is rewritten and the stream is held busy
+    (``torch.cuda._sleep``) while the host queues the rep, so the events
+    time the device work and not the host's launch overhead."""
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(sleep_cycles)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; needs a GPU")
+    if not PACKAGE.is_dir() or not P257.exists() or not P16.exists():
+        sys.exit(f"chip_smoke: run from a checkout of the repository "
+                 f"(missing {PACKAGE.name}/ or data/ beside {Path(__file__).name})")
+    sys.path.insert(0, str(HERE))
+    from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
+    from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    bw, fp32 = card_rates(kind)
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "hbm_bytes_per_s": bw, "fp32_flop_per_s": fp32})
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+
+    # -- build ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    cuda_chain.load_library()
+    ptxas = [ln.strip() for ln in cuda_chain.BUILD_INFO["ptxas"].splitlines()
+             if "registers" in ln or "Compiling entry" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_flags": " ".join(cuda_chain.NVCC_FLAGS), "ptxas": ptxas})
+
+    # -- kernels against their plain versions --------------------------------
+    t0 = time.perf_counter()
+    problems = {name: pm.load_bal_problem(str(path), device=dev)
+                for name, path in (("p16", P16), ("p257", P257))}
+    load_s = time.perf_counter() - t0
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(0)
+    kern = {"chain_blocks": {"max_abs_err": 0.0, "energy_abs_err": 0.0},
+            "chain_energy": {"max_abs_err": 0.0}}
+    cases = []
+    for name, prob in problems.items():
+        tau2 = prob.tau2
+        fast0 = pm.to_fast(prob.state)
+        step = (torch.from_numpy(rng.normal(scale=1e-2, size=(prob.n_points, 3))),
+                torch.from_numpy(rng.normal(scale=1e-3, size=(prob.n_cameras, 9))))
+        fast1 = pm.apply_step_fast(fast0, *(s.to(dev) for s in step))
+        for state_name, fast in (("loaded", fast0), ("perturbed", fast1)):
+            ops = cuda_chain.chain_operands(fast, prob.obs)
+            rows_k, eb_k = cuda_chain.launch("chain_blocks", ops, tau2)
+            rows_p, eb_p = cuda_chain.chain_blocks_plain(fast, prob.obs, tau2)
+            _, ee_k = cuda_chain.launch("chain_energy", ops, tau2)
+            ee_p = cuda_chain.fused_energy_plain(fast, prob.obs, tau2)
+            repeats = [cuda_chain.launch("chain_energy", ops, tau2)[1].item()
+                       for _ in range(3)]
+            repeats_b = [cuda_chain.launch("chain_blocks", ops, tau2)[1].item()
+                         for _ in range(3)]
+            torch.cuda.synchronize()
+            rows_err = (rows_k - rows_p).abs().max().item()
+            case = {
+                "problem": name, "state": state_name, "K": prob.n_observations,
+                "rows_equal": torch.equal(rows_k, rows_p),
+                "rows_max_abs_err": rows_err,
+                "rows_finite": bool(torch.isfinite(rows_k).all()),
+                "blocks_energy": eb_k.item(),
+                "blocks_energy_rel_err": abs(eb_k.item() - eb_p.item()) / abs(eb_p.item()),
+                "energy": ee_k.item(),
+                "energy_rel_err": abs(ee_k.item() - ee_p.item()) / abs(ee_p.item()),
+                "energy_repeats_identical": len(set(repeats)) == 1
+                and repeats[0] == ee_k.item(),
+                "blocks_energy_repeats_identical": len(set(repeats_b)) == 1
+                and repeats_b[0] == eb_k.item(),
+            }
+            kern["chain_blocks"]["max_abs_err"] = max(
+                kern["chain_blocks"]["max_abs_err"], rows_err)
+            kern["chain_blocks"]["energy_abs_err"] = max(
+                kern["chain_blocks"]["energy_abs_err"],
+                abs(eb_k.item() - eb_p.item()))
+            kern["chain_energy"]["max_abs_err"] = max(
+                kern["chain_energy"]["max_abs_err"], abs(ee_k.item() - ee_p.item()))
+            if name == "p257" and state_name == "loaded":
+                sleep = int(2e7)  # ~10 ms: longer than the host's enqueue
+                case["blocks_ms"] = time_ms(
+                    lambda: cuda_chain.launch("chain_blocks", ops, tau2),
+                    20, sleep, flush)
+                case["energy_ms"] = time_ms(
+                    lambda: cuda_chain.launch("chain_energy", ops, tau2),
+                    20, sleep, flush)
+                case["blocks_plain_ms"] = time_ms(
+                    lambda: cuda_chain.chain_blocks_plain(fast, prob.obs, tau2),
+                    20, int(2e8), flush)
+                case["energy_plain_ms"] = time_ms(
+                    lambda: cuda_chain.fused_energy_plain(fast, prob.obs, tau2),
+                    20, int(2e8), flush)
+                k_obs, n, m = prob.n_observations, prob.n_cameras, prob.n_points
+                # Each input read once, each output written once: the camera
+                # pack, the DF points (every point is observed), the
+                # measurements and both indices; the energy, and the rows.
+                inputs = 4 * (27 * n + 6 * m + 2 * k_obs + 2 * k_obs)
+                for which, outputs in (("chain_blocks", 8 + 4 * 26 * k_obs),
+                                       ("chain_energy", 8)):
+                    t_bytes = (inputs + outputs) / bw * 1e3
+                    t_ops = OPS_PER_OBS[which] * k_obs / fp32 * 1e3
+                    kern[which].update(
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+                kern["chain_blocks"].update(ms=case["blocks_ms"],
+                                            plain_ms=case["blocks_plain_ms"])
+                kern["chain_energy"].update(ms=case["energy_ms"],
+                                            plain_ms=case["energy_plain_ms"])
+            cases.append(case)
+    emit({"phase": "kernels", "load_seconds": load_s, "cases": cases})
+    for c in cases:
+        where = f"{c['problem']}/{c['state']}"
+        check(c["rows_finite"], f"{where}: non-finite rows")
+        check(c["rows_equal"],
+              f"{where}: rows differ from the plain version by {c['rows_max_abs_err']}")
+        check(c["blocks_energy_rel_err"] <= ENERGY_RTOL,
+              f"{where}: blocks energy rel err {c['blocks_energy_rel_err']}")
+        check(c["energy_rel_err"] <= ENERGY_RTOL,
+              f"{where}: energy rel err {c['energy_rel_err']}")
+        check(c["energy_repeats_identical"] and c["blocks_energy_repeats_identical"],
+              f"{where}: repeat launches gave different energies")
+
+    # -- main path, df32 drive with the kernels, p257 ---------------------------
+    p257 = problems["p257"]
+    cfg = lm.LMConfig(max_iter=20, matmul_dtype="float32", geometry="df32")
+    check(cfg.use_kernels(dev), "the df32 drive does not select the kernels")
+    e0 = cuda_chain.fused_energy(pm.to_fast(p257.state), p257.obs, p257.tau2).item()
+    lm.minimize(p257, mode="cholesky", config=lm.LMConfig(
+        max_iter=2, matmul_dtype="float32", geometry="df32"))  # warm-up
+    torch.cuda.synchronize()
+    cuda_chain.reset_launches()
+    t0 = time.perf_counter()
+    res = lm.minimize(p257, mode="cholesky", config=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_chain.LAUNCHES)
+    # Stage times after the run, at its final state and lambda: median of 5,
+    # each ending in a synchronize.
+    fast = pm.to_fast(res.state)
+    stage = {"prepare": [], "trial": []}
+    for _ in range(5):
+        t = time.perf_counter()
+        ctx, _, _ = lm._prepare_fast(fast, p257, "cholesky", "float32",
+                                     kernels=True)
+        torch.cuda.synchronize()
+        stage["prepare"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        lm._trial_fast(ctx, fast, res.lam, p257, "cholesky", "float32",
+                       kernels=True)
+        torch.cuda.synchronize()
+        stage["trial"].append(time.perf_counter() - t)
+    pts = res.state.points
+    emit({"phase": "main_df32", "problem": "p257", "iterations": res.iterations,
+          "fun_evals": res.fun_evals, "status": res.status.name,
+          "initial_energy": e0, "final_energy": res.energy, "wall_s": wall,
+          "lm_iter_per_s": res.iterations / wall,
+          "prepare_ms_median": statistics.median(stage["prepare"]) * 1e3,
+          "trial_ms_median": statistics.median(stage["trial"]) * 1e3,
+          "launches": launches, "nvidia_smi": smi})
+    check(np.isfinite(res.energy) and res.energy < e0,
+          f"df32 p257: energy {res.energy} not finite and below {e0}")
+    check(tuple(pts.shape) == (p257.n_points, 3) and bool(torch.isfinite(pts).all()),
+          "df32 p257: final points not finite of shape (M, 3)")
+    for which, count in launches.items():
+        check(count > 0, f"{which} was not launched on the main path")
+    kern["chain_blocks"]["launches"] = launches["chain_blocks"]
+    kern["chain_energy"]["launches"] = launches["chain_energy"]
+
+    # The same drive on p16 with the kernels and with the plain chain.
+    p16 = problems["p16"]
+    runs = {}
+    for kernels in (True, False):
+        c = lm.LMConfig(max_iter=10, matmul_dtype="float32", geometry="df32",
+                        kernels=kernels)
+        runs[kernels] = lm.minimize(p16, mode="cholesky", config=c)
+    gap = abs(runs[True].energy - runs[False].energy) / runs[False].energy
+    emit({"phase": "main_df32_p16_kernels_vs_plain",
+          "iterations": [runs[True].iterations, runs[False].iterations],
+          "fun_evals": [runs[True].fun_evals, runs[False].fun_evals],
+          "energy": [runs[True].energy, runs[False].energy], "rel_gap": gap})
+    check(runs[True].iterations == runs[False].iterations and gap <= 1e-9,
+          "df32 p16: kernel and plain chains took different LM paths")
+
+    # -- main path, float64 drive, p16 ------------------------------------------
+    cfg64 = lm.LMConfig(max_iter=10)
+    e0 = float(lm._prepare(p16.state, p16, "cholesky")[1])
+    lm.minimize(p16, mode="cholesky", config=lm.LMConfig(max_iter=2))  # warm-up
+    torch.cuda.synchronize()
+    cuda_chain.reset_launches()
+    t0 = time.perf_counter()
+    res = lm.minimize(p16, mode="cholesky", config=cfg64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    emit({"phase": "main_f64", "problem": "p16", "iterations": res.iterations,
+          "fun_evals": res.fun_evals, "status": res.status.name,
+          "initial_energy": e0, "final_energy": res.energy, "wall_s": wall,
+          "lm_iter_per_s": res.iterations / wall,
+          "launches": dict(cuda_chain.LAUNCHES), "nvidia_smi": smi})
+    check(np.isfinite(res.energy) and res.energy < e0,
+          f"f64 p16: energy {res.energy} not finite and below {e0}")
+
+    src = "bundleadjustment_benchmarks_tpu_torch/ops/csrc/chain_kernels.cu"
+    replaces = {
+        "chain_blocks": "bundleadjustment_benchmarks_tpu/ops/pallas_chain.py:83",
+        "chain_energy": "bundleadjustment_benchmarks_tpu/ops/pallas_chain.py:98",
+    }
+    # max_abs_err: chain_blocks' rows, chain_energy's energy; the blocks
+    # kernel's energy gap is its own field, energy_abs_err.
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": src,
+         "replaces": replaces[name], "library_ms": None, **k}
+        for name, k in kern.items()]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,123 @@
+"""Guards of the port: it never imports JAX, its entry points run on CUDA
+unless the caller names a device, and the kernels are never swapped for
+their plain versions behind the caller's back."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from bundleadjustment_benchmarks_tpu_torch import convert, resolve_device
+from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
+from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+P16 = os.path.join(ROOT, "data", "problem-16-22106-pre.txt.gz")
+
+
+def _is_jax_side(name: str) -> bool:
+    return name == "jax" or name.startswith("jax.") or name == "jaxlib" \
+        or name.startswith("jaxlib.") \
+        or name == "bundleadjustment_benchmarks_tpu" \
+        or name.startswith("bundleadjustment_benchmarks_tpu.")
+
+
+def test_port_modules_import_no_jax():
+    code = (
+        "import pkgutil, sys, importlib\n"
+        "import bundleadjustment_benchmarks_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert "bundleadjustment_benchmarks_tpu_torch.solvers.lm" in out
+    assert "bundleadjustment_benchmarks_tpu_torch.convert" in out
+    assert [m for m in out if _is_jax_side(m)] == []
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse(open(SMOKE).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "bundleadjustment_benchmarks_tpu_torch.solvers" in names
+    assert [n for n in names if _is_jax_side(n)] == []
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = _run_smoke(ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_entry_points_need_cuda_unless_told():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["load_bal_problem", "problem_from_numpy",
+                                   "state_from_numpy", "minimize"])
+def test_loaders_and_minimize_raise_without_cuda(entry):
+    """Each entry point raises with no CUDA device and no ``device``; given
+    ``device="cpu"`` it builds on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    prob = pm.load_bal_problem(P16, device="cpu")
+    d = convert.problem_to_numpy(prob)
+    calls = {
+        "load_bal_problem": lambda **kw: pm.load_bal_problem(P16, **kw),
+        "problem_from_numpy": lambda **kw: convert.problem_from_numpy(d, **kw),
+        "state_from_numpy": lambda **kw: convert.state_from_numpy(
+            convert.state_to_numpy(prob.state), **kw),
+        "minimize": lambda **kw: lm.minimize(
+            prob, config=lm.LMConfig(max_iter=0), **kw),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    out = calls[entry](device="cpu")
+    t = out.state.T if hasattr(out, "state") else out.T
+    assert t.device == torch.device("cpu")
+
+
+def test_kernels_on_cpu_raise():
+    cfg = lm.LMConfig(geometry="df32", kernels=True)
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        cfg.use_kernels(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("geometry,kernels,device,want", [
+    ("df32", None, "cuda", True),
+    ("df32", None, "cpu", False),
+    ("df32", False, "cuda", False),
+    (None, None, "cuda", False),
+])
+def test_kernels_default_follows_device(geometry, kernels, device, want):
+    cfg = lm.LMConfig(geometry=geometry, kernels=kernels)
+    assert cfg.use_kernels(torch.device(device)) is want

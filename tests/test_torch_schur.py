@@ -1,0 +1,156 @@
+"""The port's Schur solve (cholesky mode) against the JAX package on the CPU.
+
+Both sides get the same Jacobian blocks (computed by the JAX package and
+carried across), so the comparison isolates the Schur engine: the context
+fields, the cached pair stacks and the damped solve at two lambdas, all in
+float64 at 1e-9 relative. The df32 prepare is compared end to end at the
+reference package's kernel-test tolerances.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bundleadjustment_benchmarks_tpu.models import problem as jpm
+from bundleadjustment_benchmarks_tpu.ops import jacobian as jjac
+from bundleadjustment_benchmarks_tpu.solvers import lm as jlm
+from bundleadjustment_benchmarks_tpu.solvers import schur as jschur
+from bundleadjustment_benchmarks_tpu.utils.synthetic import make_synthetic_problem
+from bundleadjustment_benchmarks_tpu_torch import convert
+from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
+from bundleadjustment_benchmarks_tpu_torch.ops.jacobian import JacobianBlocks
+from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
+
+
+def _np(x):
+    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _rel(a, b):
+    a, b = _np(a).astype(np.float64), _np(b).astype(np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def _scaled(a, b):
+    a, b = _np(a).astype(np.float64), _np(b).astype(np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1.0))
+
+
+@pytest.fixture(scope="module", params=[0, 1], ids=["seed0", "seed1"])
+def contexts(request):
+    jp = make_synthetic_problem(n_cameras=6, n_points=40, obs_per_point=4,
+                                seed=request.param, dtype=jnp.float64)
+    tp = convert.problem_from_numpy(convert.problem_to_numpy(jp), device="cpu")
+    b_j = jjac.residuals_and_jacobian(jp.state, jp.obs, jp.tau2)
+    b_t = JacobianBlocks(*(torch.from_numpy(np.array(x)) for x in b_j))
+    ctx_j = jschur.build_context(b_j, jp, "cholesky")
+    ctx_t = schur.build_context(b_t, tp, "cholesky")
+    return jp, tp, ctx_j, ctx_t
+
+
+@pytest.mark.parametrize("field", ["U", "V", "W", "g_cams", "g_pts", "evals",
+                                   "max_colnorm_sq"])
+def test_context_fields(contexts, field):
+    _, _, ctx_j, ctx_t = contexts
+    gap = _rel(getattr(ctx_t, field), getattr(ctx_j, field))
+    print(f"gap schur {field}: {gap:.3g}")
+    assert gap <= 1e-9
+
+
+def test_context_eigenbasis_and_pair_stacks(contexts):
+    _, _, ctx_j, ctx_t = contexts
+    q_j, q_t = np.asarray(ctx_j.evecs), _np(ctx_t.evecs)
+    sign = np.sign(np.sum(q_j * q_t, axis=-2, keepdims=True))
+    assert np.max(np.abs(q_t * sign - q_j)) <= 1e-9
+    # The stacks hold W Q and so carry the eigenvectors' signs: compare the
+    # sign-free products of the two pair members per component c.
+    a_j, b_j = (np.asarray(s).reshape(9, 3, -1) for s in (ctx_j.pairA, ctx_j.pairB))
+    a_t, b_t = (_np(s).reshape(9, 3, -1) for s in (ctx_t.pairA, ctx_t.pairB))
+    o_j = np.einsum("icl,jcl->ijl", a_j, b_j)
+    o_t = np.einsum("icl,jcl->ijl", a_t, b_t)
+    assert _rel(o_t, o_j) <= 1e-9
+    np.testing.assert_array_equal(_np(ctx_t.row_pt), np.asarray(ctx_j.row_pt))
+    assert len(ctx_t.diagG) == len(ctx_j.diagG)
+
+
+@pytest.mark.parametrize("lam", [1e-2, 1e2])
+def test_solve_damped(contexts, lam):
+    """1e-9 relative where the damped normal matrix has a condition number
+    up to ~1e8 (lambda = 1e-2 on these problems); the gap of two correct
+    float64 solves grows with it (see the next test)."""
+    jp, tp, ctx_j, ctx_t = contexts
+    dxp_j, dxc_j = jschur.solve_damped(ctx_j, lam, jp, "cholesky")
+    dxp_t, dxc_t = schur.solve_damped(ctx_t, lam, tp, "cholesky")
+    print(f"gap solve_damped lam={lam}: dxc {_rel(dxc_t, dxc_j):.3g}, "
+          f"dxp {_rel(dxp_t, dxp_j):.3g}")
+    assert _rel(dxc_t, dxc_j) <= 1e-9
+    assert _rel(dxp_t, dxp_j) <= 1e-9
+    g_j = float(jschur.gradient_dot(ctx_j, dxp_j, dxc_j, lam))
+    g_t = float(schur.gradient_dot(ctx_t, dxp_t, dxc_t, lam))
+    assert abs(g_t - g_j) <= 1e-9 * abs(g_j)
+
+
+def _dense_step(jp, lam):
+    """The damped step from the dense normal equations, numpy float64, and
+    the condition number of the damped matrix."""
+    b = jjac.residuals_and_jacobian(jp.state, jp.obs, jp.tau2)
+    Jc, Jp, f = (np.asarray(x) for x in b)
+    n, m, k = jp.n_cameras, jp.n_points, Jc.shape[0]
+    cam, pt = np.asarray(jp.obs.cam_idx), np.asarray(jp.obs.pt_idx)
+    J = np.zeros((2 * k, 3 * m + 9 * n))
+    for i in range(k):
+        J[2 * i:2 * i + 2, 3 * pt[i]:3 * pt[i] + 3] = Jp[i]
+        J[2 * i:2 * i + 2, 3 * m + 9 * cam[i]:3 * m + 9 * cam[i] + 9] = Jc[i]
+    A = J.T @ J + lam * np.eye(J.shape[1])
+    x = np.linalg.solve(A, -J.T @ f.reshape(-1))
+    return x[:3 * m].reshape(m, 3), x[3 * m:].reshape(n, 9), np.linalg.cond(A)
+
+
+@pytest.mark.parametrize("lam", [1e-4, 1e-2])
+def test_solve_damped_as_accurate_as_jax(contexts, lam):
+    """Against the dense solve, the port's step is no farther off than the
+    JAX package's (condition numbers ~1e8-1e10 here)."""
+    jp, tp, ctx_j, ctx_t = contexts
+    xp, xc, cond = _dense_step(jp, lam)
+    dxp_j, dxc_j = jschur.solve_damped(ctx_j, lam, jp, "cholesky")
+    dxp_t, dxc_t = schur.solve_damped(ctx_t, lam, tp, "cholesky")
+    for name, got_t, got_j, want in (("dxp", dxp_t, dxp_j, xp),
+                                     ("dxc", dxc_t, dxc_j, xc)):
+        print(f"gap dense solve lam={lam} cond={cond:.3g} {name}: port "
+              f"{_rel(got_t, want):.3g}, JAX {_rel(got_j, want):.3g}, "
+              f"port-JAX {_rel(got_t, got_j):.3g}")
+        assert _rel(got_t, want) <= 2.0 * _rel(got_j, want) + 1e-12
+
+
+def test_initial_lambda(contexts):
+    _, _, ctx_j, ctx_t = contexts
+    l_j = float(jschur.initial_lambda(ctx_j, "cholesky"))
+    assert abs(float(schur.initial_lambda(ctx_t, "cholesky")) - l_j) <= 1e-9 * l_j
+
+
+@pytest.mark.parametrize("mode", ["qrchol", "qrkit", "moreqr", "spqr"])
+def test_other_modes_raise(contexts, mode):
+    _, tp, _, _ = contexts
+    with pytest.raises(NotImplementedError, match="not ported"):
+        lm.minimize(tp, mode=mode, device="cpu")
+
+
+def test_prepare_fast_matches_jax():
+    """The df32 prepare (plain chain -> Schur context), as the reference
+    package compares its own kernel against its plain path."""
+    jp = make_synthetic_problem(n_cameras=5, n_points=37, obs_per_point=5,
+                                seed=3, dtype=jnp.float64)
+    tp = convert.problem_from_numpy(convert.problem_to_numpy(jp), device="cpu")
+    ctx_j, e_j, lam_j = jlm._prepare_fast(jpm.to_fast(jp.state), jp,
+                                          "cholesky", "float32", pallas=False)
+    ctx_t, e_t, lam_t = lm._prepare_fast(pm.to_fast(tp.state), tp, "cholesky",
+                                         "float32", kernels=False)
+    for name in ("U", "V", "W", "g_cams", "g_pts"):
+        gap = _scaled(getattr(ctx_t, name), getattr(ctx_j, name))
+        print(f"gap df32 prepare {name} (of scale): {gap:.3g}")
+        assert gap <= 2e-4, (name, gap)
+    print(f"gap df32 prepare energy {abs(float(e_t) - float(e_j)) / float(e_j):.3g}, "
+          f"lambda0 {abs(float(lam_t) - float(lam_j)) / float(lam_j):.3g}")
+    assert float(e_t) == pytest.approx(float(e_j), rel=1e-5)
+    assert float(lam_t) == pytest.approx(float(lam_j), rel=1e-3)
