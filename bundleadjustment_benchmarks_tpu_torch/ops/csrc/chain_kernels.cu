@@ -3,183 +3,455 @@
 //
 // They replace the two Pallas TPU kernels of the reference package,
 // bundleadjustment_benchmarks_tpu/ops/pallas_chain.py:
-//   chain_blocks_kernel  <- _blocks_kernel (fused_blocks_energy)
-//   chain_energy_kernel  <- _energy_kernel (fused_energy)
+//   chain_blocks_kernel  <- _blocks_kernel (fused_blocks_energy): the 26
+//                           planar rows (26, K) float32 and the energy;
+//   chain_energy_kernel  <- _energy_kernel (fused_energy): the energy.
+// The per-observation math is chain_math.cuh; the energy is float64 hi + lo
+// of a DF sum over the first `valid` observations.
 //
-// Design: one thread per observation, 256 threads per block. Each thread
-// gathers its own operands by cam_idx[k] / pt_idx[k] (the camera pack is
-// (N, 27) float32 and stays in L2; points are DF hi/lo (3, M) rows), so the
-// TPU's pre-gathered tiles are not needed. The per-observation math is
-// chain_math.cuh. Both kernels are bound by device memory: per observation
-// the blocks kernel reads ~40 B and writes 104 B of rows, the energy kernel
-// only reads; ~250 float ops per observation are negligible next to that.
+// What bounds them on the H100 (stage_profile.py --chain; PERF.md). The
+// blocks kernel writes 104 B of rows per observation against ~24 B read
+// (indices, measurements; points and cameras are reused from L2): 25 MB at
+// K = 238k, so device memory once it runs (~2.2 TB/s measured). The energy
+// kernel reads ~5 MB and issues ~236 float instructions per observation
+// (none contracted under --fmad=false, plus IEEE division and square-root
+// sequences); once it runs it fills neither memory (~1 TB/s) nor issue (a
+// third of the rate): with <= 2 observations per thread the latency of the
+// dependent gathers (index -> point and camera) stays exposed. Both pay
+// fixed costs: the launch, the cold chain before the first observation can
+// start, the camera staging and the cross-block energy fold at the end.
 //
-// Energy: each block reduces its threads' DF energies with a fixed shared-
-// memory tree of DF adds and writes one DF partial; chain_sum_kernel then
-// tree-sums the partials in DF in one block and writes hi + lo as float64.
-// No atomics, so repeat launches give bit-identical energies (the LM accept
-// test and the 1e-8 flatline test compare them). Observations at or past
-// valid_count contribute exact zeros (the reference's _valid_mask).
+// Design:
+//  * One launch per call. The grid is as many blocks as the card holds at
+//    once (resident blocks per SM x SMs, by the occupancy API), capped at
+//    what the observations need; threads walk the observations with a
+//    fixed grid stride.
+//  * Memory-level parallelism: the indices of the observation after next
+//    and the operands of the next one are loaded before the current one is
+//    computed, so the dependent gathers of two observations overlap.
+//  * The cameras are read as the state holds them (float64 R, T, K, k1, k2)
+//    and split into DF halves exactly as twofloat.from_f64 does, so no
+//    camera pack is built per call. Each block first splits every camera
+//    into shared memory ((N, 27) float32), so the float64 conversions (16
+//    per clock per SM) run once per camera and block, not once per
+//    observation, and the per-observation camera reads are shared memory
+//    reads instead of divergent global gathers. It stages only while the
+//    table fits and leaves the blocks resident per SM as registers allow
+//    (N up to ~1,050 on the H100); past that, each observation fetches and
+//    splits its own camera. Staging was measured only at N = 257.
+//  * Deterministic single-pass energy: each thread keeps a DF partial in
+//    registers, a warp folds with __shfl_down_sync DF adds, the block's
+//    warps fold in one shared-memory step, and each block writes one DF
+//    partial. The last block to finish (a __threadfence + atomicAdd ticket)
+//    folds the partials in block-index order, writes hi + lo as float64 and
+//    resets the ticket to 0. Every sum's order is fixed by the grid, not by
+//    arrival, so repeat launches are bit-identical (the LM accept test and
+//    the 1e-8 flatline test compare energies). The caller owns the ticket
+//    and the partials (one workspace per device and stream).
+// Row stores stay coalesced: thread k writes rows[r * K + k].
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chain_math.cuh"
 
+// The split camera table, (N, 27) float32, when a kernel stages it.
+extern __shared__ float staged_cams[];
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSumThreads = 1024;
+// 512 measured best of 256, 512 and 1024 (PERF.md).
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxDevices = 64;
 
 struct Operands {
-  const float *cam;     // (N, 27)
-  const float *pts_hi;  // (3, M)
-  const float *pts_lo;  // (3, M)
-  const float *meas;    // (2, K)
-  const int *cam_idx;   // (K,)
-  const int *pt_idx;    // (K,)
-  int K, M, valid;
+  const double *R;     // (N, 3, 3)
+  const double *T;     // (N, 3)
+  const double *Kmat;  // (N, 3, 3); the focal length is K[n, 0, 0]
+  const double *k1;    // (N,)
+  const double *k2;    // (N,)
+  const float *pts_hi; // (3, M)
+  const float *pts_lo; // (3, M)
+  const float *meas;   // (2, K)
+  const int *cam_idx;  // (K,)
+  const int *pt_idx;   // (K,)
+  int N, K, M;
+  int valid;  // observations in the energy, 0 <= valid <= K
   float tau2;
 };
 
-__device__ __forceinline__ void load_point(const Operands &op, int k,
-                                           float xh[3], float xl[3]) {
-  const int p = __ldg(op.pt_idx + k);
+// The caller's workspace: the ticket and one DF partial per block.
+struct Scratch {
+  unsigned *ticket;
+  float *part;
+  double *energy;
+};
+
+// One camera as the state holds it: R (9), T (3), K[0, 0], k1, k2.
+__device__ __forceinline__ void fetch_cam(const Operands &op, int c,
+                                          double d[15]) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) d[i] = __ldg(op.R + (size_t)c * 9 + i);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) d[9 + i] = __ldg(op.T + (size_t)c * 3 + i);
+  d[12] = __ldg(op.Kmat + (size_t)c * 9);
+  d[13] = __ldg(op.k1 + c);
+  d[14] = __ldg(op.k2 + c);
+}
+
+// The camera pack of projection.planar_camera_pack: R and T split as
+// twofloat.from_f64 (hi = (float)x, lo = (float)(x - (double)hi)), the
+// focal length, k1 and k2 cast to float.
+__device__ __forceinline__ void split_cam(const double d[15],
+                                          float cam[chain::kCamPack]) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    cam[i] = (float)d[i];
+    cam[9 + i] = (float)(d[i] - (double)cam[i]);
+  }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    xh[i] = __ldg(op.pts_hi + (size_t)i * op.M + p);
-    xl[i] = __ldg(op.pts_lo + (size_t)i * op.M + p);
+    cam[18 + i] = (float)d[9 + i];
+    cam[21 + i] = (float)(d[9 + i] - (double)cam[18 + i]);
   }
+  cam[24] = (float)d[12];
+  cam[25] = (float)d[13];
+  cam[26] = (float)d[14];
 }
 
-__device__ __forceinline__ void load_cam(const Operands &op, int k,
-                                         float cam[chain::kCamPack]) {
-  const float *src = op.cam + (size_t)__ldg(op.cam_idx + k) * chain::kCamPack;
+// One observation's operands, loaded ahead of its computation.
+struct Gathered {
+  int c;
+  float xh[3], xl[3], m0, m1;
+};
+
+__device__ __forceinline__ void gather(const Operands &op, int k, int c, int p,
+                                       Gathered &g) {
+  g.c = c;
 #pragma unroll
-  for (int i = 0; i < chain::kCamPack; ++i) cam[i] = __ldg(src + i);
+  for (int i = 0; i < 3; ++i) {
+    g.xh[i] = __ldg(op.pts_hi + (size_t)i * op.M + p);
+    g.xl[i] = __ldg(op.pts_lo + (size_t)i * op.M + p);
+  }
+  g.m0 = __ldg(op.meas + k);
+  g.m1 = __ldg(op.meas + op.K + k);
 }
 
-// Fixed-shape DF tree over the block; thread 0 writes the block's partial.
-__device__ __forceinline__ void block_reduce_store(chain::DF v, float *part) {
-  __shared__ float sh[kThreads], sl[kThreads];
-  const int t = threadIdx.x;
-  sh[t] = v.hi;
-  sl[t] = v.lo;
+// DF sum over the warp in a fixed shuffle tree; lane 0 holds it.
+__device__ __forceinline__ chain::DF warp_sum(chain::DF v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const chain::DF o{__shfl_down_sync(0xffffffffu, v.hi, off),
+                      __shfl_down_sync(0xffffffffu, v.lo, off)};
+    v = chain::df_add(v, o);
+  }
+  return v;
+}
+
+// DF sum over the block in a fixed order; thread 0 holds it. Every thread
+// of the block must call it.
+__device__ __forceinline__ chain::DF block_sum(chain::DF v) {
+  __shared__ float sh[kWarps], sl[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) {
+    sh[warp] = v.hi;
+    sl[warp] = v.lo;
+  }
   __syncthreads();
-#pragma unroll
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      chain::DF r = chain::df_add(chain::DF{sh[t], sl[t]},
-                                  chain::DF{sh[t + s], sl[t + s]});
-      sh[t] = r.hi;
-      sl[t] = r.lo;
-    }
-    __syncthreads();
+  if (warp == 0) {
+    v = lane < kWarps ? chain::DF{sh[lane], sl[lane]} : chain::DF{0.0f, 0.0f};
+    v = warp_sum(v);
   }
-  if (t == 0) {
-    part[2 * blockIdx.x] = sh[0];
-    part[2 * blockIdx.x + 1] = sl[0];
-  }
+  return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    chain_blocks_kernel(Operands op, float *__restrict__ rows,
-                        float *__restrict__ part) {
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  chain::DF v{0.0f, 0.0f};
-  if (k < op.K) {
-    float cam[chain::kCamPack], xh[3], xl[3], out[chain::kBlockRows];
-    load_cam(op, k, cam);
-    load_point(op, k, xh, xl);
-    chain::blocks_chain(cam, xh, xl, __ldg(op.meas + k),
-                        __ldg(op.meas + op.K + k), op.tau2, out);
-#pragma unroll
-    for (int r = 0; r < chain::kBlockRows; ++r)
-      rows[(size_t)r * op.K + k] = out[r];
-    if (k < op.valid)
-      v = chain::df_add(chain::prod_ff(out[0], out[0]),
-                        chain::prod_ff(out[1], out[1]));
+// The block's partial, then the last block's fold of all partials.
+__device__ __forceinline__ void finish_energy(chain::DF v, const Scratch &s) {
+  __shared__ bool last;
+  v = block_sum(v);
+  if (threadIdx.x == 0) {
+    s.part[2 * blockIdx.x] = v.hi;
+    s.part[2 * blockIdx.x + 1] = v.lo;
+    __threadfence();
+    last = atomicAdd(s.ticket, 1u) == gridDim.x - 1;
   }
-  block_reduce_store(v, part);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    chain_energy_kernel(Operands op, float *__restrict__ part) {
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  chain::DF v{0.0f, 0.0f};
-  if (k < op.K && k < op.valid) {
-    float cam[chain::kCamPack], xh[3], xl[3];
-    load_cam(op, k, cam);
-    load_point(op, k, xh, xl);
-    chain::DF RX[3], XX[3];
-    chain::transform_df(cam, xh, xl, RX, XX);
-    v = chain::energy_df(cam, XX, __ldg(op.meas + k),
-                         __ldg(op.meas + op.K + k), op.tau2);
-  }
-  block_reduce_store(v, part);
-}
-
-// One block: strided DF accumulation in a fixed order, then a fixed tree.
-__global__ void __launch_bounds__(kSumThreads)
-    chain_sum_kernel(const float *__restrict__ part, int n,
-                     double *__restrict__ out) {
-  __shared__ float sh[kSumThreads], sl[kSumThreads];
-  const int t = threadIdx.x;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
   chain::DF acc{0.0f, 0.0f};
-  for (int i = t; i < n; i += kSumThreads)
-    acc = chain::df_add(acc, chain::DF{part[2 * i], part[2 * i + 1]});
-  sh[t] = acc.hi;
-  sl[t] = acc.lo;
-  __syncthreads();
-  for (int s = kSumThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      chain::DF r = chain::df_add(chain::DF{sh[t], sl[t]},
-                                  chain::DF{sh[t + s], sl[t + s]});
-      sh[t] = r.hi;
-      sl[t] = r.lo;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads)
+    acc = chain::df_add(acc, chain::DF{__ldcg(s.part + 2 * b),
+                                       __ldcg(s.part + 2 * b + 1)});
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) {
+    *s.energy = (double)acc.hi + (double)acc.lo;
+    *s.ticket = 0u;
+  }
+}
+
+// One body for both kernels: kBlocks writes the rows of all K observations
+// and sums f0^2 + f1^2 over the first `valid`; the energy kernel visits
+// only the first `valid`. kStaged: the block first splits every camera into
+// shared memory; else each observation fetches and splits its camera.
+template <bool kBlocks, bool kStaged>
+__device__ __forceinline__ void chain_body(const Operands &op,
+                                           float *__restrict__ rows,
+                                           const Scratch &s) {
+  const int n = kBlocks ? op.K : op.valid;
+  const int stride = gridDim.x * kThreads;
+  int k = blockIdx.x * kThreads + threadIdx.x;
+  int kn = k + stride;
+  // Loads first, in the order nothing waits: the indices of this and the
+  // next observation and this thread's first staged camera; then this
+  // observation's operands (which wait on its indices); then the staging.
+  int c = 0, p = 0, cn = 0, pn = 0;
+  if (k < n) {
+    c = __ldg(op.cam_idx + k);
+    p = __ldg(op.pt_idx + k);
+  }
+  if (kn < n) {
+    cn = __ldg(op.cam_idx + kn);
+    pn = __ldg(op.pt_idx + kn);
+  }
+  double d[15];
+  if (kStaged && (int)threadIdx.x < op.N) fetch_cam(op, threadIdx.x, d);
+  Gathered g;
+  if (k < n) gather(op, k, c, p, g);
+  if (kStaged) {
+    for (int i = threadIdx.x; i < op.N; i += kThreads) {
+      if (i != (int)threadIdx.x) fetch_cam(op, i, d);
+      float cam[chain::kCamPack];
+      split_cam(d, cam);
+#pragma unroll
+      for (int j = 0; j < chain::kCamPack; ++j)
+        staged_cams[i * chain::kCamPack + j] = cam[j];
     }
     __syncthreads();
   }
-  if (t == 0) out[0] = (double)sh[0] + (double)sl[0];
+  chain::DF acc{0.0f, 0.0f};
+  for (; k < n; k += stride, kn += stride) {
+    const Gathered cur = g;
+    if (kn < n) {
+      gather(op, kn, cn, pn, g);
+      const int knn = kn + stride;
+      if (knn < n) {
+        cn = __ldg(op.cam_idx + knn);
+        pn = __ldg(op.pt_idx + knn);
+      }
+    }
+    float cam[chain::kCamPack];
+    if (kStaged) {
+      const float *src = staged_cams + cur.c * chain::kCamPack;
+#pragma unroll
+      for (int j = 0; j < chain::kCamPack; ++j) cam[j] = src[j];
+    } else {
+      fetch_cam(op, cur.c, d);
+      split_cam(d, cam);
+    }
+    if (kBlocks) {
+      float out[chain::kBlockRows];
+      chain::blocks_chain(cam, cur.xh, cur.xl, cur.m0, cur.m1, op.tau2, out);
+#pragma unroll
+      for (int r = 0; r < chain::kBlockRows; ++r)
+        rows[(size_t)r * op.K + k] = out[r];
+      if (k < op.valid)
+        acc = chain::df_add(acc, chain::df_add(chain::prod_ff(out[0], out[0]),
+                                               chain::prod_ff(out[1], out[1])));
+    } else {
+      chain::DF RX[3], XX[3];
+      chain::transform_df(cam, cur.xh, cur.xl, RX, XX);
+      acc = chain::df_add(
+          acc, chain::energy_df(cam, XX, cur.m0, cur.m1, op.tau2));
+    }
+  }
+  finish_energy(acc, s);
 }
 
-int n_blocks(int K) { return K > 0 ? (K + kThreads - 1) / kThreads : 1; }
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    chain_blocks_kernel(Operands op, float *__restrict__ rows, Scratch s) {
+  chain_body<true, kStaged>(op, rows, s);
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    chain_energy_kernel(Operands op, float *__restrict__ rows, Scratch s) {
+  chain_body<false, kStaged>(op, rows, s);
+}
+
+using Kernel = void (*)(Operands, float *, Scratch);
+enum Which { kBlocksKernel = 0, kEnergyKernel = 1 };
+// By Which, then staged.
+const Kernel kKernels[2][2] = {
+    {chain_blocks_kernel<false>, chain_blocks_kernel<true>},
+    {chain_energy_kernel<false>, chain_energy_kernel<true>}};
+
+// What a launch needs to know of the current device, found once per device:
+// SMs, thread slots per SM and the shared memory a block may opt in to; and,
+// per kernel, the resident blocks per SM unstaged and staged (for the last
+// staging size asked).
+struct Device {
+  int sms = 0, threads_per_sm = 0, smem_optin = 0;
+  int plain_per_sm[2] = {-1, -1};
+  int staged_smem[2] = {-1, -1}, staged_per_sm[2] = {};
+};
+
+cudaError_t device(Device **out) {
+  static Device devices[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Device &d = devices[dev];
+  if (d.sms == 0) {
+    int sms = 0, threads = 0, optin = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    for (int w = 0; w < 2 && err == cudaSuccess; ++w)
+      err = cudaFuncSetAttribute(kKernels[w][1],
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin - 1024);  // the static shared memory
+    if (err != cudaSuccess) return err;
+    d.threads_per_sm = threads;
+    d.smem_optin = optin - 1024;
+    d.sms = sms;
+  }
+  *out = &d;
+  return cudaSuccess;
+}
+
+struct Shape {
+  Kernel kernel;
+  int grid, per_sm, smem;
+  bool staged;
+};
+
+// The launch of kernel `which` for these operands: staged when the split
+// cameras fit in a block's shared memory and staging keeps as many blocks
+// resident per SM as the unstaged kernel (registers allow 2 of 512 per SM,
+// so up to ~1,050 cameras on the H100); as many blocks as the card holds at
+// once, but no more than the observations need.
+cudaError_t shape_for(int which, const Operands &op, Shape *out) {
+  Device *d;
+  cudaError_t err = device(&d);
+  if (err != cudaSuccess) return err;
+  if (d->plain_per_sm[which] < 0) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kKernels[which][0], kThreads, 0);
+    if (err != cudaSuccess) return err;
+    d->plain_per_sm[which] = per_sm;
+  }
+  const int smem = op.N * chain::kCamPack * (int)sizeof(float);
+  bool staged = smem <= d->smem_optin;
+  if (staged && d->staged_smem[which] != smem) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kKernels[which][1], kThreads, smem);
+    if (err != cudaSuccess) return err;
+    d->staged_per_sm[which] = per_sm;
+    d->staged_smem[which] = smem;
+  }
+  staged = staged && d->staged_per_sm[which] >= d->plain_per_sm[which];
+  const int per_sm =
+      staged ? d->staged_per_sm[which] : d->plain_per_sm[which];
+  const int n = which == kBlocksKernel ? op.K : op.valid;
+  const int need = n > 0 ? (n + kThreads - 1) / kThreads : 1;
+  const int resident = per_sm * d->sms;
+  *out = Shape{kKernels[which][staged],
+               need < resident ? need : (resident > 0 ? resident : 1), per_sm,
+               staged ? smem : 0, staged};
+  return cudaSuccess;
+}
+
+Operands operands(const double *R, const double *T, const double *Kmat,
+                  const double *k1, const double *k2, const float *pts_hi,
+                  const float *pts_lo, const float *meas, const int *cam_idx,
+                  const int *pt_idx, int N, int K, int M, int valid,
+                  float tau2) {
+  valid = valid < 0 ? 0 : (valid > K ? K : valid);
+  return Operands{R,      T,       Kmat,   k1, k2, pts_hi, pts_lo, meas,
+                  cam_idx, pt_idx, N, K, M, valid, tau2};
+}
+
+int launch(int which, const Operands &op, float *rows, int *workspace,
+           double *energy, void *stream) {
+  Shape sh;
+  cudaError_t err = shape_for(which, op, &sh);
+  if (err != cudaSuccess) return (int)err;
+  const Scratch s{reinterpret_cast<unsigned *>(workspace),
+                  reinterpret_cast<float *>(workspace + 1), energy};
+  sh.kernel<<<sh.grid, kThreads, sh.smem,
+              static_cast<cudaStream_t>(stream)>>>(op, rows, s);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// Number of DF partials (float pairs) the launches below need as scratch.
-int chain_num_partials(int K) { return n_blocks(K); }
-
-// rows: (26, K) float32 out; part: 2 * chain_num_partials(K) float32
-// scratch; energy: one float64 out. Returns the CUDA error of the launches.
-int chain_blocks(const float *cam, const float *pts_hi, const float *pts_lo,
-                 const float *meas, const int *cam_idx, const int *pt_idx,
-                 int K, int M, int valid, float tau2, float *rows,
-                 float *part, double *energy, void *stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Operands op{cam, pts_hi, pts_lo, meas, cam_idx, pt_idx, K, M, valid, tau2};
-  const int nb = n_blocks(K);
-  chain_blocks_kernel<<<nb, kThreads, 0, st>>>(op, rows, part);
-  cudaError_t err = cudaGetLastError();
+// int32 words of the workspace the launches need on the current device: a
+// ticket (zero between launches) and one DF partial per block of the
+// largest grid the device can hold at once.
+int chain_workspace_words(int *words) {
+  Device *d;
+  cudaError_t err = device(&d);
   if (err != cudaSuccess) return (int)err;
-  chain_sum_kernel<<<1, kSumThreads, 0, st>>>(part, nb, energy);
-  return (int)cudaGetLastError();
+  *words = 1 + 2 * d->sms * (d->threads_per_sm / kThreads);
+  return 0;
 }
 
-int chain_energy(const float *cam, const float *pts_hi, const float *pts_lo,
-                 const float *meas, const int *cam_idx, const int *pt_idx,
-                 int K, int M, int valid, float tau2, float *part,
-                 double *energy, void *stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Operands op{cam, pts_hi, pts_lo, meas, cam_idx, pt_idx, K, M, valid, tau2};
-  const int nb = n_blocks(K);
-  chain_energy_kernel<<<nb, kThreads, 0, st>>>(op, part);
-  cudaError_t err = cudaGetLastError();
+// The launch of kernel `which` (0 blocks, 1 energy) for N cameras and K
+// observations, `valid` of them in the energy: out = {grid, threads,
+// resident blocks per SM, SMs, staged (0 or 1)}.
+int chain_launch_shape(int which, int N, int K, int valid, int *out) {
+  Device *d;
+  Shape sh;
+  cudaError_t err = device(&d);
+  if (err == cudaSuccess)
+    err = shape_for(which,
+                    operands(nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, nullptr, N, K,
+                             0, valid, 0.0f),
+                    &sh);
   if (err != cudaSuccess) return (int)err;
-  chain_sum_kernel<<<1, kSumThreads, 0, st>>>(part, nb, energy);
-  return (int)cudaGetLastError();
+  out[0] = sh.grid;
+  out[1] = kThreads;
+  out[2] = sh.per_sm;
+  out[3] = d->sms;
+  out[4] = sh.staged;
+  return 0;
+}
+
+// rows: (26, K) float32 out; workspace: chain_workspace_words int32, its
+// first word 0; energy: one float64 out. Returns the launch's CUDA error.
+int chain_blocks(const double *R, const double *T, const double *Kmat,
+                 const double *k1, const double *k2, const float *pts_hi,
+                 const float *pts_lo, const float *meas, const int *cam_idx,
+                 const int *pt_idx, int N, int K, int M, int valid, float tau2,
+                 float *rows, int *workspace, double *energy, void *stream) {
+  return launch(kBlocksKernel,
+                operands(R, T, Kmat, k1, k2, pts_hi, pts_lo, meas, cam_idx,
+                         pt_idx, N, K, M, valid, tau2),
+                rows, workspace, energy, stream);
+}
+
+int chain_energy(const double *R, const double *T, const double *Kmat,
+                 const double *k1, const double *k2, const float *pts_hi,
+                 const float *pts_lo, const float *meas, const int *cam_idx,
+                 const int *pt_idx, int N, int K, int M, int valid, float tau2,
+                 int *workspace, double *energy, void *stream) {
+  return launch(kEnergyKernel,
+                operands(R, T, Kmat, k1, k2, pts_hi, pts_lo, meas, cam_idx,
+                         pt_idx, N, K, M, valid, tau2),
+                nullptr, workspace, energy, stream);
 }
 
 const char *chain_error_string(int err) {

@@ -11,12 +11,12 @@ Replaces the two Pallas TPU kernels of the reference package
 
 The kernels (csrc/chain_kernels.cu, math in csrc/chain_math.cuh) are built on
 first use with nvcc for sm_90a into ``_build/`` beside the package and bound
-through ctypes. Each kernel has its plain PyTorch version beside it
-(``*_plain``). The wrappers take the plain version only for tensors on the
-CPU; on a CUDA tensor they launch the kernel or raise. Every launch adds one
-to ``LAUNCHES``.
-
-Both kernels are bound by device memory (see chain_kernels.cu).
+through ctypes. Each entry point issues one device kernel: it reads the
+state's float64 cameras and DF points as they are and folds its energy in
+the same launch (see chain_kernels.cu). Each kernel has its plain PyTorch
+version beside it (``*_plain``). The wrappers take the plain version only for
+tensors on the CPU; on a CUDA tensor they launch the kernel or raise. Every
+launch adds one to ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -101,12 +101,15 @@ def load_library():
                           ptxas=log)
         lib = ctypes.CDLL(str(so))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.chain_blocks.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p, p, p]
+        operands = [p] * 10 + [i, i, i, i, f]
+        lib.chain_blocks.argtypes = operands + [p, p, p, p]
         lib.chain_blocks.restype = i
-        lib.chain_energy.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p, p]
+        lib.chain_energy.argtypes = operands + [p, p, p]
         lib.chain_energy.restype = i
-        lib.chain_num_partials.argtypes = [i]
-        lib.chain_num_partials.restype = i
+        lib.chain_workspace_words.argtypes = [p]
+        lib.chain_workspace_words.restype = i
+        lib.chain_launch_shape.argtypes = [i, i, i, i, p]
+        lib.chain_launch_shape.restype = i
         lib.chain_error_string.argtypes = [i]
         lib.chain_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -118,61 +121,102 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
+#: The kernels' workspaces (ticket + block partials), by (device, stream):
+#: two streams never share a ticket.
+_workspaces: dict = {}
+
+
+def _workspace(lib, dev: torch.device, stream: int) -> torch.Tensor:
+    ws = _workspaces.get((dev.index, stream))
+    if ws is None:
+        words = ctypes.c_int()
+        _raise(lib, "workspace", lib.chain_workspace_words(ctypes.byref(words)))
+        ws = torch.zeros(words.value, dtype=torch.int32, device=dev)
+        _workspaces[(dev.index, stream)] = ws
+    return ws
+
+
+def _raise(lib, what: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} failed: {lib.chain_error_string(err).decode()}")
+
+
 def launch(which: str, operands, tau2: float, valid_count=None):
-    """Check the operands, allocate the outputs and launch one chain kernel
-    (``which`` is "chain_blocks" or "chain_energy") on the current stream.
+    """Check the operands and launch one chain kernel (``which`` is
+    "chain_blocks" or "chain_energy") on the current stream.
 
     ``operands`` is ``chain_operands``'s tuple. Returns ((26, K) float32
     rows or None, float64 0-dim energy over the first ``valid_count``
     observations)."""
-    cam_nk, pts_hi, pts_lo, meas, cam_idx, pt_idx = operands
+    R, T, Kmat, k1, k2, pts_hi, pts_lo, meas, cam_idx, pt_idx = operands
     dev = pts_hi.device
+    k, n, m = cam_idx.shape[0], R.shape[0], pts_hi.shape[1]
+    f32, f64 = torch.float32, torch.float64
+    for t, name, dtype, shape in (
+            (R, "R", f64, (n, 3, 3)), (T, "T", f64, (n, 3)),
+            (Kmat, "K", f64, (n, 3, 3)), (k1, "k1", f64, (n,)),
+            (k2, "k2", f64, (n,)), (pts_hi, "pts_hi", f32, (3, m)),
+            (pts_lo, "pts_lo", f32, (3, m)),
+            (meas, "measurements_pl", f32, (2, k)),
+            (cam_idx, "cam_idx", torch.int32, (k,)),
+            (pt_idx, "pt_idx", torch.int32, (k,))):
+        _check(t, name, dtype, shape, dev)
     if dev.type != "cuda":
         raise ValueError(f"{which}: operands must be CUDA tensors, got {dev}")
-    k = cam_idx.shape[0]
-    n, m = cam_nk.shape[0], pts_hi.shape[1]
-    f32 = torch.float32
-    _check(cam_nk, "cam_pack", f32, (n, projection.CAM_PACK_ROWS), dev)
-    _check(pts_hi, "pts_hi", f32, (3, m), dev)
-    _check(pts_lo, "pts_lo", f32, (3, m), dev)
-    _check(meas, "measurements_pl", f32, (2, k), dev)
-    _check(cam_idx, "cam_idx", torch.int32, (k,), dev)
-    _check(pt_idx, "pt_idx", torch.int32, (k,), dev)
     valid = k if valid_count is None else int(valid_count)
     lib = load_library()
-    part = torch.empty(2 * lib.chain_num_partials(k), dtype=f32, device=dev)
-    energy = torch.empty((), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _workspace(lib, dev, stream).data_ptr()
+    energy = torch.empty((), dtype=f64, device=dev)
     ptrs = [t.data_ptr() for t in operands]
     if which == "chain_blocks":
         rows = torch.empty((jacobian.PLANAR_CHAIN_ROWS, k), dtype=f32, device=dev)
-        err = lib.chain_blocks(*ptrs, k, m, valid, float(tau2), rows.data_ptr(),
-                               part.data_ptr(), energy.data_ptr(), stream)
+        err = lib.chain_blocks(*ptrs, n, k, m, valid, float(tau2),
+                               rows.data_ptr(), ws, energy.data_ptr(), stream)
     elif which == "chain_energy":
         rows = None
-        err = lib.chain_energy(*ptrs, k, m, valid, float(tau2),
-                               part.data_ptr(), energy.data_ptr(), stream)
+        err = lib.chain_energy(*ptrs, n, k, m, valid, float(tau2), ws,
+                               energy.data_ptr(), stream)
     else:
         raise ValueError(f"unknown chain kernel {which!r}")
-    if err != 0:
-        raise RuntimeError(
-            f"{which} launch failed: {lib.chain_error_string(err).decode()}")
+    _raise(lib, f"{which} launch", err)
     LAUNCHES[which] += 1
     return rows, energy
 
 
+def launch_shape(which: str, n_cameras: int, k: int, valid_count=None) -> dict:
+    """The launch of ``which`` for ``n_cameras`` and ``k`` observations on
+    the current device: grid, threads, resident blocks per SM, SMs, the share
+    of one full wave the grid fills, observations per thread (the most), and
+    whether the block stages the split cameras in shared memory."""
+    lib = load_library()
+    out = (ctypes.c_int * 5)()
+    valid = k if valid_count is None else int(valid_count)
+    _raise(lib, "launch shape", lib.chain_launch_shape(
+        {"chain_blocks": 0, "chain_energy": 1}[which], n_cameras, k, valid,
+        out))
+    grid, threads, per_sm, sms, staged = out
+    n = k if which == "chain_blocks" else max(0, min(valid, k))
+    return {"grid": grid, "threads": threads, "blocks_per_sm": per_sm,
+            "sms": sms, "waves": grid / (per_sm * sms),
+            "obs_per_thread": -(-n // (grid * threads)),
+            "staged_cameras": bool(staged)}
+
+
 def chain_operands(fast, obs):
-    """The kernels' operands: the (N, 27) camera pack, the DF point rows
-    (3, M), the planar measurements (2, K) and the int32 indices (K,)."""
-    cam_nk = projection.planar_camera_pack(fast).T.contiguous()
-    return (cam_nk, fast.points.hi.contiguous(), fast.points.lo.contiguous(),
-            obs.measurements_pl, obs.cam_idx, obs.pt_idx)
+    """The kernels' operands as the state holds them: the float64 cameras R
+    (N, 3, 3), T (N, 3), K (N, 3, 3), k1 and k2 (N,) (split into DF halves
+    inside the kernel), the DF point rows (3, M), the planar measurements
+    (2, K) and the int32 indices (K,)."""
+    return (fast.R, fast.T, fast.K, fast.k1, fast.k2, fast.points.hi,
+            fast.points.lo, obs.measurements_pl, obs.cam_idx, obs.pt_idx)
 
 
 # -- plain PyTorch versions ------------------------------------------------------

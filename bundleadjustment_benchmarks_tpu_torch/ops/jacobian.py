@@ -5,8 +5,10 @@
 
 Camera column order: T(0:3), omega(3:6), f(6), k1(7), k2(8)
 (reference BAFunctor.h:126-261; left-multiplied incremental rotation).
-Both drives use the stable closed form of the robust outer factor
-(robust.outer_coeffs) instead of the reference's cancelling expression.
+The f64 Jacobian uses the reference's robust outer factor
+(robust.robust_outer_derivative), as the JAX package does; the df32 planar
+chain uses its stable closed form (robust.outer_coeffs), as the JAX package's
+df32 chain does.
 """
 
 from __future__ import annotations
@@ -77,12 +79,9 @@ def residuals_and_jacobian(state, obs, tau2, compute_dtype=None) -> JacobianBloc
     Jc = torch.cat([dp_dXX, dp_dw, xd[..., None], d_dk], dim=-1)  # (K, 2, 9)
     Jp = dp_dXX @ R
 
-    tau2_t = torch.tensor(tau2, dtype=r.dtype, device=r.device)
-    cr, cd = robust.outer_coeffs((r * r).sum(-1), tau2_t)
-    eye = torch.eye(2, dtype=r.dtype, device=r.device)
-    outer = cr[:, None, None] * (r[:, :, None] * r[:, None, :]) \
-        + cd[:, None, None] * eye
-    return JacobianBlocks(Jc=outer @ Jc, Jp=outer @ Jp, f=r * cd[:, None])
+    outer = robust.robust_outer_derivative(tau2, r)  # (K, 2, 2)
+    return JacobianBlocks(Jc=outer @ Jc, Jp=outer @ Jp,
+                          f=r * robust.robust_scale(tau2, r)[:, None])
 
 
 #: Row layout of the planar chain: f(2), Jc row0(9), Jc row1(9), Jp row0(3),

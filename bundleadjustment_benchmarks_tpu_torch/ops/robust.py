@@ -9,10 +9,14 @@ EPS_PSI_RESIDUAL = 1e-15
 
 
 def psi(tau2, r2):
-    """Smooth truncated quadratic: r2 (2 - r2/tau2)/4 if r2 < tau2 else tau2/4."""
-    return torch.where(
-        r2 < tau2, r2 * (2.0 - r2 / tau2) / 4.0, torch.full_like(r2, tau2 / 4.0)
-    )
+    """Smooth truncated quadratic: r2 (2 - r2/tau2)/4 if r2 < tau2 else tau2/4.
+    ``tau2`` is a Python float or a 0-dim tensor of r2's dtype."""
+    return torch.where(r2 < tau2, r2 * (2.0 - r2 / tau2) / 4.0, tau2 / 4.0)
+
+
+def psi_weight(tau2, r2):
+    """max(0, 1 - r2/tau2) (BAFunctor.h:148)."""
+    return torch.maximum(torch.zeros_like(r2), 1.0 - r2 / tau2)
 
 
 def robust_scale(tau2, r: torch.Tensor) -> torch.Tensor:
@@ -23,8 +27,32 @@ def robust_scale(tau2, r: torch.Tensor) -> torch.Tensor:
     )
 
 
+def robust_outer_derivative(tau2, r: torch.Tensor) -> torch.Tensor:
+    """2x2 outer derivative of the robustified residual with respect to the
+    raw residual, as the reference writes it (BAFunctor.h:227-242):
+        W/2 psi^-1/2 r r^T/|r| + sqrt(psi)/r^2 (|r| I - r r^T/|r|)
+    with eps guards on 1/sqrt(psi), 1/r^2 and 1/|r|; the JAX package's
+    expressions in its order. It cancels for small residuals (see
+    outer_coeffs) and is 0 at r = 0. The f64 Jacobian uses it; ``tau2``
+    becomes a 0-dim tensor, so its divisions are true divisions on CUDA too.
+    ``r`` is (..., 2); returns (..., 2, 2)."""
+    eps = torch.as_tensor(EPS_PSI_RESIDUAL, dtype=r.dtype, device=r.device)
+    tau2 = torch.as_tensor(tau2, dtype=r.dtype, device=r.device)
+    r2 = (r * r).sum(-1)
+    W = psi_weight(tau2, r2)
+    sqrt_psi = torch.sqrt(psi(tau2, r2))
+    rsqrt_psi = 1.0 / torch.maximum(eps, sqrt_psi)
+    rcp_r2 = 1.0 / torch.maximum(eps, r2)
+    rnorm_r = 1.0 / torch.maximum(eps, torch.sqrt(r2))
+    rrt = r[..., :, None] * r[..., None, :] * rnorm_r[..., None, None]
+    rI = torch.sqrt(r2)[..., None, None] * torch.eye(2, dtype=r.dtype,
+                                                     device=r.device)
+    return ((W / 2.0 * rsqrt_psi)[..., None, None] * rrt
+            + (sqrt_psi * rcp_r2)[..., None, None] * (rI - rrt))
+
+
 def outer_coeffs(rn2: torch.Tensor, tau2: torch.Tensor):
-    """Stable closed form of the robust 2x2 outer factor.
+    """Stable closed form of the robust 2x2 outer factor (the df32 chain).
 
     The reference's factor (BAFunctor.h:227-242) is out = cr r r^T + cd I with
     cr = (W/2 psi^-1/2 - sqrt(psi)/r^2)/|r|, a difference of nearly equal

@@ -7,7 +7,9 @@ csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
 in-repo BAL stand-ins, drives ``lm.minimize(mode="cholesky")`` on the df32
 drive (kernels on, p257 stand-in) and on the float64 drive (p16 stand-in),
 and fails on any disagreement. Each phase prints one JSON line; then come
-one line of per-kernel numbers, and last
+one line of per-kernel numbers (the kernel's and its entry point's device
+time, the host time to issue one call, the device operations one call
+issues, which must be 1, and the launch shape), and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the package beside it, it exits non-zero before printing any
 result. Imports nothing of JAX.
@@ -31,18 +33,21 @@ P16 = HERE / "data" / "problem-16-22106-pre.txt.gz"
 P257 = HERE / "data" / "problem-257-65132-pre.txt.gz"
 
 #: Published device-memory rate (bytes/s) and float32 peak (FLOP/s, outside
-#: the tensor cores) by card name (NVIDIA data sheets).
+#: the tensor cores, an FMA counted as two) by card name (NVIDIA data sheets).
 CARDS = (
     ("H100 PCIe", 2.0e12, 51e12),
     ("H100 NVL", 3.9e12, 60e12),
     ("H200", 4.8e12, 67e12),
     ("H100", 3.35e12, 67e12),
 )
-#: float32 operations per observation, counted from csrc/chain_math.cuh
-#: (two_prod = mul + fma; df_mul 9, df_add 11): the DF transform 180, the
-#: residual 18, the robust factor 12; blocks then add the Jacobian rows and
-#: the robust product (166) and the DF square sum (15), energy adds its DF
-#: square (15); each adds its share of the DF reduction trees (11).
+#: float32 instructions per observation, counted from csrc/chain_math.cuh
+#: (two_prod = mul + fma; df_mul 9, df_add 11). Built with --fmad=false, they
+#: issue as separate adds and multiplies (two_prod's one fma counts once), at
+#: half the FMA-counting peak (SMs x 128 lanes x clock). The DF transform
+#: 180, the residual 18, the robust factor 12; blocks then add the Jacobian
+#: rows and the robust product (166) and the DF square sum (15), energy adds
+#: its DF square (15); each adds one DF add into its running sum (11). The
+#: camera split into DF halves is per camera (N-sized) and is not counted.
 OPS_PER_OBS = {"chain_blocks": 180 + 18 + 12 + 166 + 15 + 11,
                "chain_energy": 180 + 18 + 12 + 15 + 11}
 #: The kernel rows must equal the plain version's bit for bit: both round
@@ -93,6 +98,57 @@ def time_ms(fn, reps: int, sleep_cycles: int, flush: torch.Tensor) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Median host time (µs) to issue one call of ``fn``, with no
+    synchronize inside the timing; the stream is drained every 10 calls,
+    outside it, so the launch queue never fills."""
+    times = []
+    for i in range(calls):
+        if i % 10 == 0:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def device_ops_per_call(fn) -> int:
+    """Device kernels and memory operations one call of ``fn`` issues, as
+    ``torch.profiler`` records them (after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def time_entry_points(cuda_chain, fast, obs, tau2, flush) -> dict:
+    """Per kernel: ``ms``, the kernel alone (``launch`` on operands built
+    beforehand); ``entry_ms``, the entry point a caller uses
+    (``fused_blocks_energy`` / ``fused_energy`` on a FastBAState), both by
+    ``time_ms``; ``host_us`` of the entry point; ``kernels_per_call``, the
+    device operations one entry-point call issues."""
+    sleep = int(2e7)  # ~10 ms: longer than the host's enqueue
+    ops = cuda_chain.chain_operands(fast, obs)
+    entry = {"chain_blocks": lambda: cuda_chain.fused_blocks_energy(fast, obs, tau2),
+             "chain_energy": lambda: cuda_chain.fused_energy(fast, obs, tau2)}
+    out = {}
+    for which, fn in entry.items():
+        out[which] = {
+            "ms": time_ms(lambda: cuda_chain.launch(which, ops, tau2), 20,
+                          sleep, flush),
+            "entry_ms": time_ms(fn, 20, sleep, flush),
+            "host_us": host_us(fn),
+            "kernels_per_call": device_ops_per_call(fn),
+        }
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; needs a GPU")
@@ -109,13 +165,15 @@ def main() -> None:
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     bw, fp32 = card_rates(kind)
+    op_rate = fp32 / 2  # float32 instructions per second, see OPS_PER_OBS
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-          "hbm_bytes_per_s": bw, "fp32_flop_per_s": fp32})
+          "hbm_bytes_per_s": bw, "fp32_flop_per_s": fp32,
+          "fp32_instr_per_s": op_rate})
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
 
     # -- build ---------------------------------------------------------------
@@ -148,10 +206,14 @@ def main() -> None:
             rows_p, eb_p = cuda_chain.chain_blocks_plain(fast, prob.obs, tau2)
             _, ee_k = cuda_chain.launch("chain_energy", ops, tau2)
             ee_p = cuda_chain.fused_energy_plain(fast, prob.obs, tau2)
-            repeats = [cuda_chain.launch("chain_energy", ops, tau2)[1].item()
+            # Back to back on one stream: each launch finds the ticket that
+            # the one before it reset.
+            repeats = [cuda_chain.launch("chain_energy", ops, tau2)[1]
                        for _ in range(3)]
-            repeats_b = [cuda_chain.launch("chain_blocks", ops, tau2)[1].item()
+            repeats_b = [cuda_chain.launch("chain_blocks", ops, tau2)[1]
                          for _ in range(3)]
+            repeats = [e.item() for e in repeats]
+            repeats_b = [e.item() for e in repeats_b]
             torch.cuda.synchronize()
             rows_err = (rows_k - rows_p).abs().max().item()
             case = {
@@ -176,13 +238,9 @@ def main() -> None:
             kern["chain_energy"]["max_abs_err"] = max(
                 kern["chain_energy"]["max_abs_err"], abs(ee_k.item() - ee_p.item()))
             if name == "p257" and state_name == "loaded":
-                sleep = int(2e7)  # ~10 ms: longer than the host's enqueue
-                case["blocks_ms"] = time_ms(
-                    lambda: cuda_chain.launch("chain_blocks", ops, tau2),
-                    20, sleep, flush)
-                case["energy_ms"] = time_ms(
-                    lambda: cuda_chain.launch("chain_energy", ops, tau2),
-                    20, sleep, flush)
+                timed = time_entry_points(cuda_chain, fast, prob.obs, tau2, flush)
+                case["blocks_ms"] = timed["chain_blocks"]["ms"]
+                case["energy_ms"] = timed["chain_energy"]["ms"]
                 case["blocks_plain_ms"] = time_ms(
                     lambda: cuda_chain.chain_blocks_plain(fast, prob.obs, tau2),
                     20, int(2e8), flush)
@@ -190,21 +248,21 @@ def main() -> None:
                     lambda: cuda_chain.fused_energy_plain(fast, prob.obs, tau2),
                     20, int(2e8), flush)
                 k_obs, n, m = prob.n_observations, prob.n_cameras, prob.n_points
-                # Each input read once, each output written once: the camera
-                # pack, the DF points (every point is observed), the
-                # measurements and both indices; the energy, and the rows.
-                inputs = 4 * (27 * n + 6 * m + 2 * k_obs + 2 * k_obs)
+                # Each input read once, each output written once: the float64
+                # cameras (R, T, K(0, 0), k1, k2), the DF points (every
+                # point is observed), the measurements and both indices; the
+                # energy, and the rows.
+                inputs = 8 * 15 * n + 4 * (6 * m + 2 * k_obs + 2 * k_obs)
                 for which, outputs in (("chain_blocks", 8 + 4 * 26 * k_obs),
                                        ("chain_energy", 8)):
                     t_bytes = (inputs + outputs) / bw * 1e3
-                    t_ops = OPS_PER_OBS[which] * k_obs / fp32 * 1e3
+                    t_ops = OPS_PER_OBS[which] * k_obs / op_rate * 1e3
                     kern[which].update(
                         bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops else "operations")
-                kern["chain_blocks"].update(ms=case["blocks_ms"],
-                                            plain_ms=case["blocks_plain_ms"])
-                kern["chain_energy"].update(ms=case["energy_ms"],
-                                            plain_ms=case["energy_plain_ms"])
+                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                        **timed[which], **cuda_chain.launch_shape(which, n, k_obs))
+                kern["chain_blocks"]["plain_ms"] = case["blocks_plain_ms"]
+                kern["chain_energy"]["plain_ms"] = case["energy_plain_ms"]
             cases.append(case)
     emit({"phase": "kernels", "load_seconds": load_s, "cases": cases})
     for c in cases:
@@ -218,6 +276,10 @@ def main() -> None:
               f"{where}: energy rel err {c['energy_rel_err']}")
         check(c["energy_repeats_identical"] and c["blocks_energy_repeats_identical"],
               f"{where}: repeat launches gave different energies")
+    for which, k in kern.items():
+        check(k["kernels_per_call"] == 1,
+              f"{which}: one entry-point call issued {k['kernels_per_call']} "
+              f"device operations, not 1")
 
     # -- main path, df32 drive with the kernels, p257 ---------------------------
     p257 = problems["p257"]

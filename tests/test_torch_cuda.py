@@ -6,6 +6,7 @@ Every test here needs a CUDA device and skips without one. The file imports
 nothing of JAX, so it runs where only the port is installed.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -68,9 +69,100 @@ def test_valid_count(p16_cuda, valid):
 def test_wrong_operands_raise(p16_cuda):
     prob, fast = p16_cuda
     ops = list(cuda_chain.chain_operands(fast, prob.obs))
-    ops[4] = ops[4].long()
+    ops[8] = ops[8].long()
     with pytest.raises(TypeError, match="cam_idx"):
         cuda_chain.launch("chain_blocks", ops, prob.tau2)
+
+
+@pytest.mark.parametrize("k", [1, 255, 257, 77391])
+def test_prefixes_match_plain(p16_cuda, k):
+    """Ragged grids: one observation, one short of a block, one past it,
+    all but one of p16."""
+    prob, fast = p16_cuda
+    obs = cuda_chain._prefix(prob.obs, k)
+    ops = cuda_chain.chain_operands(fast, obs)
+    rows_k, eb_k = cuda_chain.launch("chain_blocks", ops, prob.tau2)
+    _, ee_k = cuda_chain.launch("chain_energy", ops, prob.tau2)
+    rows_p, eb_p = cuda_chain.chain_blocks_plain(fast, obs, prob.tau2)
+    ee_p = cuda_chain.fused_energy_plain(fast, obs, prob.tau2)
+    assert rows_k.shape == (26, k)
+    assert torch.equal(rows_k, rows_p)
+    assert abs(eb_k.item() - eb_p.item()) <= 1e-12 * abs(eb_p.item())
+    assert abs(ee_k.item() - ee_p.item()) <= 1e-12 * abs(ee_p.item())
+
+
+def test_valid_count_zero_gives_zero(p16_cuda):
+    prob, fast = p16_cuda
+    ops = cuda_chain.chain_operands(fast, prob.obs)
+    rows, eb = cuda_chain.launch("chain_blocks", ops, prob.tau2, valid_count=0)
+    _, ee = cuda_chain.launch("chain_energy", ops, prob.tau2, valid_count=0)
+    assert eb.item() == 0.0 and ee.item() == 0.0
+    assert torch.equal(rows, cuda_chain.chain_blocks_plain(fast, prob.obs,
+                                                           prob.tau2)[0])
+
+
+@pytest.mark.parametrize("which", ["chain_blocks", "chain_energy"])
+def test_repeat_launches_identical(p16_cuda, which):
+    """Five launches, the first two back to back on one stream (the second
+    finds the ticket that the first reset), then three more, each after a
+    synchronize."""
+    prob, fast = p16_cuda
+    ops = cuda_chain.chain_operands(fast, prob.obs)
+    energies = [cuda_chain.launch(which, ops, prob.tau2)[1] for _ in range(2)]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        energies.append(cuda_chain.launch(which, ops, prob.tau2)[1])
+    values = [e.item() for e in energies]
+    assert len(set(values)) == 1, values
+
+
+@pytest.mark.parametrize("n", [1500, 2500])
+def test_cameras_past_shared_memory_match_plain(p16_cuda, n):
+    """With more cameras than a block can stage without losing resident
+    blocks (1,500 x 27 floats fit in the 227 KB a block may take, but then
+    one block of 512 threads fits per SM) or than it can stage at all
+    (2,500), each observation fetches and splits its own camera, at the
+    residency registers allow; the results are the same. The extra cameras
+    repeat camera 0 and are not observed."""
+    prob, fast = p16_cuda
+    assert cuda_chain.launch_shape("chain_blocks", prob.n_cameras,
+                                   prob.n_observations)["staged_cameras"]
+    pad = n - prob.n_cameras
+
+    def grow(t):
+        return torch.cat([t, t[:1].expand(pad, *t.shape[1:])]).contiguous()
+
+    wide = dataclasses.replace(fast, R=grow(fast.R), T=grow(fast.T),
+                               K=grow(fast.K), k1=grow(fast.k1),
+                               k2=grow(fast.k2))
+    for which in ("chain_blocks", "chain_energy"):
+        shape = cuda_chain.launch_shape(which, n, prob.n_observations)
+        assert not shape["staged_cameras"]
+        assert shape["blocks_per_sm"] >= cuda_chain.launch_shape(
+            which, prob.n_cameras, prob.n_observations)["blocks_per_sm"]
+    ops = cuda_chain.chain_operands(wide, prob.obs)
+    rows_k, eb_k = cuda_chain.launch("chain_blocks", ops, prob.tau2)
+    _, ee_k = cuda_chain.launch("chain_energy", ops, prob.tau2)
+    rows_p, eb_p = cuda_chain.chain_blocks_plain(fast, prob.obs, prob.tau2)
+    ee_p = cuda_chain.fused_energy_plain(fast, prob.obs, prob.tau2)
+    assert torch.equal(rows_k, rows_p)
+    assert abs(eb_k.item() - eb_p.item()) <= 1e-12 * abs(eb_p.item())
+    assert abs(ee_k.item() - ee_p.item()) <= 1e-12 * abs(ee_p.item())
+
+
+@pytest.mark.parametrize("bad", ["float32", "noncontiguous"])
+def test_cameras_must_be_contiguous_float64(p16_cuda, bad):
+    prob, fast = p16_cuda
+    ops = list(cuda_chain.chain_operands(fast, prob.obs))
+    if bad == "float32":
+        ops[0] = ops[0].float()
+        err, match = TypeError, "R has dtype"
+    else:
+        ops[0] = ops[0].transpose(1, 2)
+        err, match = ValueError, "R must be contiguous"
+    for which in ("chain_blocks", "chain_energy"):
+        with pytest.raises(err, match=match):
+            cuda_chain.launch(which, ops, prob.tau2)
 
 
 def test_minimize_goes_through_the_kernels(p16_cuda):

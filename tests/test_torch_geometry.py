@@ -16,13 +16,14 @@ from bundleadjustment_benchmarks_tpu.ops import jacobian as jjac
 from bundleadjustment_benchmarks_tpu.ops import linalg as jlinalg
 from bundleadjustment_benchmarks_tpu.ops import pallas_chain
 from bundleadjustment_benchmarks_tpu.ops import projection as jproj
+from bundleadjustment_benchmarks_tpu.ops import robust as jrobust
 from bundleadjustment_benchmarks_tpu.ops import rodrigues as jrod
 from bundleadjustment_benchmarks_tpu.ops import twofloat as jtf
 from bundleadjustment_benchmarks_tpu.utils.synthetic import make_synthetic_problem
 from bundleadjustment_benchmarks_tpu_torch import convert
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
 from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian, linalg
-from bundleadjustment_benchmarks_tpu_torch.ops import projection, rodrigues
+from bundleadjustment_benchmarks_tpu_torch.ops import projection, robust, rodrigues
 from bundleadjustment_benchmarks_tpu_torch.ops import twofloat as tf
 
 
@@ -70,9 +71,9 @@ def test_f64_residuals_and_energy(pair):
 
 
 def test_f64_jacobian_blocks(pair):
-    """The port uses the stable closed form of the robust factor in the f64
-    Jacobian too; the JAX package uses the reference's cancelling form.
-    In float64 the two agree far inside 1e-12."""
+    """Both packages use the reference's robust factor
+    (robust_outer_derivative) in the f64 Jacobian; the gaps are rounding of
+    the geometry and the batched products."""
     jp, tp = pair
     b_j = jjac.residuals_and_jacobian(jp.state, jp.obs, jp.tau2)
     b_t = jacobian.residuals_and_jacobian(tp.state, tp.obs, tp.tau2)
@@ -80,6 +81,43 @@ def test_f64_jacobian_blocks(pair):
         gap = _rel(getattr(b_t, name), getattr(b_j, name))
         print(f"gap f64 jacobian {name}: {gap:.3g}")
         assert gap <= 1e-12, (name, gap)
+
+
+def _robust_residuals(tau2):
+    """(K, 2) residuals at the robust factor's edges: exact zeros, tiny
+    values (one below its 1e-15 guard on |r|), inliers, |r|^2 == tau2
+    exactly, and outliers."""
+    rng = np.random.default_rng(11)
+    tau = np.sqrt(tau2)
+    boundary = np.array([[tau, 0.0], [0.0, -tau], [-tau, 0.0]])
+    assert np.all(np.sum(boundary * boundary, -1) == tau2)
+    return np.concatenate([
+        np.zeros((2, 2)),
+        [[1e-12, 0.0], [0.0, -1e-12], [3e-12, -4e-12], [1e-16, 1e-16]],
+        rng.uniform(-0.7, 0.7, size=(16, 2)) * tau,
+        boundary,
+        rng.normal(size=(16, 2)) * 10.0 ** rng.integers(1, 5, size=(16, 1)) * tau,
+    ])
+
+
+@pytest.mark.parametrize("tau2", [0.25, 0.390625, 4.0])
+def test_robust_outer_derivative_matches_jax(tau2):
+    """The f64 robust factor and residual scale as JAX computes them: within
+    1e-15 relative entry by entry, and exactly 0 at r = 0."""
+    r = _robust_residuals(tau2)
+    if tau2 == 0.390625:  # tau = 5/8: a 3-4-5 triangle on the boundary
+        r = np.concatenate([r, [[0.375, 0.5], [-0.5, 0.375]]])
+    for name in ("robust_outer_derivative", "robust_scale"):
+        want = np.asarray(getattr(jrobust, name)(tau2, jnp.asarray(r)))
+        got = _np(getattr(robust, name)(tau2, torch.from_numpy(r)))
+        assert got.shape == want.shape
+        zero = want == 0.0
+        np.testing.assert_array_equal(got[zero], 0.0)
+        gap = np.max(np.abs(got - want)[~zero] / np.abs(want[~zero]))
+        print(f"gap {name} tau2={tau2}: {gap:.3g}")
+        assert gap <= 1e-15, (name, gap)
+    assert np.all(_np(robust.robust_outer_derivative(tau2, torch.zeros(1, 2,
+                  dtype=torch.float64))) == 0.0)
 
 
 def test_df32_chain_matches_jax_xla(pair, fast_pair):
@@ -146,6 +184,37 @@ def test_wrappers_take_the_plain_version_on_cpu(pair, fast_pair):
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_chain.launch("chain_blocks",
                           cuda_chain.chain_operands(ft, tp.obs), tp.tau2)
+
+
+def test_chain_operands_are_the_state_tensors(pair, fast_pair):
+    """The kernels read the state as it is: no camera pack, no copies."""
+    _, tp = pair
+    _, ft = fast_pair
+    want = (ft.R, ft.T, ft.K, ft.k1, ft.k2, ft.points.hi, ft.points.lo,
+            tp.obs.measurements_pl, tp.obs.cam_idx, tp.obs.pt_idx)
+    ops = cuda_chain.chain_operands(ft, tp.obs)
+    assert len(ops) == len(want)
+    assert all(a is b for a, b in zip(ops, want))
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    ("float32", TypeError, "R has dtype"),
+    ("noncontiguous", ValueError, "R must be contiguous"),
+    ("shape", ValueError, "k1 has shape"),
+])
+def test_launch_checks_the_cameras(pair, fast_pair, bad, err, match):
+    """The wrapper checks every operand before it looks for a card."""
+    _, tp = pair
+    _, ft = fast_pair
+    ops = list(cuda_chain.chain_operands(ft, tp.obs))
+    if bad == "float32":
+        ops[0] = ops[0].float()
+    elif bad == "noncontiguous":
+        ops[0] = ops[0].transpose(1, 2)
+    else:
+        ops[3] = ops[3][:-1]
+    with pytest.raises(err, match=match):
+        cuda_chain.launch("chain_energy", ops, tp.tau2)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
