@@ -1,10 +1,13 @@
-"""Batched closed-form 3x3 linear algebra (elementwise tensor ops).
+"""Batched closed-form 3x3 linear algebra (elementwise tensor ops), plus
+the batched 3-column QR and the triangular solve of the QR solver modes.
 
 M independent 3x3 point blocks are factored in closed form instead of by a
 batched LAPACK call: pure elementwise arithmetic over (..., 3, 3) tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -147,3 +150,52 @@ def eigh3x3_sym(A: torch.Tensor):
     evals = torch.stack([lam_lo, lam_mid, lam_hi], -1) * s[..., None]
     evecs = torch.stack([v_lo, v_m, v_hi], -1)
     return evals, evecs
+
+
+def mgs_qr3(A: torch.Tensor, zero_deficient: bool = False):
+    """Thin QR of (..., m, 3) blocks by modified Gram-Schmidt, unrolled.
+
+    Returns (Q (..., m, 3), R (..., 3, 3) upper-triangular with a
+    non-negative diagonal). Zero rows contribute nothing, so ragged blocks
+    may be padded to a common m; the pivots are not floored (the augmented
+    [J; sqrt(lam) I] stacks are full rank).
+
+    ``zero_deficient=True`` is the rank guard for lambda-free stacks: a
+    pivot at or below sqrt(eps) of the block's Frobenius norm gives an
+    exactly zero Q column and R row, so Q's columns are orthonormal or zero
+    (points seen once have rank <= 2)."""
+    if zero_deficient:
+        fro = torch.sqrt((A * A).sum(dim=(-2, -1)))
+        tol = math.sqrt(torch.finfo(A.dtype).eps) * fro
+        tiny = torch.finfo(A.dtype).tiny
+
+        def pivot(v):
+            n = torch.sqrt((v * v).sum(-1))
+            ok = n > tol
+            q = torch.where(ok[..., None], v / torch.clamp(n, min=tiny)[..., None],
+                            torch.zeros_like(v))
+            return torch.where(ok, n, torch.zeros_like(n)), q
+    else:
+        def pivot(v):
+            n = torch.sqrt((v * v).sum(-1))
+            return n, v / n[..., None]
+
+    a1, a2, a3 = A[..., 0], A[..., 1], A[..., 2]
+    r11, q1 = pivot(a1)
+    r12 = (q1 * a2).sum(-1)
+    v2 = a2 - r12[..., None] * q1
+    r22, q2 = pivot(v2)
+    r13 = (q1 * a3).sum(-1)
+    v3 = a3 - r13[..., None] * q1
+    r23 = (q2 * v3).sum(-1)
+    v3 = v3 - r23[..., None] * q2
+    r33, q3 = pivot(v3)
+    zero = torch.zeros_like(r11)
+    Q = torch.stack([q1, q2, q3], dim=-1)
+    R = _stack33([[r11, r12, r13], [zero, r22, r23], [zero, zero, r33]])
+    return Q, R
+
+
+def solve_upper_triangular(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve R x = b for upper-triangular R (n, n) and b (n,)."""
+    return torch.linalg.solve_triangular(R, b[:, None], upper=True)[:, 0]

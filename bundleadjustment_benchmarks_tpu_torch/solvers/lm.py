@@ -20,9 +20,10 @@ drive) and then damping ``trial``s (the reduced solve, the manifold step and
 the trial energy, ``cuda_chain.fused_energy`` on the df32 drive). The loop is
 plain Python over device-resident tensors: the host reads the trial energy
 and rho's denominator once per trial (with the outer energy on the first
-trial) for the accept test, and the reduced solve reads its Cholesky
-breakdown flag once. LM scalars (lambda, nu, energies) are Python floats,
-i.e. float64.
+trial) for the accept test, a float32 Cholesky camera solve reads its
+breakdown flag once, and qrkit's prepare on a problem without pair tables
+reads the error flag of its one ``torch.linalg.eigh``. LM scalars (lambda, nu, energies)
+are Python floats, i.e. float64.
 """
 
 from __future__ import annotations
@@ -85,6 +86,11 @@ class LMConfig:
     kernels: Optional[bool] = None
     #: History depth of the flatline test (BacktrackLevMarqCholesky.h:150).
     energy_history_size: int = 2
+    #: Iterative-refinement passes on each trial's step (schur.refine_step):
+    #: a float64 residual and a correction solve of the same system. Only
+    #: the chol camera solver (cholesky, qrchol, moreqr); qrkit and spqr
+    #: raise. 0 = off.
+    refine_steps: int = 0
 
     def use_kernels(self, device: torch.device) -> bool:
         if self.kernels and device.type != "cuda":
@@ -142,11 +148,20 @@ def _prepare_fast(fast, problem, mode: str, matmul_dtype: Optional[str] = None,
     return ctx, energy, schur.initial_lambda(ctx, mode).to(torch.float64)
 
 
+def _solve(ctx, lam: float, problem, mode: str, mm, refine: int):
+    """The damped step and ``refine`` refinement passes on it."""
+    dxp, dxc = schur.solve_damped(ctx, lam, problem, mode, mm_dtype=mm)
+    for _ in range(refine):
+        dxp, dxc = schur.refine_step(ctx, lam, problem, mode, dxp, dxc,
+                                     mm_dtype=mm)
+    return dxp, dxc
+
+
 def _trial(ctx, state, lam: float, problem, mode: str,
-           matmul_dtype: Optional[str] = None):
+           matmul_dtype: Optional[str] = None, refine: int = 0):
     """One damping trial: solve, step, trial energy, rho's denominator."""
     mm = _mm(matmul_dtype)
-    dxp, dxc = schur.solve_damped(ctx, lam, problem, mode, mm_dtype=mm)
+    dxp, dxc = _solve(ctx, lam, problem, mode, mm, refine)
     x_test = problem_mod.apply_step(state, dxp, dxc)
     e_test = projection.energy(x_test, problem.obs, problem.tau2,
                                compute_dtype=mm)
@@ -154,11 +169,12 @@ def _trial(ctx, state, lam: float, problem, mode: str,
 
 
 def _trial_fast(ctx, fast, lam: float, problem, mode: str,
-                matmul_dtype: Optional[str] = None, kernels: bool = False):
+                matmul_dtype: Optional[str] = None, kernels: bool = False,
+                refine: int = 0):
     """df32 damping trial: the solve runs at float32 lambda."""
     mm = _mm(matmul_dtype)
     lam32 = float(torch.tensor(lam, dtype=torch.float32))
-    dxp, dxc = schur.solve_damped(ctx, lam32, problem, mode, mm_dtype=mm)
+    dxp, dxc = _solve(ctx, lam32, problem, mode, mm, refine)
     x_test = problem_mod.apply_step_fast(fast, dxp, dxc)
     if kernels:
         e_test = cuda_chain.fused_energy(x_test, problem.obs, problem.tau2)
@@ -235,14 +251,20 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
              device=None) -> LMResult:
     """Run LM on a BA problem on ``device`` (CUDA unless the caller passes
     one, e.g. ``device="cpu"``; without CUDA and without ``device`` it
-    raises). The problem and state are moved there first. Only
-    ``mode="cholesky"`` is ported."""
+    raises). The problem and state are moved there first. ``mode`` is one
+    of ``schur.MODES`` (cholesky, qrchol, qrkit, moreqr, spqr), the
+    reference's five binaries as a runtime argument."""
     schur.check_mode(mode)
     config = config or LMConfig()
     dev = resolve_device(device)
     kernels = config.use_kernels(dev)
     if config.geometry not in (None, "df32"):
         raise ValueError(f"unknown geometry {config.geometry!r}")
+    if config.refine_steps and schur.MODE_STRATEGY[mode][1] != "chol":
+        raise ValueError(
+            f"refine_steps={config.refine_steps} needs the chol camera "
+            f"solver (cholesky, qrchol, moreqr); mode {mode!r} keeps its rhs "
+            "in its lambda-free cache")
     problem = problem.to(dev)
     state = problem.state if state is None else state.to(dev)
 
@@ -253,7 +275,8 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
 
         def trial(ctx, x, lam):
             return _trial_fast(ctx, x, lam, problem, mode,
-                               config.matmul_dtype, kernels=kernels)
+                               config.matmul_dtype, kernels=kernels,
+                               refine=config.refine_steps)
 
         x0 = problem_mod.to_fast(state)
     else:
@@ -261,7 +284,8 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
             return _prepare(x, problem, mode, config.matmul_dtype)
 
         def trial(ctx, x, lam):
-            return _trial(ctx, x, lam, problem, mode, config.matmul_dtype)
+            return _trial(ctx, x, lam, problem, mode, config.matmul_dtype,
+                          refine=config.refine_steps)
 
         x0 = state
     x, status, it, fun_evals, energy, lam = lm_loop(x0, prepare, trial, config)

@@ -6,8 +6,12 @@ Builds the chain kernels from ``bundleadjustment_benchmarks_tpu_torch/ops/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
 in-repo BAL stand-ins, drives ``lm.minimize(mode="cholesky")`` on the df32
 drive (kernels on, p257 stand-in) and on the float64 drive (p16 stand-in),
-and fails on any disagreement. Each phase prints one JSON line; then come
-one line of per-kernel numbers (the kernel's and its entry point's device
+then the other four solver modes (``modes_df32_p257``, ``modes_f64_p16``),
+every solve realization against cholesky's step (``modes_agree_p16``),
+qrkit's "rows" and "pair" forms (``qrkit_forms_p257``) and spqr's "gram"
+and "tsqr" forms (``spqr_forms_p257``), and fails on any disagreement.
+Each phase prints JSON lines with its wall time; then come one line of
+per-kernel numbers (the kernel's and its entry point's device
 time, the host time to issue one call, the device operations one call
 issues, which must be 1, and the launch shape), and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
@@ -17,6 +21,7 @@ result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -149,6 +154,199 @@ def time_entry_points(cuda_chain, fast, obs, tau2, flush) -> dict:
     return out
 
 
+def stage_ms(lm, prob, mode, x, lam, df32: bool, reps: int):
+    """Medians (ms) of ``reps`` prepares and of ``reps`` trials at loop
+    state ``x`` (a FastBAState on the df32 drive) and ``lam``, each ending
+    in a synchronize."""
+    times = {"prepare": [], "trial": []}
+    for _ in range(reps):
+        t = time.perf_counter()
+        if df32:
+            ctx, _, _ = lm._prepare_fast(x, prob, mode, "float32", kernels=True)
+        else:
+            ctx, _, _ = lm._prepare(x, prob, mode)
+        torch.cuda.synchronize()
+        times["prepare"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        if df32:
+            lm._trial_fast(ctx, x, lam, prob, mode, "float32", kernels=True)
+        else:
+            lm._trial(ctx, x, lam, prob, mode)
+        torch.cuda.synchronize()
+        times["trial"].append(time.perf_counter() - t)
+    return {f"{k}_ms_median": statistics.median(v) * 1e3 for k, v in times.items()}
+
+
+def drive_mode(pm, lm, cuda_chain, prob, mode: str, max_iter: int,
+               df32: bool, reps: int) -> tuple:
+    """``lm.minimize(mode)`` after a one-iteration warm-up, timed, with the
+    chain kernels' launches and the peak device memory of the run, then the
+    stage medians at its final state and lambda. Returns (line, result)."""
+    kw = dict(matmul_dtype="float32", geometry="df32") if df32 else {}
+    lm.minimize(prob, mode=mode, config=lm.LMConfig(max_iter=1, **kw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_chain.reset_launches()
+    t0 = time.perf_counter()
+    res = lm.minimize(prob, mode=mode, config=lm.LMConfig(max_iter=max_iter, **kw))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    line = {"mode": mode, "iterations": res.iterations,
+            "fun_evals": res.fun_evals, "status": res.status.name,
+            "final_energy": res.energy, "wall_s": wall,
+            "lm_iter_per_s": res.iterations / wall,
+            "launches": dict(cuda_chain.LAUNCHES),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    x = pm.to_fast(res.state) if df32 else res.state
+    line.update(stage_ms(lm, prob, mode, x, res.lam, df32, reps))
+    return line, res
+
+
+#: Realizations of the damped solve: (mode, form). qrkit runs "pair" with
+#: pair tables and "rows" without; spqr runs "gram". qrkit "gram" and spqr
+#: "tsqr" are the parity tests' reference (``schur._reference_step``).
+REALIZATIONS = (("cholesky", None), ("qrchol", None), ("moreqr", None),
+                ("qrkit", "rows"), ("qrkit", "gram"), ("qrkit", "pair"),
+                ("spqr", "gram"), ("spqr", "tsqr"))
+#: modes_agree_p16: every realization's float64 step within this relative
+#: gap of cholesky's, at lambda = AGREE_LAMBDA_FACTOR x cholesky's initial
+#: lambda (well damped; measured on the CPU: <= 8.4e-9, moreqr's eigenbasis
+#: back-substitution the widest).
+AGREE_LAMBDA_FACTOR = 1e4
+AGREE_RTOL = 1e-7
+
+
+def no_pairs(prob):
+    """The problem without its pair tables: qrkit then caches dense rows."""
+    return dataclasses.replace(prob, pairs=None)
+
+
+def realization_context(schur, blocks, prob, mode, form):
+    if mode == "qrkit" and form in ("rows", "gram"):
+        prob = no_pairs(prob)
+    return schur.build_context(blocks, prob, mode), prob
+
+
+def realization_step(schur, ctx, prob, mode, form, lam):
+    """(dxp, dxc) of one realization: qrkit "gram" and spqr "tsqr" by the
+    reference, the rest by ``solve_damped``."""
+    if (mode, form) in (("qrkit", "gram"), ("spqr", "tsqr")):
+        return schur._reference_step(ctx, lam, prob, mode)
+    return schur.solve_damped(ctx, lam, prob, mode)
+
+
+def modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi) -> None:
+    """The solver modes on the card: qrchol, moreqr, qrkit and spqr on the
+    p257 df32 drive with the kernels; all five on p16 float64; every
+    realization's step against cholesky's on one p16 context; qrkit's
+    "rows" and "pair" trial times and peak memory on p257, both drives;
+    spqr's "gram" and "tsqr" camera steps on p257 df32."""
+    p257, p16 = problems["p257"], problems["p16"]
+    t_phase = time.perf_counter()
+    e0 = cuda_chain.fused_energy(pm.to_fast(p257.state), p257.obs, p257.tau2).item()
+    lines = []
+    for mode in ("qrchol", "moreqr", "qrkit", "spqr"):
+        line, res = drive_mode(pm, lm, cuda_chain, p257, mode, max_iter=5,
+                               df32=True, reps=5)
+        line["initial_energy"] = e0
+        lines.append(line)
+        emit({"phase": "modes_df32_p257", **line, "nvidia_smi": smi})
+        pts = res.state.points
+        check(np.isfinite(res.energy) and res.energy < e0,
+              f"{mode} df32 p257: energy {res.energy} not finite and below {e0}")
+        check(bool(torch.isfinite(pts).all()), f"{mode} df32 p257: points not finite")
+        for which in ("chain_blocks", "chain_energy"):
+            check(line["launches"][which] > 0,
+                  f"{mode} df32 p257: {which} was not launched")
+    emit({"phase": "modes_df32_p257_done", "phase_s": time.perf_counter() - t_phase})
+
+    t_phase = time.perf_counter()
+    e0 = float(lm._prepare(p16.state, p16, "cholesky")[1])
+    for mode in ("cholesky", "qrchol", "moreqr", "qrkit", "spqr"):
+        line, res = drive_mode(pm, lm, cuda_chain, p16, mode, max_iter=10,
+                               df32=False, reps=5)
+        emit({"phase": "modes_f64_p16", **line, "initial_energy": e0,
+              "nvidia_smi": smi})
+        check(np.isfinite(res.energy) and res.energy < e0,
+              f"{mode} f64 p16: energy {res.energy} not finite and below {e0}")
+    emit({"phase": "modes_f64_p16_done", "phase_s": time.perf_counter() - t_phase})
+
+    t_phase = time.perf_counter()
+    blocks = jacobian.residuals_and_jacobian(p16.state, p16.obs, p16.tau2)
+    steps, gaps, lam = {}, {}, None
+    for mode, form in REALIZATIONS:
+        ctx, prob = realization_context(schur, blocks, p16, mode, form)
+        if lam is None:
+            lam = AGREE_LAMBDA_FACTOR * float(schur.initial_lambda(ctx, "cholesky"))
+        dxp, dxc = realization_step(schur, ctx, prob, mode, form, lam)
+        name = mode if form is None else f"{mode}-{form}"
+        steps[name] = torch.cat([dxp.reshape(-1), dxc.reshape(-1)])
+        ref = steps["cholesky"]
+        gaps[name] = ((steps[name] - ref).abs().max() / ref.abs().max()).item()
+    emit({"phase": "modes_agree_p16", "lambda": lam,
+          "lambda_rule": f"{AGREE_LAMBDA_FACTOR:g} x cholesky initial_lambda",
+          "rel_gap_to_cholesky": gaps, "tolerance": AGREE_RTOL,
+          "phase_s": time.perf_counter() - t_phase})
+    for name, gap in gaps.items():
+        check(np.isfinite(gap) and gap <= AGREE_RTOL,
+              f"modes_agree_p16: {name} step {gap} from cholesky's")
+    del ctx, steps
+
+    t_phase = time.perf_counter()
+    for df32 in (True, False):
+        for form, prob in (("rows", no_pairs(p257)), ("pair", p257)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            x = pm.to_fast(prob.state) if df32 else prob.state
+            if df32:
+                _, _, lam0 = lm._prepare_fast(x, prob, "qrkit", "float32",
+                                              kernels=True)
+            else:
+                _, _, lam0 = lm._prepare(x, prob, "qrkit")
+            line = stage_ms(lm, prob, "qrkit", x, float(lam0), df32, reps=5)
+            emit({"phase": "qrkit_forms_p257", "drive": "df32" if df32 else "f64",
+                  "form": form, "lambda": float(lam0), **line,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "nvidia_smi": smi})
+    emit({"phase": "qrkit_forms_p257_done", "phase_s": time.perf_counter() - t_phase})
+
+    # spqr's camera step at p257 df32, the loaded state and spqr's initial
+    # lambda (rounded to float32 as the trial rounds it): "gram", the path
+    # the port runs, against the Householder TSQR it replaced.
+    t_phase = time.perf_counter()
+    ctx, _, lam0 = lm._prepare_fast(pm.to_fast(p257.state), p257, "spqr",
+                                    "float32", kernels=True)
+    lam = float(torch.tensor(float(lam0), dtype=torch.float32))
+    Linv = schur._point_factor_inv(ctx, lam, "spqr", ctx.U.dtype)
+    steps = {}
+    for form, reps in (("gram", 5), ("tsqr", 3)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            if form == "gram":
+                dxc = schur.camera_solve_qr(ctx, lam, p257)
+            else:
+                dxc = schur._camera_solve_tsqr(ctx, lam, p257, Linv,
+                                               mm_dtype=torch.float32)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        steps[form] = dxc.double()
+        emit({"phase": "spqr_forms_p257", "drive": "df32", "form": form,
+              "lambda": lam, "camera_step_ms": [v * 1e3 for v in times],
+              "camera_step_ms_median": statistics.median(times) * 1e3,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "nvidia_smi": smi})
+    gap = ((steps["gram"] - steps["tsqr"]).abs().max()
+           / steps["tsqr"].abs().max()).item()
+    emit({"phase": "spqr_forms_p257_done", "camera_step_rel_gap": gap,
+          "phase_s": time.perf_counter() - t_phase})
+    check(np.isfinite(gap), "spqr_forms_p257: camera steps not finite")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; needs a GPU")
@@ -157,9 +355,10 @@ def main() -> None:
                  f"(missing {PACKAGE.name}/ or data/ beside {Path(__file__).name})")
     sys.path.insert(0, str(HERE))
     from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
-    from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian
+    from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = nvidia_smi()
@@ -185,7 +384,7 @@ def main() -> None:
           "nvcc_flags": " ".join(cuda_chain.NVCC_FLAGS), "ptxas": ptxas})
 
     # -- kernels against their plain versions --------------------------------
-    t0 = time.perf_counter()
+    t0 = t_phase = time.perf_counter()
     problems = {name: pm.load_bal_problem(str(path), device=dev)
                 for name, path in (("p16", P16), ("p257", P257))}
     load_s = time.perf_counter() - t0
@@ -264,7 +463,8 @@ def main() -> None:
                 kern["chain_blocks"]["plain_ms"] = case["blocks_plain_ms"]
                 kern["chain_energy"]["plain_ms"] = case["energy_plain_ms"]
             cases.append(case)
-    emit({"phase": "kernels", "load_seconds": load_s, "cases": cases})
+    emit({"phase": "kernels", "load_seconds": load_s, "cases": cases,
+          "phase_s": time.perf_counter() - t_phase})
     for c in cases:
         where = f"{c['problem']}/{c['state']}"
         check(c["rows_finite"], f"{where}: non-finite rows")
@@ -282,6 +482,7 @@ def main() -> None:
               f"device operations, not 1")
 
     # -- main path, df32 drive with the kernels, p257 ---------------------------
+    t_phase = time.perf_counter()
     p257 = problems["p257"]
     cfg = lm.LMConfig(max_iter=20, matmul_dtype="float32", geometry="df32")
     check(cfg.use_kernels(dev), "the df32 drive does not select the kernels")
@@ -317,7 +518,8 @@ def main() -> None:
           "lm_iter_per_s": res.iterations / wall,
           "prepare_ms_median": statistics.median(stage["prepare"]) * 1e3,
           "trial_ms_median": statistics.median(stage["trial"]) * 1e3,
-          "launches": launches, "nvidia_smi": smi})
+          "launches": launches, "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
     check(np.isfinite(res.energy) and res.energy < e0,
           f"df32 p257: energy {res.energy} not finite and below {e0}")
     check(tuple(pts.shape) == (p257.n_points, 3) and bool(torch.isfinite(pts).all()),
@@ -328,6 +530,7 @@ def main() -> None:
     kern["chain_energy"]["launches"] = launches["chain_energy"]
 
     # The same drive on p16 with the kernels and with the plain chain.
+    t_phase = time.perf_counter()
     p16 = problems["p16"]
     runs = {}
     for kernels in (True, False):
@@ -338,11 +541,13 @@ def main() -> None:
     emit({"phase": "main_df32_p16_kernels_vs_plain",
           "iterations": [runs[True].iterations, runs[False].iterations],
           "fun_evals": [runs[True].fun_evals, runs[False].fun_evals],
-          "energy": [runs[True].energy, runs[False].energy], "rel_gap": gap})
+          "energy": [runs[True].energy, runs[False].energy], "rel_gap": gap,
+          "phase_s": time.perf_counter() - t_phase})
     check(runs[True].iterations == runs[False].iterations and gap <= 1e-9,
           "df32 p16: kernel and plain chains took different LM paths")
 
     # -- main path, float64 drive, p16 ------------------------------------------
+    t_phase = time.perf_counter()
     cfg64 = lm.LMConfig(max_iter=10)
     e0 = float(lm._prepare(p16.state, p16, "cholesky")[1])
     lm.minimize(p16, mode="cholesky", config=lm.LMConfig(max_iter=2))  # warm-up
@@ -356,9 +561,14 @@ def main() -> None:
           "fun_evals": res.fun_evals, "status": res.status.name,
           "initial_energy": e0, "final_energy": res.energy, "wall_s": wall,
           "lm_iter_per_s": res.iterations / wall,
-          "launches": dict(cuda_chain.LAUNCHES), "nvidia_smi": smi})
+          "launches": dict(cuda_chain.LAUNCHES), "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
     check(np.isfinite(res.energy) and res.energy < e0,
           f"f64 p16: energy {res.energy} not finite and below {e0}")
+
+    # -- the other solver modes ---------------------------------------------------
+    modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     src = "bundleadjustment_benchmarks_tpu_torch/ops/csrc/chain_kernels.cu"
     replaces = {

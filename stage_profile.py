@@ -1,14 +1,17 @@
-"""Where the LM's time goes on the GPU, cholesky mode, for both drives.
+"""Where the LM's time goes on the GPU, for one solver mode and drive.
 
-    python3 stage_profile.py [BAL file] [--chain]
+    python3 stage_profile.py [BAL file] [--mode M] [--drive df32|f64|both]
+                             [--iters N] [--chain]
 
 Loads the problem (default: the in-repo p257 stand-in) onto CUDA. For the
-df32 drive (kernels on) and then the float64 drive it runs a two-iteration
-warm-up and traces ``lm.minimize(max_iter=6)`` with ``torch.profiler``,
-printing one JSON line per drive: the card, the traced wall time, the
+df32 drive (kernels on) and then the float64 drive (or the one named) it
+runs a two-iteration warm-up and traces ``lm.minimize(mode=M,
+max_iter=N)`` (default cholesky, 6) with ``torch.profiler``, printing one
+JSON line per drive: the card, the traced wall time, the
 device-busy share (the sum of kernel times over the wall time), the kernels
-and the PyTorch operators with the most device time, and how often the
-reduced solve fell back from Cholesky to QR. The profiler slows the host,
+and the PyTorch operators with the most device time, and the count of
+``torch.linalg.qr`` calls (in cholesky's float32 reduced solve, its
+fallbacks from a broken-down Cholesky). The profiler slows the host,
 so the busy share it reports is a lower bound of the untraced run's.
 
 ``--chain`` instead prints one line on the chain kernels at the problem's
@@ -41,7 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
 from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
-from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 from chip_smoke import P257 as DEFAULT, nvidia_smi, time_entry_points, time_ms
 
 SLEEP = int(2e7)  # ~10 ms: longer than the host's enqueue
@@ -54,12 +57,15 @@ def _top(events, n=15):
              "device_ms": e.self_device_time_total / 1e3} for e in top[:n]]
 
 
-def profile_drives(prob, card: str, path: str) -> None:
-    drives = {"df32": dict(matmul_dtype="float32", geometry="df32"),
-              "f64": {}}
-    for drive, kw in drives.items():
+def profile_drives(prob, card: str, path: str, mode: str, drive: str,
+                   iters: int) -> None:
+    for name in ("df32", "f64"):
+        if drive not in ("both", name):
+            continue
+        kw = dict(matmul_dtype="float32", geometry="df32") if name == "df32" else {}
+
         def run(max_iter):
-            return lm.minimize(prob, mode="cholesky",
+            return lm.minimize(prob, mode=mode,
                                config=lm.LMConfig(max_iter=max_iter, **kw))
 
         run(2)
@@ -67,7 +73,7 @@ def profile_drives(prob, card: str, path: str) -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            res = run(6)
+            res = run(iters)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = prof.key_averages()
@@ -78,13 +84,14 @@ def profile_drives(prob, card: str, path: str) -> None:
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         qr = sum(e.count for e in events if e.key == "aten::linalg_qr")
         print(json.dumps({
-            "card": card, "problem": Path(path).name, "drive": drive,
+            "card": card, "problem": Path(path).name, "mode": mode,
+            "drive": name,
             "K": prob.n_observations, "N": prob.n_cameras, "M": prob.n_points,
             "iterations": res.iterations, "fun_evals": res.fun_evals,
             "energy": res.energy, "wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / (wall * 1e3),
-            "qr_fallbacks": qr, "top_kernels": _top(kernels),
+            "linalg_qr_calls": qr, "top_kernels": _top(kernels),
             "top_ops": _top(ops),
         }), flush=True)
 
@@ -168,6 +175,12 @@ def staging(fast, obs, tau2, flush) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default=str(DEFAULT), help="BAL file")
+    ap.add_argument("--mode", default="cholesky", choices=schur.MODES,
+                    help="solver mode to trace (default cholesky)")
+    ap.add_argument("--drive", default="both", choices=("df32", "f64", "both"),
+                    help="drive(s) to trace (default both)")
+    ap.add_argument("--iters", type=int, default=6,
+                    help="LM iterations traced (default 6)")
     ap.add_argument("--chain", action="store_true",
                     help="time the chain kernels instead of tracing the LM")
     args = ap.parse_args()
@@ -178,7 +191,8 @@ def main() -> None:
     if args.chain:
         chain_line(prob, card, args.path)
     else:
-        profile_drives(prob, card, args.path)
+        profile_drives(prob, card, args.path, args.mode, args.drive,
+                       args.iters)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The CUDA chain kernels against their plain versions, on the card.
+"""The CUDA chain kernels against their plain versions, and each solver
+realization against the CPU, on the card.
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -14,8 +15,8 @@ import pytest
 import torch
 
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
-from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian
+from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 
 pytestmark = pytest.mark.cuda
 
@@ -163,6 +164,70 @@ def test_cameras_must_be_contiguous_float64(p16_cuda, bad):
     for which in ("chain_blocks", "chain_energy"):
         with pytest.raises(err, match=match):
             cuda_chain.launch(which, ops, prob.tau2)
+
+
+REALIZATIONS = [("cholesky", None), ("qrchol", None), ("moreqr", None),
+                ("qrkit", "rows"), ("qrkit", "gram"), ("qrkit", "pair"),
+                ("spqr", "tsqr"), ("spqr", "gram")]
+#: moreqr's point step comes from the closed-form eigenbasis of V. On p16
+#: it lies 1.44e-8 from the exact per-point solve, in the port and in JAX
+#: alike on the same blocks (tests/test_torch_modes.py::
+#: test_moreqr_point_step_on_p16), so the card's and the CPU's can differ
+#: by twice that.
+MOREQR_DXP_RTOL = 3e-8
+
+
+@pytest.fixture(scope="module")
+def p16_both(p16_cuda):
+    """p16 on the card and on the CPU with the same float64 Jacobian blocks
+    (computed on the CPU), and the damping lambda = 1e4 x cholesky's
+    initial lambda."""
+    prob, _ = p16_cuda
+    cpu = prob.to("cpu")
+    blocks = jacobian.residuals_and_jacobian(cpu.state, cpu.obs, cpu.tau2)
+    ctx = schur.build_context(blocks, cpu, "cholesky")
+    lam = 1e4 * float(schur.initial_lambda(ctx, "cholesky"))
+    return {"cpu": (cpu, blocks),
+            "cuda": (prob, type(blocks)(*(b.to("cuda") for b in blocks)))}, lam
+
+
+def _step(p16_both, dev, mode, form):
+    """One realization's step: qrkit's dense cache on a copy of the problem
+    without pair tables, qrkit "gram" and spqr "tsqr" by the reference."""
+    (probs, lam) = p16_both
+    prob, blocks = probs[dev]
+    if mode == "qrkit" and form in ("rows", "gram"):
+        prob = dataclasses.replace(prob, pairs=None)
+    ctx = schur.build_context(blocks, prob, mode)
+    if (mode, form) in (("qrkit", "gram"), ("spqr", "tsqr")):
+        step = schur._reference_step(ctx, lam, prob, mode)
+    else:
+        step = schur.solve_damped(ctx, lam, prob, mode)
+    return [s.cpu() for s in step]
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize("mode,form", REALIZATIONS,
+                         ids=[m if f is None else f"{m}-{f}"
+                              for m, f in REALIZATIONS])
+def test_solve_damped_on_card_matches_cpu(p16_both, mode, form):
+    """One float64 damped solve per realization on the card and on the
+    CPU, on the same Jacobian blocks: 1e-9 relative for the chol camera
+    solver, 1e-7 for the QR realizations; moreqr's point step to
+    MOREQR_DXP_RTOL."""
+    dxp_g, dxc_g = _step(p16_both, "cuda", mode, form)
+    dxp_c, dxc_c = _step(p16_both, "cpu", mode, form)
+    tol = 1e-9 if schur.MODE_STRATEGY[mode][1] == "chol" else 1e-7
+    tol_p = MOREQR_DXP_RTOL if mode == "moreqr" else tol
+    print(f"gap card-CPU {mode} {form} lam={p16_both[1]:.6g}: dxc "
+          f"{_rel(dxc_g, dxc_c):.3g}, dxp {_rel(dxp_g, dxp_c):.3g} "
+          f"(tolerances {tol:g}, {tol_p:g})")
+    assert bool(torch.isfinite(dxp_g).all() and torch.isfinite(dxc_g).all())
+    assert _rel(dxc_g, dxc_c) <= tol
+    assert _rel(dxp_g, dxp_c) <= tol_p
 
 
 def test_minimize_goes_through_the_kernels(p16_cuda):

@@ -42,6 +42,41 @@ def test_port_modules_import_no_jax():
     assert [m for m in out if _is_jax_side(m)] == []
 
 
+def test_every_mode_runs_without_jax():
+    """Each solver mode on both drives, with and without the pair tables,
+    in a fresh process on a small problem made with numpy: no JAX module
+    is loaded."""
+    code = (
+        "import dataclasses, sys\n"
+        "import numpy as np\n"
+        "from bundleadjustment_benchmarks_tpu_torch.io.bal import BalDataset\n"
+        "from bundleadjustment_benchmarks_tpu_torch.models import problem as pm\n"
+        "from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur\n"
+        "rng = np.random.default_rng(0)\n"
+        "n, m = 4, 30\n"
+        "cam = np.concatenate([rng.permutation(n)[:3] for _ in range(m)])\n"
+        "pts = np.repeat(np.arange(m), 3)\n"
+        "ds = BalDataset(cam_idx=cam.astype(np.int32), pt_idx=pts.astype(np.int32),\n"
+        "    measurements=rng.normal(scale=50.0, size=(3 * m, 2)),\n"
+        "    omega=rng.normal(scale=0.1, size=(n, 3)),\n"
+        "    translation=np.c_[rng.normal(scale=0.1, size=(n, 2)), np.full(n, 2.0)],\n"
+        "    focal=rng.uniform(400, 600, n), k1=np.zeros(n), k2=np.zeros(n),\n"
+        "    points=rng.normal(scale=0.3, size=(m, 3)))\n"
+        "prob = pm.from_bal_dataset(ds, inlier_threshold=1e4, device='cpu')\n"
+        "for mode in schur.MODES:\n"
+        "    for kw in ({}, dict(matmul_dtype='float32', geometry='df32')):\n"
+        "        for p in (prob, dataclasses.replace(prob, pairs=None)):\n"
+        "            res = lm.minimize(p, mode=mode, device='cpu',\n"
+        "                              config=lm.LMConfig(max_iter=2, **kw))\n"
+        "            assert np.isfinite(res.energy), (mode, kw, p.pairs)\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert "bundleadjustment_benchmarks_tpu_torch.solvers.schur" in out
+    assert [m for m in out if _is_jax_side(m)] == []
+
+
 def test_chip_smoke_imports_no_jax():
     tree = ast.parse(open(SMOKE).read())
     names = []
@@ -104,6 +139,15 @@ def test_loaders_and_minimize_raise_without_cuda(entry):
     out = calls[entry](device="cpu")
     t = out.state.T if hasattr(out, "state") else out.T
     assert t.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("mode", ["QRKIT", "householder"])
+def test_unknown_mode_raises(mode):
+    """A mode that does not exist is refused, never replaced."""
+    prob = pm.load_bal_problem(P16, device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        lm.minimize(prob, mode=mode, device="cpu",
+                    config=lm.LMConfig(max_iter=1))
 
 
 def test_kernels_on_cpu_raise():

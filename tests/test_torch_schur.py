@@ -129,13 +129,6 @@ def test_initial_lambda(contexts):
     assert abs(float(schur.initial_lambda(ctx_t, "cholesky")) - l_j) <= 1e-9 * l_j
 
 
-@pytest.mark.parametrize("mode", ["qrchol", "qrkit", "moreqr", "spqr"])
-def test_other_modes_raise(contexts, mode):
-    _, tp, _, _ = contexts
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.minimize(tp, mode=mode, device="cpu")
-
-
 def test_prepare_fast_matches_jax():
     """The df32 prepare (plain chain -> Schur context), as the reference
     package compares its own kernel against its plain path."""
