@@ -19,6 +19,8 @@ Entry point::
                       config=lm.LMConfig(matmul_dtype="float32", geometry="df32"))
 
 ``minimize`` runs on the CUDA device unless ``device="cpu"`` is passed.
+The command line (``cli.py``) runs the same: ``python -m
+bundleadjustment_benchmarks_tpu_torch.cli <BAL file> [--device cpu]``.
 """
 
 import torch
@@ -36,6 +38,9 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device for device={device!r}")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

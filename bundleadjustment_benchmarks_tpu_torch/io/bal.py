@@ -1,4 +1,4 @@
-"""BAL (Bundle Adjustment in the Large) dataset ingestion (numpy tokenizer).
+"""BAL (Bundle Adjustment in the Large) dataset ingestion.
 
 File format (reference src/bundle_adjustment_large.cpp:59-108)::
 
@@ -9,21 +9,59 @@ File format (reference src/bundle_adjustment_large.cpp:59-108)::
 
 Only the raw values are tokenized here; the reference's model conventions
 are applied in ``models/problem.py``. ``.gz`` files are decompressed on the
-fly (the repository ships its large stand-ins gzipped).
+fly and split by numpy (the repository ships its large stand-ins gzipped).
+A plain-text file goes through the C++ tokenizer ``native/libbalio.so``
+(``make -C native``) when that library is built and loads, and through
+numpy otherwise; both give the same float64 token stream.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import gzip
+import os
 
 import numpy as np
 
+#: The repository root, where ``native/libbalio.so`` is built.
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-def _tokenize(path: str) -> np.ndarray:
-    """Whitespace-tokenize a BAL text file into a flat float64 array."""
-    opener = gzip.open if path.endswith(".gz") else open
-    with opener(path, "rb") as f:
+
+@functools.lru_cache(maxsize=None)
+def _native_lib():
+    """``native/libbalio.so`` loaded with ctypes, or None where it is not
+    built or does not load on this machine."""
+    path = os.path.join(_ROOT, "native", "libbalio.so")
+    if not os.path.exists(path):
+        return None
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError:
+        return None
+    lib.balio_tokenize.restype = ctypes.c_longlong
+    lib.balio_tokenize.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_double), ctypes.c_longlong]
+    return lib
+
+
+def tokenize(path: str):
+    """Whitespace-tokenize a BAL file into a flat float64 array."""
+    if path.endswith(".gz"):
+        with gzip.open(path, "rb") as f:
+            return np.array(f.read().split(), dtype=np.float64)
+    lib = _native_lib()
+    if lib is not None:
+        # A token takes at least two bytes (a digit and a separator).
+        cap = os.path.getsize(path) // 2 + 16
+        out = np.empty(cap, dtype=np.float64)
+        n = lib.balio_tokenize(
+            path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            cap)
+        if n >= 0:
+            return out[:n]
+    with open(path, "rb") as f:
         return np.array(f.read().split(), dtype=np.float64)
 
 
@@ -60,7 +98,7 @@ class BalDataset:
 
 def read_bal(path: str) -> BalDataset:
     """Parse a BAL problem file."""
-    tok = _tokenize(path)
+    tok = tokenize(path)
     if tok.size < 3:
         raise ValueError(f"{path}: not a BAL file (fewer than 3 header tokens)")
     n, m, k = int(tok[0]), int(tok[1]), int(tok[2])
@@ -89,3 +127,18 @@ def read_bal(path: str) -> BalDataset:
         k2=np.ascontiguousarray(cams[:, 8]),
         points=pts,
     )
+
+
+def write_bal(path: str, ds: BalDataset) -> None:
+    """Write a BalDataset as BAL text (the inverse of read_bal)."""
+    with open(path, "w") as f:
+        f.write(f"{ds.n_cameras} {ds.n_points} {ds.n_observations}\n")
+        for c, p, (x, y) in zip(ds.cam_idx, ds.pt_idx, ds.measurements):
+            f.write(f"{c} {p} {x:.12e} {y:.12e}\n")
+        cams = np.concatenate(
+            [ds.omega, ds.translation, ds.focal[:, None], ds.k1[:, None],
+             ds.k2[:, None]], axis=1)
+        for v in cams.reshape(-1):
+            f.write(f"{v:.16e}\n")
+        for v in ds.points.reshape(-1):
+            f.write(f"{v:.16e}\n")

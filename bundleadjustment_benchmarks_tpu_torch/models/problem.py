@@ -21,6 +21,7 @@ import torch
 
 from bundleadjustment_benchmarks_tpu_torch import resolve_device
 from bundleadjustment_benchmarks_tpu_torch.io import bal
+from bundleadjustment_benchmarks_tpu_torch.models import camera
 from bundleadjustment_benchmarks_tpu_torch.ops import rodrigues
 from bundleadjustment_benchmarks_tpu_torch.ops import twofloat as tf
 
@@ -63,6 +64,11 @@ class BAState(_Movable):
     @property
     def n_points(self) -> int:
         return self.points.shape[0]
+
+    @property
+    def focal(self) -> torch.Tensor:
+        """K(0,0) per camera (reference getFocalLength, CameraMatrix.cpp:207)."""
+        return camera.focal_length(self.K)
 
 
 @dataclasses.dataclass
@@ -384,6 +390,10 @@ class FastBAState(_Movable):
     k1: torch.Tensor
     k2: torch.Tensor
     points: tf.DF
+
+    @property
+    def focal(self) -> torch.Tensor:
+        return camera.focal_length(self.K)
 
 
 def to_fast(state: BAState) -> FastBAState:

@@ -25,6 +25,28 @@ def distort(k1, k2, xu):
     return kr[..., None] * xu
 
 
+def transform_into_camera_space(R, T, X):
+    """R X + T; (..., 3, 3), (..., 3), (..., 3) -> (..., 3)."""
+    return torch.einsum("...ij,...j->...i", R, X) + T
+
+
+def project_affine(K, R, T, k1, k2, X):
+    """Full-intrinsic projection of the statistics printouts (reference
+    CameraMatrix::projectPoint, CameraMatrix.cpp:225-236): p =
+    distort(perspective(R X + T)), out = (K00 p0 + K01 p1 + K02,
+    K11 p1 + K12). For BAL data (K01 = K02 = K12 = 0) it is the residual's
+    projection."""
+    XX = transform_into_camera_space(R, T, X)
+    return apply_intrinsics(K, distort(k1, k2, XX[..., :2] / XX[..., 2:3]))
+
+
+def apply_intrinsics(K, p):
+    """(K00 p0 + K01 p1 + K02, K11 p1 + K12) (CameraMatrix.cpp:275-280)."""
+    out0 = K[..., 0, 0] * p[..., 0] + K[..., 0, 1] * p[..., 1] + K[..., 0, 2]
+    out1 = K[..., 1, 1] * p[..., 1] + K[..., 1, 2]
+    return torch.stack([out0, out1], dim=-1)
+
+
 def residuals_raw(state, obs, compute_dtype=None) -> torch.Tensor:
     """Unrobustified residuals project - measurement, (K, 2).
 

@@ -14,6 +14,16 @@ def psi(tau2, r2):
     return torch.where(r2 < tau2, r2 * (2.0 - r2 / tau2) / 4.0, tau2 / 4.0)
 
 
+def psi_cubic(tau2, r2):
+    """The "true objective" kernel r2 (3 - 3 r2/tau2 + (r2/tau2)^2)/6, capped
+    at tau2/6 (reference Utils.h:10-13). Its one caller passes a norm as
+    ``r2``, as the reference does (utils/stats.py)."""
+    r4 = r2 * r2
+    tau4 = tau2 * tau2
+    return torch.where(r2 < tau2, r2 * (3.0 - 3.0 * r2 / tau2 + r4 / tau4) / 6.0,
+                       tau2 / 6.0)
+
+
 def psi_weight(tau2, r2):
     """max(0, 1 - r2/tau2) (BAFunctor.h:148)."""
     return torch.maximum(torch.zeros_like(r2), 1.0 - r2 / tau2)

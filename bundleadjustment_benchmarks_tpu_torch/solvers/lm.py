@@ -23,14 +23,23 @@ and rho's denominator once per trial (with the outer energy on the first
 trial) for the accept test, a float32 Cholesky camera solve reads its
 breakdown flag once, and qrkit's prepare on a problem without pair tables
 reads the error flag of its one ``torch.linalg.eigh``. LM scalars (lambda, nu, energies)
-are Python floats, i.e. float64.
+are Python floats, i.e. float64, whatever the state's dtype.
+
+The loop also carries the host drive's observability (JAX lm.py:792-939):
+the reference's per-trial iteration table (``LMConfig.verbose``), one JSONL
+metrics record per trial, checkpoints of the accepted state and resuming
+from one (``utils/checkpoint.py``), all from the values the trial's one host
+read already brought back. ``LMConfig.polish_iters`` runs the two-phase
+drive: the df32 descent, then a float64 polish from its endpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import json
 import math
+import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -91,6 +100,15 @@ class LMConfig:
     #: the chol camera solver (cholesky, qrchol, moreqr); qrkit and spqr
     #: raise. 0 = off.
     refine_steps: int = 0
+    #: Print the reference's iteration table (BacktrackLevMarqCholesky.h:53-81).
+    verbose: bool = False
+    #: Two-phase drive: after a df32 or float32-matmul run stops, continue
+    #: from its endpoint in float64 (geometry None, matmul_dtype None) for up
+    #: to this many iterations. 0 = off; ignored for a pure float64 config.
+    polish_iters: int = 0
+    #: Raise FloatingPointError at the first non-finite energy or rho
+    #: denominator the loop reads (the counterpart of jax_debug_nans).
+    debug_nans: bool = False
 
     def use_kernels(self, device: torch.device) -> bool:
         if self.kernels and device.type != "cuda":
@@ -108,6 +126,12 @@ class LMResult(NamedTuple):
     fun_evals: int
     energy: float
     lam: float
+
+
+#: Flatline tolerance of the two-phase drive's fast phase, which runs at
+#: max(tol_fun, this): it hands over once its own step noise stalls the
+#: descent (JAX lm.py:129-136, a field of JAX's LMConfig).
+_POLISH_FAST_TOL = 1e-6
 
 
 def _mm(matmul_dtype: Optional[str]):
@@ -187,9 +211,91 @@ def _trial_fast(ctx, fast, lam: float, problem, mode: str,
 # -- the loop ----------------------------------------------------------------------
 
 
-def lm_loop(x0, prepare, trial, config: LMConfig):
+def _output_header():
+    print("############################## Backtrack LevMarq"
+          " ###############################")
+    print("-" * 80)
+
+
+def _output_iter_header():
+    print(f"{'Iter':>5}{'Status':>15}{'f':>15}{'rho':>15}{'lambda':>15}"
+          f"{'Elapsed':>15}")
+    print("-" * 80)
+
+
+def _output_iter(it, status, fval, rho, lam, elapsed):
+    print(f"{it:>5}{status:>15}{fval:>15.6g}{rho:>15.6g}{lam:>15.6g}"
+          f"{elapsed:>14.4g}s")
+
+
+class RunLog:
+    """What one LM run reports as it goes: the reference's iteration table
+    (``verbose``), one JSONL record per trial appended to ``metrics_path``
+    (keys iter, status, f, rho, lambda, elapsed_s, and phase when
+    ``phase`` is set), and a checkpoint of the accepted state every
+    ``checkpoint_every`` iterations. ``to_state`` maps the loop state to the
+    BAState a checkpoint holds. Use it as a context manager."""
+
+    def __init__(self, verbose: bool = False,
+                 metrics_path: Optional[str] = None,
+                 phase: Optional[str] = None,
+                 checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 0, to_state=None):
+        self.verbose = verbose
+        self.metrics_path = metrics_path
+        self.phase = phase
+        self.checkpoint_path = checkpoint_path if checkpoint_every else None
+        self.checkpoint_every = checkpoint_every
+        self.to_state = to_state
+        self._metrics = None
+
+    def __enter__(self):
+        if self.verbose:
+            _output_header()
+            _output_iter_header()
+        if self.metrics_path:
+            self._metrics = open(self.metrics_path, "a")
+        return self
+
+    def __exit__(self, *exc):
+        if self.verbose:
+            print("-" * 80)
+        if self._metrics:
+            self._metrics.close()
+            self._metrics = None
+
+    def trial(self, it: int, status: str, f: float, rho: float, lam: float,
+              elapsed: float) -> None:
+        if self.verbose:
+            _output_iter(it, status, f, rho, lam, elapsed)
+        if self._metrics:
+            rec = {"iter": it, "status": status, "f": f, "rho": rho,
+                   "lambda": lam, "elapsed_s": elapsed}
+            if self.phase:
+                rec["phase"] = self.phase
+            self._metrics.write(json.dumps(rec) + "\n")
+            self._metrics.flush()
+
+    def accepted(self, it: int, x, lam: float, fun_evals: int, hist) -> None:
+        if self.checkpoint_path and it % self.checkpoint_every == 0:
+            from bundleadjustment_benchmarks_tpu_torch.utils import checkpoint
+
+            checkpoint.save_checkpoint(
+                self.checkpoint_path, self.to_state(x), lam=lam, iteration=it,
+                fun_evals=fun_evals, energy_history=list(hist))
+
+
+def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
+            run_log: Optional[RunLog] = None):
     """The LM control flow around ``prepare(x) -> (ctx, energy, lam0)`` and
     ``trial(ctx, x, lam) -> (x_test, e_test, rho_scale)``.
+
+    ``resume``: a checkpoint's meta (``utils.checkpoint.load_checkpoint``):
+    lambda, iteration, fun_evals and the energy history continue from it,
+    and the first-iteration lambda rule is skipped. ``run_log`` gets every
+    trial's row (Elapsed: the host clock after the trial's one host read,
+    from the start of the iteration or of the previous rejected trial) and
+    every accepted state.
 
     Returns (x, status, iterations, fun_evals, energy, lam) with the
     reference's bookkeeping: a run stopped by max_iter or max_fun_ev counts
@@ -198,14 +304,22 @@ def lm_loop(x0, prepare, trial, config: LMConfig):
     lam = math.nan  # set from the first prepare's schur.initial_lambda
     lam_inc = float(config.lambda_increase_base)
     it = fun_evals = 0
-    hist = [0.0] * config.energy_history_size
+    size = config.energy_history_size
+    hist = [0.0] * size
+    if resume:
+        lam = float(resume.get("lam", lam))
+        it = int(resume.get("iteration", 0))
+        fun_evals = int(resume.get("fun_evals", 0))
+        hist = list(resume.get("energy_history", []))[:size]
+        hist += [0.0] * (size - len(hist))
     status = LMStatus.Running
     energy = math.inf
     while it + 1 <= config.max_iter and fun_evals <= config.max_fun_ev:
         it += 1
+        t0 = time.perf_counter()
         ctx, energy_t, lam0 = prepare(x)
         fun_evals += 1
-        if it == 1:
+        if it == 1 and not resume:
             lam = float(lam0)
         while True:
             x_t, e_t, rho_scale = trial(ctx, x, lam)
@@ -214,25 +328,37 @@ def lm_loop(x0, prepare, trial, config: LMConfig):
             e_t, rho_scale, energy = torch.stack(
                 [v.to(torch.float64) for v in (e_t, rho_scale, energy_t)]
             ).tolist()
+            elapsed = time.perf_counter() - t0
+            if config.debug_nans and not all(
+                    map(math.isfinite, (e_t, rho_scale, energy))):
+                raise FloatingPointError(
+                    f"LM iteration {it}: energy {energy}, trial energy {e_t}, "
+                    f"rho denominator {rho_scale}")
             if e_t < energy:
                 rho = (energy - e_t) / rho_scale
                 t = 2.0 * rho - 1.0
                 lam = max(lam * max(1.0 / 3.0, 1.0 - t * (t * t)),
                           config.lambda_min)
+                if run_log:
+                    run_log.trial(it, "Accepted", energy, rho, lam, elapsed)
                 lam_inc = float(config.lambda_increase_base)
                 energy = e_t
-                hist[it % config.energy_history_size] = energy
+                hist[it % size] = energy
                 break
+            if run_log:
+                run_log.trial(it, "Rejected", energy, 0.0, lam, elapsed)
             if lam > config.lambda_max or not (
                     math.isfinite(lam) and math.isfinite(energy)):
                 status = LMStatus.ExceededLambdaMax
                 break
             lam *= lam_inc
             lam_inc = lam_inc ** 1.5
+            t0 = time.perf_counter()
         if status != LMStatus.Running:
             break
-        if it > config.energy_history_size and \
-                abs(energy - max(hist)) < config.tol_fun * energy:
+        if run_log:
+            run_log.accepted(it, x_t, lam, fun_evals, hist)
+        if it > size and abs(energy - max(hist)) < config.tol_fun * energy:
             status = LMStatus.Success
             if not config.discard_final_step:
                 x = x_t
@@ -248,14 +374,54 @@ def lm_loop(x0, prepare, trial, config: LMConfig):
 def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
              config: Optional[LMConfig] = None,
              state: Optional[problem_mod.BAState] = None,
-             device=None) -> LMResult:
+             device=None, resume=None,
+             checkpoint_path: Optional[str] = None,
+             checkpoint_every: int = 0,
+             metrics_path: Optional[str] = None,
+             metrics_phase: Optional[str] = None) -> LMResult:
     """Run LM on a BA problem on ``device`` (CUDA unless the caller passes
     one, e.g. ``device="cpu"``; without CUDA and without ``device`` it
     raises). The problem and state are moved there first. ``mode`` is one
     of ``schur.MODES`` (cholesky, qrchol, qrkit, moreqr, spqr), the
-    reference's five binaries as a runtime argument."""
+    reference's five binaries as a runtime argument.
+
+    ``resume`` continues from a checkpoint's meta (``state`` is then the
+    checkpoint's state); ``checkpoint_path`` with ``checkpoint_every > 0``
+    writes the accepted state every that many iterations; ``metrics_path``
+    appends one JSONL record per trial, tagged ``metrics_phase``.
+
+    With ``config.polish_iters`` and a df32 or float32-matmul config, the
+    two-phase drive: the fast phase (records tagged "fast") to its own stop
+    at max(tol_fun, _POLISH_FAST_TOL), then up to polish_iters float64
+    iterations from its endpoint (tagged "polish"; their iterations count
+    from 1). The result sums both phases' iterations and evaluations and is
+    the polish's, with the fast phase's status where the polish stopped at
+    its iteration cap; where the polish cannot evaluate the fast endpoint
+    (non-finite energy) the fast phase's result stands."""
     schur.check_mode(mode)
     config = config or LMConfig()
+    if config.polish_iters and (config.geometry or config.matmul_dtype):
+        fast_cfg = dataclasses.replace(
+            config, polish_iters=0,
+            tol_fun=max(config.tol_fun, _POLISH_FAST_TOL))
+        observe = dict(checkpoint_path=checkpoint_path,
+                       checkpoint_every=checkpoint_every,
+                       metrics_path=metrics_path)
+        fast = minimize(problem, mode, fast_cfg, state=state, device=device,
+                        resume=resume, metrics_phase="fast", **observe)
+        polish_cfg = dataclasses.replace(
+            config, polish_iters=0, geometry=None, matmul_dtype=None,
+            kernels=None, max_iter=config.polish_iters)
+        polish = minimize(problem, mode, polish_cfg, state=fast.state,
+                          device=device, metrics_phase="polish", **observe)
+        counts = dict(iterations=fast.iterations + polish.iterations,
+                      fun_evals=fast.fun_evals + polish.fun_evals)
+        if not math.isfinite(polish.energy):
+            return fast._replace(**counts)
+        status = (fast.status if polish.status == LMStatus.MaxItersReached
+                  else polish.status)
+        return polish._replace(status=status, **counts)
+
     dev = resolve_device(device)
     kernels = config.use_kernels(dev)
     if config.geometry not in (None, "df32"):
@@ -278,6 +444,9 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
                                config.matmul_dtype, kernels=kernels,
                                refine=config.refine_steps)
 
+        def to_state(x):
+            return problem_mod.from_fast(x, dtype=state.T.dtype)
+
         x0 = problem_mod.to_fast(state)
     else:
         def prepare(x):
@@ -287,9 +456,13 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
             return _trial(ctx, x, lam, problem, mode, config.matmul_dtype,
                           refine=config.refine_steps)
 
+        def to_state(x):
+            return x
+
         x0 = state
-    x, status, it, fun_evals, energy, lam = lm_loop(x0, prepare, trial, config)
-    if config.geometry == "df32":
-        x = problem_mod.from_fast(x, dtype=state.T.dtype)
-    return LMResult(state=x, status=status, iterations=it,
+    with RunLog(config.verbose, metrics_path, metrics_phase, checkpoint_path,
+                checkpoint_every, to_state) as run_log:
+        x, status, it, fun_evals, energy, lam = lm_loop(
+            x0, prepare, trial, config, resume=resume, run_log=run_log)
+    return LMResult(state=to_state(x), status=status, iterations=it,
                     fun_evals=fun_evals, energy=energy, lam=lam)

@@ -9,7 +9,12 @@ drive (kernels on, p257 stand-in) and on the float64 drive (p16 stand-in),
 then the other four solver modes (``modes_df32_p257``, ``modes_f64_p16``),
 every solve realization against cholesky's step (``modes_agree_p16``),
 qrkit's "rows" and "pair" forms (``qrkit_forms_p257``) and spqr's "gram"
-and "tsqr" forms (``spqr_forms_p257``), and fails on any disagreement.
+and "tsqr" forms (``spqr_forms_p257``), then the command line in-process
+(``cli.main``): p257 with ``--precision mixed``, a checkpoint and its resume
+(``cli_mixed_p257``), p16 in float64 with every solver and a two-phase
+``--polish`` run (``cli_f64_p16``), and a generated stand-in of BAL's
+Ladybug problem-1723-156502 whose 1,723 cameras the kernels do not stage in
+shared memory (``cli_ladybug_df32``), and fails on any disagreement.
 Each phase prints JSON lines with its wall time; then come one line of
 per-kernel numbers (the kernel's and its entry point's device
 time, the host time to issue one call, the device operations one call
@@ -21,11 +26,17 @@ result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gzip
+import io
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -347,6 +358,249 @@ def modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi) -> None:
     check(np.isfinite(gap), "spqr_forms_p257: camera steps not finite")
 
 
+#: BAL's Ladybug problem-1723-156502-pre (N, M, K): its stand-in is
+#: generated with these N and M and mean point degree K / M.
+LADYBUG = (1723, 156502, 678718)
+CLI_ROW = re.compile(r"^\s*(\d+)\s+(Accepted|Rejected)\s")
+
+
+def run_cli(cli, args) -> tuple:
+    """``cli.main(args)`` in this process; returns (return code, stdout)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in args])
+    return rc, buf.getvalue()
+
+
+def cli_summary(out: str, metrics: Path) -> dict:
+    """What a CLI run printed: header, pre and post "True objective", LM
+    seconds and status, iteration-table rows, and its JSONL records.
+    ``lm_iter_per_s`` is the iterations that ran a trial over the printed
+    LM time (the iteration that only finds the limit is not counted)."""
+    lines = out.splitlines()
+    objective = [float(ln.split()[-1]) for ln in lines
+                 if ln.startswith("True objective:")]
+    lm_s = float(next(ln for ln in lines
+                      if ln.startswith("lm.minimize(params)")).split()[-1][:-1])
+    rows = [int(m[1]) for m in map(CLI_ROW.match, lines) if m]
+    records = ([json.loads(ln) for ln in metrics.read_text().splitlines()]
+               if metrics.exists() else [])
+    iterations = len({(r.get("phase"), r["iter"]) for r in records})
+    return {"header": lines[0], "objective_pre": objective[0],
+            "objective_post": objective[-1], "lm_s": lm_s,
+            "status": next(ln.split(": ", 1)[1] for ln in lines
+                           if ln.startswith("LM finished with status")),
+            "table_rows": len(rows), "first_row_iter": rows[0] if rows else None,
+            "records": len(records), "iterations_run": iterations,
+            "lm_iter_per_s": iterations / lm_s,
+            "resumed": any(ln.startswith("Resuming from") for ln in lines)}
+
+
+def kernel_bounds(n: int, m: int, k_obs: int, bw: float, op_rate: float) -> dict:
+    """Per kernel (bound_ms, bound_by): each input read once, each output
+    written once (the float64 cameras R, T, K(0, 0), k1, k2; the DF points,
+    every point observed; the measurements and both indices; the energy,
+    and the rows), and OPS_PER_OBS float32 instructions per observation."""
+    inputs = 8 * 15 * n + 4 * (6 * m + 2 * k_obs + 2 * k_obs)
+    out = {}
+    for which, outputs in (("chain_blocks", 8 + 4 * 26 * k_obs),
+                           ("chain_energy", 8)):
+        t_bytes = (inputs + outputs) / bw * 1e3
+        t_ops = OPS_PER_OBS[which] * k_obs / op_rate * 1e3
+        out[which] = (max(t_bytes, t_ops),
+                      "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
+               bw, op_rate) -> dict:
+    """The command line on the card, in-process, its log, metrics and
+    checkpoints in a temporary directory. Each run's chain-kernel launches
+    are counted from 0. Returns per kernel the CLI phases' launch counts
+    and the Ladybug stand-in's kernel numbers."""
+    extra = {"chain_blocks": {}, "chain_energy": {}}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        log = ["--log-file", tmp / "run.log"]
+
+        # -- p257, mixed: 10 iterations, checkpoint every 5, then resume; the
+        # same 10 iterations without the table and the checkpoints, and with
+        # the table alone; then one checkpoint of the p257 state timed alone --
+        t_phase = time.perf_counter()
+        ck = tmp / "p257.ckpt.npz"
+        base = [P257, "--precision", "mixed", "--solver", "cholesky"] + log
+        ckpt = ["--checkpoint", ck, "--checkpoint-every", 5]
+        runs = {}
+        for name, args in (("first", ckpt + ["--max-iters", 10]),
+                           ("resume", ckpt + ["--max-iters", 12]),
+                           ("no_checkpoint", ["--quiet", "--max-iters", 10]),
+                           ("table", ["--max-iters", 10])):
+            metrics = tmp / f"p257_{name}.jsonl"
+            cuda_chain.reset_launches()
+            rc, out = run_cli(cli, base + args + ["--metrics", metrics])
+            launches = dict(cuda_chain.LAUNCHES)
+            check(rc == cli.RETURN_SUCCESS, f"cli_mixed_p257 {name}: rc {rc}")
+            line = {"run": name, "args": " ".join(map(str, args)),
+                    **cli_summary(out, metrics), "launches": launches}
+            if name == "first":
+                check(ck.exists(), "cli_mixed_p257: no checkpoint written")
+                _, meta = checkpoint.load_checkpoint(str(ck), device="cuda")
+                line["checkpoint"] = {k: meta[k] for k in ("iteration", "fun_evals")}
+            runs[name] = line
+            emit({"phase": "cli_mixed_p257", **line, "nvidia_smi": smi,
+                  "phase_s": time.perf_counter() - t_phase})
+        first, resume = runs["first"], runs["resume"]
+        meta = first["checkpoint"]
+        state, saved = checkpoint.load_checkpoint(str(ck), device="cuda")
+        saved.pop("extra")
+        copy_s, save_s = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in ("K", "R", "T", "k1", "k2", "points"):
+                getattr(state, k).cpu()
+            copy_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            checkpoint.save_checkpoint(str(tmp / "timed.npz"), state, **saved)
+            save_s.append(time.perf_counter() - t0)
+        emit({"phase": "cli_mixed_p257", "run": "save_checkpoint",
+              "copy_s": sorted(copy_s), "save_s": sorted(save_s),
+              "bytes": (tmp / "timed.npz").stat().st_size, "nvidia_smi": smi,
+              "phase_s": time.perf_counter() - t_phase})
+        check(first["header"] == "N(cameras) = 257, M(points) = 65132, "
+              "K(measurements) = 238476", f"cli_mixed_p257: header {first['header']!r}")
+        check(first["objective_post"] < first["objective_pre"],
+              "cli_mixed_p257: the true objective did not descend")
+        check(meta["iteration"] == 10,
+              f"cli_mixed_p257: checkpoint at iteration {meta['iteration']}, not 10")
+        check(first["records"] == meta["fun_evals"] - meta["iteration"]
+              == first["launches"]["chain_energy"],
+              "cli_mixed_p257: metrics records != fun_evals - prepares "
+              "!= energy launches")
+        check(first["launches"]["chain_blocks"] == meta["iteration"],
+              "cli_mixed_p257: blocks launches != prepares")
+        check(resume["resumed"] and resume["first_row_iter"] == meta["iteration"] + 1,
+              f"cli_mixed_p257: resume began at {resume['first_row_iter']}")
+        for run in runs.values():
+            for which, count in run["launches"].items():
+                check(count > 0, f"cli_mixed_p257 {run['run']}: {which} not launched")
+        for which in extra:
+            extra[which]["launches_cli_mixed_p257"] = first["launches"][which]
+
+        # -- p16 as plain text, float64, every solver; a two-phase run ----------
+        t_phase = time.perf_counter()
+        p16_txt = tmp / "problem-16-22106-pre.txt"
+        with gzip.open(P16, "rb") as src, open(p16_txt, "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        tokenizer = "native" if bal._native_lib() is not None else "numpy"
+        for solver in ("cholesky", "qrchol", "moreqr", "qrkit", "spqr"):
+            metrics = tmp / f"p16_{solver}.jsonl"
+            rc, out = run_cli(cli, [p16_txt, "--solver", solver, "--precision",
+                                    "f64", "--max-iters", 3, "--quiet",
+                                    "--metrics", metrics] + log)
+            check(rc == cli.RETURN_SUCCESS, f"cli_f64_p16 {solver}: rc {rc}")
+            line = cli_summary(out, metrics)
+            emit({"phase": "cli_f64_p16", "solver": solver, "tokenizer": tokenizer,
+                  **line, "nvidia_smi": smi,
+                  "phase_s": time.perf_counter() - t_phase})
+            check(line["objective_post"] < line["objective_pre"],
+                  f"cli_f64_p16 {solver}: the true objective did not descend")
+        metrics = tmp / "p16_polish.jsonl"
+        cuda_chain.reset_launches()
+        rc, out = run_cli(cli, [p16_txt, "--precision", "mixed", "--polish", 3,
+                                "--max-iters", 10, "--quiet", "--metrics",
+                                metrics] + log)
+        launches = dict(cuda_chain.LAUNCHES)
+        check(rc == cli.RETURN_SUCCESS, f"cli_f64_p16 polish: rc {rc}")
+        line = cli_summary(out, metrics)
+        phases = [json.loads(ln).get("phase")
+                  for ln in metrics.read_text().splitlines()]
+        emit({"phase": "cli_f64_p16", "solver": "cholesky", "polish": 3, **line,
+              "records_by_phase": {p: phases.count(p) for p in ("fast", "polish")},
+              "launches": launches, "nvidia_smi": smi,
+              "phase_s": time.perf_counter() - t_phase})
+        check(line["objective_post"] < line["objective_pre"],
+              "cli_f64_p16 polish: the true objective did not descend")
+        check(phases and phases[0] == "fast" and phases[-1] == "polish"
+              and phases == sorted(phases),
+              "cli_f64_p16 polish: records not tagged fast, then polish")
+        check(all(c > 0 for c in launches.values()),
+              "cli_f64_p16 polish: the fast phase did not launch both kernels")
+
+        # -- Ladybug stand-in, mixed: cameras past the shared-memory stage ------
+        t_phase = time.perf_counter()
+        n, m, k_real = LADYBUG
+        t0 = time.perf_counter()
+        ds = balgen.generate_bal_like(n, m, seed=n, mean_degree=k_real / m)
+        gen_s = time.perf_counter() - t0
+        path = tmp / "problem-1723-156502-pre-standin.txt.gz"
+        t0 = time.perf_counter()
+        balgen.write_bal_gz(str(path), ds)
+        write_s = time.perf_counter() - t0
+        k_obs = ds.n_observations
+        shape = cuda_chain.launch_shape("chain_blocks", n, k_obs)
+        check(not shape["staged_cameras"],
+              "cli_ladybug_df32: the kernels stage 1,723 cameras")
+        metrics = tmp / "ladybug.jsonl"
+        torch.cuda.reset_peak_memory_stats()
+        cuda_chain.reset_launches()
+        rc, out = run_cli(cli, [path, "--precision", "mixed", "--max-iters", 3,
+                                "--metrics", metrics] + log)
+        launches = dict(cuda_chain.LAUNCHES)
+        check(rc == cli.RETURN_SUCCESS, f"cli_ladybug_df32: rc {rc}")
+        line = cli_summary(out, metrics)
+        line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        check(line["header"] == f"N(cameras) = {n}, M(points) = {m}, "
+              f"K(measurements) = {k_obs}", f"cli_ladybug_df32: {line['header']!r}")
+        check(line["objective_post"] < line["objective_pre"],
+              "cli_ladybug_df32: the true objective did not descend")
+        for which, count in launches.items():
+            check(count > 0, f"cli_ladybug_df32: {which} not launched")
+            extra[which]["launches_cli_ladybug_df32"] = count
+
+        # Both kernels at this K against their plain versions, and timed.
+        prob = pm.load_bal_problem(str(path), device="cuda")
+        fast = pm.to_fast(prob.state)
+        ops = cuda_chain.chain_operands(fast, prob.obs)
+        rows_k, eb_k = cuda_chain.launch("chain_blocks", ops, prob.tau2)
+        rows_p, eb_p = cuda_chain.chain_blocks_plain(fast, prob.obs, prob.tau2)
+        _, ee_k = cuda_chain.launch("chain_energy", ops, prob.tau2)
+        ee_p = cuda_chain.fused_energy_plain(fast, prob.obs, prob.tau2)
+        errs = {"chain_blocks": (rows_k - rows_p).abs().max().item(),
+                "chain_energy": abs(ee_k.item() - ee_p.item())}
+        rows_equal = torch.equal(rows_k, rows_p)
+        gaps = {"chain_blocks": abs(eb_k.item() - eb_p.item()) / abs(eb_p.item()),
+                "chain_energy": abs(ee_k.item() - ee_p.item()) / abs(ee_p.item())}
+        del rows_k, rows_p
+        sleep = int(2e7)
+        bounds = kernel_bounds(n, m, k_obs, bw, op_rate)
+        plain = {"chain_blocks": lambda: cuda_chain.chain_blocks_plain(
+                     fast, prob.obs, prob.tau2),
+                 "chain_energy": lambda: cuda_chain.fused_energy_plain(
+                     fast, prob.obs, prob.tau2)}
+        for which in extra:
+            extra[which]["ladybug"] = {
+                "n_cameras": n, "K": k_obs,
+                "ms": time_ms(lambda: cuda_chain.launch(which, ops, prob.tau2),
+                              20, sleep, flush),
+                "plain_ms": time_ms(plain[which], 10, int(2e8), flush),
+                "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
+                "max_abs_err": errs[which], "energy_rel_err": gaps[which],
+                **cuda_chain.launch_shape(which, n, k_obs)}
+        emit({"phase": "cli_ladybug_df32", "generate_s": gen_s, "write_s": write_s,
+              "file_bytes": path.stat().st_size, **line, "launches": launches,
+              "rows_equal": rows_equal,
+              "kernels": {w: extra[w]["ladybug"] for w in extra},
+              "nvidia_smi": smi, "phase_s": time.perf_counter() - t_phase})
+        check(rows_equal, f"cli_ladybug_df32: rows differ by {errs['chain_blocks']}")
+        for which, gap in gaps.items():
+            check(gap <= ENERGY_RTOL, f"cli_ladybug_df32: {which} energy rel err {gap}")
+        for which in extra:
+            check(not extra[which]["ladybug"]["staged_cameras"],
+                  f"cli_ladybug_df32: {which} staged the cameras")
+    return extra
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; needs a GPU")
@@ -354,9 +608,12 @@ def main() -> None:
         sys.exit(f"chip_smoke: run from a checkout of the repository "
                  f"(missing {PACKAGE.name}/ or data/ beside {Path(__file__).name})")
     sys.path.insert(0, str(HERE))
+    from bundleadjustment_benchmarks_tpu_torch import cli
+    from bundleadjustment_benchmarks_tpu_torch.io import bal
     from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
     from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian
     from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
+    from bundleadjustment_benchmarks_tpu_torch.utils import balgen, checkpoint
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -447,18 +704,10 @@ def main() -> None:
                     lambda: cuda_chain.fused_energy_plain(fast, prob.obs, tau2),
                     20, int(2e8), flush)
                 k_obs, n, m = prob.n_observations, prob.n_cameras, prob.n_points
-                # Each input read once, each output written once: the float64
-                # cameras (R, T, K(0, 0), k1, k2), the DF points (every
-                # point is observed), the measurements and both indices; the
-                # energy, and the rows.
-                inputs = 8 * 15 * n + 4 * (6 * m + 2 * k_obs + 2 * k_obs)
-                for which, outputs in (("chain_blocks", 8 + 4 * 26 * k_obs),
-                                       ("chain_energy", 8)):
-                    t_bytes = (inputs + outputs) / bw * 1e3
-                    t_ops = OPS_PER_OBS[which] * k_obs / op_rate * 1e3
+                bounds = kernel_bounds(n, m, k_obs, bw, op_rate)
+                for which in kern:
                     kern[which].update(
-                        bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                        bound_ms=bounds[which][0], bound_by=bounds[which][1],
                         **timed[which], **cuda_chain.launch_shape(which, n, k_obs))
                 kern["chain_blocks"]["plain_ms"] = case["blocks_plain_ms"]
                 kern["chain_energy"]["plain_ms"] = case["energy_plain_ms"]
@@ -568,6 +817,11 @@ def main() -> None:
 
     # -- the other solver modes ---------------------------------------------------
     modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi)
+
+    # -- the command line ---------------------------------------------------------
+    for which, more in cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain,
+                                  smi, flush, bw, op_rate).items():
+        kern[which].update(more)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     src = "bundleadjustment_benchmarks_tpu_torch/ops/csrc/chain_kernels.cu"

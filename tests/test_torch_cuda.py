@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from bundleadjustment_benchmarks_tpu_torch import cli
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
 from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian
 from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
@@ -238,3 +239,19 @@ def test_minimize_goes_through_the_kernels(p16_cuda):
     prepares = res.iterations - 1  # the last iteration found the limit
     assert cuda_chain.LAUNCHES["chain_blocks"] == prepares
     assert cuda_chain.LAUNCHES["chain_energy"] == res.fun_evals - prepares
+
+
+def test_cli_mixed_launches_both_kernels(p16_cuda, tmp_path, capsys):
+    """The command line on p16 with --precision mixed runs the df32 drive
+    through both chain kernels: one blocks launch per prepare, one energy
+    launch per trial (one JSONL record each)."""
+    cuda_chain.reset_launches()
+    metrics = tmp_path / "m.jsonl"
+    rc = cli.main([P16, "--precision", "mixed", "--max-iters", "2", "--quiet",
+                   "--metrics", str(metrics),
+                   "--log-file", str(tmp_path / "run.log")])
+    assert rc == cli.RETURN_SUCCESS
+    assert "N(cameras) = 16, M(points) = 22106" in capsys.readouterr().out
+    records = metrics.read_text().splitlines()
+    assert cuda_chain.LAUNCHES["chain_blocks"] == 2
+    assert cuda_chain.LAUNCHES["chain_energy"] == len(records) > 0

@@ -37,8 +37,10 @@ def test_port_modules_import_no_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout.split()
-    assert "bundleadjustment_benchmarks_tpu_torch.solvers.lm" in out
-    assert "bundleadjustment_benchmarks_tpu_torch.convert" in out
+    for name in ("solvers.lm", "convert", "cli", "utils.stats",
+                 "utils.logger", "utils.checkpoint", "utils.synthetic",
+                 "utils.balgen", "models.camera", "solvers.norms"):
+        assert f"bundleadjustment_benchmarks_tpu_torch.{name}" in out
     assert [m for m in out if _is_jax_side(m)] == []
 
 

@@ -147,3 +147,44 @@ def test_prepare_fast_matches_jax():
           f"lambda0 {abs(float(lam_t) - float(lam_j)) / float(lam_j):.3g}")
     assert float(e_t) == pytest.approx(float(e_j), rel=1e-5)
     assert float(lam_t) == pytest.approx(float(lam_j), rel=1e-3)
+
+
+def test_float32_step_as_accurate_as_jax():
+    """The mixed (float32 Schur) damped camera step against the float64
+    step, both packages, 8 synthetic problems (tau = 2 px) at 1, 2 and 8
+    times the first lambda (1e-6-1e-4). There the Jacobi-scaled reduced
+    system's weakest direction lies below float32's rounding of S, the
+    float32 Cholesky breaks down and the refined QR fallback either
+    converges or, on a perturbation of the same size, diverges: measured,
+    JAX's step is more than 100% off in 3 of the 24 cases and the port's in
+    2, in different cases, and the medians are 7.4e-2 (JAX) and 5.1e-2
+    (port). Held: the port's median within 2x of JAX's, and at most 2 more
+    steps past 100%."""
+    gaps = {"jax": [], "port": []}
+    for seed in range(8):
+        jp = make_synthetic_problem(n_cameras=6, n_points=40, obs_per_point=4,
+                                    seed=seed, inlier_threshold=2.0,
+                                    dtype=jnp.float64)
+        tp = convert.problem_from_numpy(convert.problem_to_numpy(jp), device="cpu")
+        ctx64, _, lam0 = jlm._prepare(jp.state, jp, "cholesky")
+        ctx_j, _, _ = jlm._prepare_fast(jpm.to_fast(jp.state), jp, "cholesky",
+                                        "float32", pallas=False)
+        ctx_t, _, _ = lm._prepare_fast(pm.to_fast(tp.state), tp, "cholesky",
+                                       "float32", kernels=False)
+        for factor in (1.0, 2.0, 8.0):
+            lam32 = float(np.float32(float(lam0) * factor))
+            want = jschur.solve_damped(ctx64, lam32, jp, "cholesky")[1]
+            got_j = jschur.solve_damped(ctx_j, jnp.float32(lam32), jp, "cholesky",
+                                        mm_dtype=jnp.float32)[1]
+            got_t = schur.solve_damped(ctx_t, lam32, tp, "cholesky",
+                                       mm_dtype=torch.float32)[1]
+            for which, got in (("jax", got_j), ("port", got_t)):
+                d = _np(got).astype(np.float64) - _np(want)
+                gaps[which].append(float(np.linalg.norm(d) / np.linalg.norm(_np(want))))
+    med = {k: float(np.median(v)) for k, v in gaps.items()}
+    past = {k: sum(g > 1.0 for g in v) for k, v in gaps.items()}
+    print(f"gap float32 camera step vs float64: median JAX {med['jax']:.3g}, "
+          f"port {med['port']:.3g}; past 100%: JAX {past['jax']}, port "
+          f"{past['port']} of {len(gaps['jax'])}")
+    assert med["port"] <= 2.0 * med["jax"]
+    assert past["port"] <= past["jax"] + 2
