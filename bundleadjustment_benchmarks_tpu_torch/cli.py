@@ -10,11 +10,14 @@ print the post-optimization statistics. The reference's five binaries are
 
 Runs on the current CUDA device; ``--device cpu`` runs on the CPU. Without
 a CUDA device and without ``--device`` it refuses to run (return code 1).
+``--shards N`` runs N local ranks of the sharded path, one per GPU (NCCL), or
+on the CPU with ``--device cpu`` (gloo); rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -68,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--shards",
         type=int,
         default=0,
-        help="shard the problem over this many devices: not ported yet "
-        "(any value above 0 is refused); 0 = one device",
+        help="shard the points over this many local ranks "
+        "(torch.distributed): one per GPU (NCCL), or on the CPU with "
+        "--device cpu (gloo); 0 = one device, no process group",
     )
     p.add_argument(
         "--drive",
@@ -145,23 +149,126 @@ def _precision(args):
     return torch.float64, geometry, None if args.dtype == "f64" else "float32"
 
 
+def _shard_devices(n: int, device):
+    """One device per rank: the CPU for every rank, or GPUs 0..n-1 (the
+    given one for a single rank); None, after a message, where the machine
+    has fewer GPUs than ranks."""
+    import torch
+
+    if device.type == "cpu":
+        return ["cpu"] * n
+    if n == 1:
+        return [str(device)]
+    found = torch.cuda.device_count()
+    if found < n:
+        print(f"--shards {n} needs {n} CUDA devices, one per rank; found "
+              f"{found} (--device cpu runs {n} ranks on the CPU)",
+              file=sys.stderr)
+        return None
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def _run_and_report(args, problem, device, run, echo: bool = True):
+    """The header and statistics, ``run()`` timed (and profiled with
+    --profile-dir), its status and the statistics of its state; printed
+    only where ``echo``."""
+    import torch
+
+    from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+    from bundleadjustment_benchmarks_tpu_torch.utils import stats
+
+    def show(state):
+        stats.show_error_statistics(
+            state, problem.obs, AVG_FOCAL_LENGTH, args.inlier_threshold)
+        stats.show_objective(
+            state, problem.obs, AVG_FOCAL_LENGTH, args.inlier_threshold)
+
+    def synchronized():
+        result = run()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return result
+
+    if echo:
+        print(f"N(cameras) = {problem.n_cameras}, M(points) = {problem.n_points},"
+              f" K(measurements) = {problem.n_observations}")
+        show(problem.state)
+    begin = time.perf_counter()
+    if args.profile_dir and echo:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            result = synchronized()
+        elapsed = time.perf_counter() - begin
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+    else:
+        result = synchronized()
+        elapsed = time.perf_counter() - begin
+    if echo:
+        print(f"lm.minimize(params) ... {elapsed:g}s")
+        print(f"LM finished with status: {lm.STATUS_STRINGS[result.status]}")
+        show(result.state)
+
+
+def _observe(args) -> dict:
+    return dict(checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every if args.checkpoint else 0,
+                metrics_path=args.metrics)
+
+
+def _resume(args, dtype, echo: bool = True):
+    """(state, meta) of --checkpoint where the file exists, else (None, None)."""
+    from bundleadjustment_benchmarks_tpu_torch.utils import checkpoint
+
+    if not (args.checkpoint and os.path.exists(args.checkpoint)):
+        return None, None
+    state, meta = checkpoint.load_checkpoint(args.checkpoint, dtype=dtype,
+                                             device="cpu")
+    if echo:
+        print(f"Resuming from {args.checkpoint} (iteration {meta['iteration']})")
+    return state, meta
+
+
+def _shard_rank(rank: int, device, args, problem, cfg, dtype) -> None:
+    """One rank of ``--shards``: its shard of the problem (of the
+    checkpoint's state when resuming), the sharded LM; rank 0 prints."""
+    from bundleadjustment_benchmarks_tpu_torch.parallel import sharded
+
+    echo = rank == 0
+
+    def run():
+        state, resume = _resume(args, dtype, echo)
+        full = problem if state is None else dataclasses.replace(problem, state=state)
+        sp = sharded.shard_problem(full, args.shards, rank, device=device)
+        return sharded.minimize_sharded(sp, mode=args.solver, config=cfg,
+                                        resume=resume, **_observe(args))
+
+    shown = dataclasses.replace(problem, state=problem.state.to(device),
+                                obs=problem.obs.to(device))
+    _run_and_report(args, shown, device, run, echo)
+    sys.stdout.flush()
+
+
 def main(argv=None) -> int:
     args_list = sys.argv[1:] if argv is None else argv
     try:
         args = build_parser().parse_args(args_list)
     except SystemExit as e:
         return RETURN_WRONG_INPUT_PARAMS if e.code else RETURN_SUCCESS
-    if args.shards:
-        print(f"--shards {args.shards}: the distributed path is not ported "
-              "yet; run without --shards", file=sys.stderr)
+    if args.shards < 0:
+        print(f"--shards {args.shards}: give 0 (one device) or a number of "
+              "ranks", file=sys.stderr)
         return RETURN_WRONG_INPUT_PARAMS
-
-    import torch
 
     from bundleadjustment_benchmarks_tpu_torch import resolve_device
     from bundleadjustment_benchmarks_tpu_torch.models.problem import load_bal_problem
+    from bundleadjustment_benchmarks_tpu_torch.parallel import multihost
     from bundleadjustment_benchmarks_tpu_torch.solvers import lm
-    from bundleadjustment_benchmarks_tpu_torch.utils import checkpoint, logger, stats
+    from bundleadjustment_benchmarks_tpu_torch.utils import logger
 
     try:
         device = resolve_device(args.device)
@@ -170,34 +277,26 @@ def main(argv=None) -> int:
               "no CUDA device; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return RETURN_WRONG_INPUT_PARAMS
+    devices = _shard_devices(args.shards, device) if args.shards else None
+    if args.shards and devices is None:
+        return RETURN_WRONG_INPUT_PARAMS
     state_dtype, geometry, matmul_dtype = _precision(args)
 
     log = logger.create_logger(args.log_file)
     log.log(logger.INFO, "Computation STARTED!")
 
     try:
+        # Sharded runs load on the CPU; each rank moves its shard.
         problem = load_bal_problem(
             args.problem,
             dtype=state_dtype,
             inlier_threshold=args.inlier_threshold,
             avg_focal_length=AVG_FOCAL_LENGTH,
-            device=device,
+            device="cpu" if args.shards else device,
         )
     except (OSError, ValueError) as e:
         print(f"Cannot open {args.problem}: {e}", file=sys.stderr)
         return RETURN_WRONG_INPUT_FILE
-
-    print(
-        f"N(cameras) = {problem.n_cameras}, M(points) = {problem.n_points},"
-        f" K(measurements) = {problem.n_observations}"
-    )
-
-    stats.show_error_statistics(
-        problem.state, problem.obs, AVG_FOCAL_LENGTH, args.inlier_threshold
-    )
-    stats.show_objective(
-        problem.state, problem.obs, AVG_FOCAL_LENGTH, args.inlier_threshold
-    )
 
     cfg = lm.LMConfig(
         tol_fun=args.tol,
@@ -210,47 +309,17 @@ def main(argv=None) -> int:
         debug_nans=args.debug_nans,
     )
 
-    def run():
-        state, resume = problem.state, None
-        if args.checkpoint and os.path.exists(args.checkpoint):
-            state, resume = checkpoint.load_checkpoint(
-                args.checkpoint, dtype=state_dtype, device=device)
-            print(f"Resuming from {args.checkpoint} "
-                  f"(iteration {resume['iteration']})")
-        result = lm.minimize(
-            problem, mode=args.solver, config=cfg, state=state, device=device,
-            resume=resume, checkpoint_path=args.checkpoint,
-            checkpoint_every=args.checkpoint_every if args.checkpoint else 0,
-            metrics_path=args.metrics,
-        )
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        return result
-
-    begin = time.perf_counter()
-    if args.profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            result = run()
-        elapsed = time.perf_counter() - begin
-        os.makedirs(args.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+    if args.shards:
+        multihost.run_ranks(_shard_rank, devices,
+                            args=(args, problem, cfg, state_dtype))
     else:
-        result = run()
-        elapsed = time.perf_counter() - begin
-    print(f"lm.minimize(params) ... {elapsed:g}s")
-    print(f"LM finished with status: {lm.STATUS_STRINGS[result.status]}")
+        def run():
+            state, resume = _resume(args, state_dtype)
+            return lm.minimize(problem, mode=args.solver, config=cfg,
+                               state=state, device=device, resume=resume,
+                               **_observe(args))
 
-    stats.show_error_statistics(
-        result.state, problem.obs, AVG_FOCAL_LENGTH, args.inlier_threshold
-    )
-    stats.show_objective(
-        result.state, problem.obs, AVG_FOCAL_LENGTH, args.inlier_threshold
-    )
+        _run_and_report(args, problem, device, run)
 
     log.log(logger.INFO, "Computation DONE!")
     return RETURN_SUCCESS

@@ -307,6 +307,38 @@ def _banded(idx, n_segments, pt_idx, n_points) -> BandedTable:
     )
 
 
+def empty_pair_tables(n_cameras: int, n_obs: int, n_points: int) -> PairTables:
+    """Pair tables with no pair: one row of sentinels (obs ``n_obs``, point
+    ``n_points``) that no camera key references. A shard whose points are
+    all seen once carries them where other shards have pairs, so that every
+    shard takes the same path."""
+    row = torch.full((1, 16), n_obs, dtype=torch.int32)
+    return PairTables(row_a=row, row_b=row.clone(),
+                      key_table=torch.zeros((1, 1), dtype=torch.int32),
+                      key_to_obs=torch.ones(n_cameras * n_cameras, dtype=torch.int32),
+                      row_pt=torch.full((1, 16), n_points, dtype=torch.int32))
+
+
+def load_time_tables(cam_idx: np.ndarray, pt_idx: np.ndarray, n_cameras: int,
+                     n_points: int) -> dict:
+    """The BAProblem table fields (pt_obs_idx, pt_obs_count, cam_obs_idx,
+    pairs, cam_obs_pt, pt_banded, cam_banded) of observations sorted by
+    point, as CPU tensors."""
+    table, counts = _point_segment_table(pt_idx, n_points)
+    cam_table = _index_table(cam_idx, n_cameras)
+    pairs = _pair_tables_np(pt_idx, cam_idx, n_cameras)
+    return dict(
+        pt_obs_idx=torch.from_numpy(table),
+        pt_obs_count=torch.from_numpy(counts),
+        cam_obs_idx=torch.from_numpy(cam_table),
+        pairs=None if pairs is None else PairTables(
+            **{k_: torch.from_numpy(v) for k_, v in pairs.items()}),
+        cam_obs_pt=torch.from_numpy(cam_obs_pt(cam_table, pt_idx, n_points)),
+        pt_banded=_banded(pt_idx, n_points, pt_idx, n_points),
+        cam_banded=_banded(cam_idx, n_cameras, pt_idx, n_points),
+    )
+
+
 def from_bal_dataset(ds: bal.BalDataset, dtype=torch.float64,
                      inlier_threshold: float = 0.5,
                      avg_focal_length: float = 1.0,
@@ -342,22 +374,12 @@ def from_bal_dataset(ds: bal.BalDataset, dtype=torch.float64,
         measurements_pl=torch.from_numpy(
             np.ascontiguousarray(meas.T).astype(np.float32)),
     )
-    table, counts = _point_segment_table(pt_idx, m)
-    cam_table = _index_table(cam_idx, n)
-    pairs = _pair_tables_np(pt_idx, cam_idx, n)
     prob = BAProblem(
         state=state,
         obs=obs,
-        pt_obs_idx=torch.from_numpy(table),
-        pt_obs_count=torch.from_numpy(counts),
-        cam_obs_idx=torch.from_numpy(cam_table),
         inlier_threshold=float(inlier_threshold),
         avg_focal_length=float(avg_focal_length),
-        pairs=None if pairs is None else PairTables(
-            **{k_: torch.from_numpy(v) for k_, v in pairs.items()}),
-        cam_obs_pt=torch.from_numpy(cam_obs_pt(cam_table, pt_idx, m)),
-        pt_banded=_banded(pt_idx, m, pt_idx, m),
-        cam_banded=_banded(cam_idx, n, pt_idx, m),
+        **load_time_tables(cam_idx, pt_idx, n, m),
     )
     return prob.to(device)
 

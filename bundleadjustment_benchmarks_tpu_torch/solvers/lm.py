@@ -31,6 +31,11 @@ metrics record per trial, checkpoints of the accepted state and resuming
 from one (``utils/checkpoint.py``), all from the values the trial's one host
 read already brought back. ``LMConfig.polish_iters`` runs the two-phase
 drive: the df32 descent, then a float64 polish from its endpoint.
+
+The sharded path (``parallel/sharded.py``) runs this same loop on each
+rank's slice of the points, with a ``schur.Reduce`` that all-reduces the
+partial sums: every rank reads the same trial scalars and so takes the same
+decisions.
 """
 
 from __future__ import annotations
@@ -146,19 +151,21 @@ def _mm(matmul_dtype: Optional[str]):
 # -- per-iteration kernels ---------------------------------------------------------
 
 
-def _prepare(state, problem, mode: str, matmul_dtype: Optional[str] = None):
+def _prepare(state, problem, mode: str, matmul_dtype: Optional[str] = None,
+             reduce: schur.Reduce = schur.LOCAL):
     """Residuals, Jacobian, energy and the Schur context (state geometry).
-    Returns (ctx, float64 energy, float64 lambda0)."""
+    Returns (ctx, float64 energy, float64 lambda0). On a shard (``reduce``)
+    the energy and the camera totals cover every rank."""
     mm = _mm(matmul_dtype)
     blocks = jacobian.residuals_and_jacobian(
         state, problem.obs, problem.tau2, compute_dtype=mm)
-    energy = projection.compensated_square_sum(blocks.f)
-    ctx = schur.build_context(blocks, problem, mode, mm_dtype=mm)
+    (energy,) = reduce.sum(projection.compensated_square_sum(blocks.f))
+    ctx = schur.build_context(blocks, problem, mode, mm_dtype=mm, reduce=reduce)
     return ctx, energy, schur.initial_lambda(ctx, mode).to(torch.float64)
 
 
 def _prepare_fast(fast, problem, mode: str, matmul_dtype: Optional[str] = None,
-                  kernels: bool = False):
+                  kernels: bool = False, reduce: schur.Reduce = schur.LOCAL):
     """df32 prepare. ``kernels=True`` runs the residual/Jacobian/energy
     chain as one CUDA kernel launch (same math as the plain path)."""
     mm = _mm(matmul_dtype)
@@ -168,13 +175,16 @@ def _prepare_fast(fast, problem, mode: str, matmul_dtype: Optional[str] = None,
     else:
         blocks, energy = cuda_chain.fused_blocks_energy_plain(
             fast, problem.obs, problem.tau2)
-    ctx = schur.build_context(blocks, problem, mode, mm_dtype=mm)
+    (energy,) = reduce.sum(energy)
+    ctx = schur.build_context(blocks, problem, mode, mm_dtype=mm, reduce=reduce)
     return ctx, energy, schur.initial_lambda(ctx, mode).to(torch.float64)
 
 
-def _solve(ctx, lam: float, problem, mode: str, mm, refine: int):
+def _solve(ctx, lam: float, problem, mode: str, mm, refine: int,
+           reduce: schur.Reduce = schur.LOCAL):
     """The damped step and ``refine`` refinement passes on it."""
-    dxp, dxc = schur.solve_damped(ctx, lam, problem, mode, mm_dtype=mm)
+    dxp, dxc = schur.solve_damped(ctx, lam, problem, mode, mm_dtype=mm,
+                                  reduce=reduce)
     for _ in range(refine):
         dxp, dxc = schur.refine_step(ctx, lam, problem, mode, dxp, dxc,
                                      mm_dtype=mm)
@@ -182,30 +192,73 @@ def _solve(ctx, lam: float, problem, mode: str, mm, refine: int):
 
 
 def _trial(ctx, state, lam: float, problem, mode: str,
-           matmul_dtype: Optional[str] = None, refine: int = 0):
+           matmul_dtype: Optional[str] = None, refine: int = 0,
+           reduce: schur.Reduce = schur.LOCAL):
     """One damping trial: solve, step, trial energy, rho's denominator."""
     mm = _mm(matmul_dtype)
-    dxp, dxc = _solve(ctx, lam, problem, mode, mm, refine)
+    dxp, dxc = _solve(ctx, lam, problem, mode, mm, refine, reduce)
     x_test = problem_mod.apply_step(state, dxp, dxc)
-    e_test = projection.energy(x_test, problem.obs, problem.tau2,
-                               compute_dtype=mm)
-    return x_test, e_test, schur.gradient_dot(ctx, dxp, dxc, lam)
+    (e_test,) = reduce.sum(projection.energy(x_test, problem.obs, problem.tau2,
+                                             compute_dtype=mm))
+    return x_test, e_test, schur.gradient_dot(ctx, dxp, dxc, lam, reduce)
 
 
 def _trial_fast(ctx, fast, lam: float, problem, mode: str,
                 matmul_dtype: Optional[str] = None, kernels: bool = False,
-                refine: int = 0):
+                refine: int = 0, reduce: schur.Reduce = schur.LOCAL):
     """df32 damping trial: the solve runs at float32 lambda."""
     mm = _mm(matmul_dtype)
     lam32 = float(torch.tensor(lam, dtype=torch.float32))
-    dxp, dxc = _solve(ctx, lam32, problem, mode, mm, refine)
+    dxp, dxc = _solve(ctx, lam32, problem, mode, mm, refine, reduce)
     x_test = problem_mod.apply_step_fast(fast, dxp, dxc)
     if kernels:
         e_test = cuda_chain.fused_energy(x_test, problem.obs, problem.tau2)
     else:
         e_test = cuda_chain.fused_energy_plain(x_test, problem.obs,
                                                problem.tau2)
-    return x_test, e_test, schur.gradient_dot(ctx, dxp, dxc, lam)
+    (e_test,) = reduce.sum(e_test)
+    return x_test, e_test, schur.gradient_dot(ctx, dxp, dxc, lam, reduce)
+
+
+def step_functions(problem, mode: str, config: "LMConfig", device,
+                   reduce: schur.Reduce = schur.LOCAL):
+    """``lm_loop``'s (prepare, trial) for ``config``'s drive on ``device``,
+    and (to_loop, to_state), which map a BAState to the loop's state (a
+    FastBAState on the df32 drive) and back. With a sharded ``reduce``
+    (``parallel.sharded``) both total their partial sums over the ranks."""
+    schur.check_mode(mode)
+    if config.geometry not in (None, "df32"):
+        raise ValueError(f"unknown geometry {config.geometry!r}")
+    if config.refine_steps and schur.MODE_STRATEGY[mode][1] != "chol":
+        raise ValueError(
+            f"refine_steps={config.refine_steps} needs the chol camera "
+            f"solver (cholesky, qrchol, moreqr); mode {mode!r} keeps its rhs "
+            "in its lambda-free cache")
+    if config.refine_steps and reduce.sharded:
+        raise ValueError(
+            f"refine_steps={config.refine_steps} is not supported on the "
+            "sharded path (its residual sums over every rank's observations)")
+    kernels = config.use_kernels(torch.device(device))
+    mm, refine = config.matmul_dtype, config.refine_steps
+    if config.geometry == "df32":
+        def prepare(x):
+            return _prepare_fast(x, problem, mode, mm, kernels, reduce)
+
+        def trial(ctx, x, lam):
+            return _trial_fast(ctx, x, lam, problem, mode, mm, kernels, refine,
+                               reduce)
+
+        dtype = problem.state.T.dtype
+        return (prepare, trial, problem_mod.to_fast,
+                lambda x: problem_mod.from_fast(x, dtype=dtype))
+
+    def prepare(x):
+        return _prepare(x, problem, mode, mm, reduce)
+
+    def trial(ctx, x, lam):
+        return _trial(ctx, x, lam, problem, mode, mm, refine, reduce)
+
+    return prepare, trial, (lambda s: s), (lambda x: x)
 
 
 # -- the loop ----------------------------------------------------------------------
@@ -234,19 +287,24 @@ class RunLog:
     (keys iter, status, f, rho, lambda, elapsed_s, and phase when
     ``phase`` is set), and a checkpoint of the accepted state every
     ``checkpoint_every`` iterations. ``to_state`` maps the loop state to the
-    BAState a checkpoint holds. Use it as a context manager."""
+    BAState a checkpoint holds. ``write=False`` (a sharded run's ranks other
+    than 0) prints and writes nothing but still calls ``to_state`` where a
+    checkpoint falls due, since on a shard that is a collective. Use it as a
+    context manager."""
 
     def __init__(self, verbose: bool = False,
                  metrics_path: Optional[str] = None,
                  phase: Optional[str] = None,
                  checkpoint_path: Optional[str] = None,
-                 checkpoint_every: int = 0, to_state=None):
-        self.verbose = verbose
-        self.metrics_path = metrics_path
+                 checkpoint_every: int = 0, to_state=None,
+                 write: bool = True):
+        self.verbose = verbose and write
+        self.metrics_path = metrics_path if write else None
         self.phase = phase
         self.checkpoint_path = checkpoint_path if checkpoint_every else None
         self.checkpoint_every = checkpoint_every
         self.to_state = to_state
+        self.write = write
         self._metrics = None
 
     def __enter__(self):
@@ -280,9 +338,11 @@ class RunLog:
         if self.checkpoint_path and it % self.checkpoint_every == 0:
             from bundleadjustment_benchmarks_tpu_torch.utils import checkpoint
 
-            checkpoint.save_checkpoint(
-                self.checkpoint_path, self.to_state(x), lam=lam, iteration=it,
-                fun_evals=fun_evals, energy_history=list(hist))
+            state = self.to_state(x)
+            if self.write:
+                checkpoint.save_checkpoint(
+                    self.checkpoint_path, state, lam=lam, iteration=it,
+                    fun_evals=fun_evals, energy_history=list(hist))
 
 
 def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
@@ -378,7 +438,8 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
              checkpoint_path: Optional[str] = None,
              checkpoint_every: int = 0,
              metrics_path: Optional[str] = None,
-             metrics_phase: Optional[str] = None) -> LMResult:
+             metrics_phase: Optional[str] = None,
+             reduce: schur.Reduce = schur.LOCAL) -> LMResult:
     """Run LM on a BA problem on ``device`` (CUDA unless the caller passes
     one, e.g. ``device="cpu"``; without CUDA and without ``device`` it
     raises). The problem and state are moved there first. ``mode`` is one
@@ -397,7 +458,11 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     from 1). The result sums both phases' iterations and evaluations and is
     the polish's, with the fast phase's status where the polish stopped at
     its iteration cap; where the polish cannot evaluate the fast endpoint
-    (non-finite energy) the fast phase's result stands."""
+    (non-finite energy) the fast phase's result stands.
+
+    ``reduce``: on a shard (``parallel.sharded.minimize_sharded``), the
+    problem is the rank's slice and the result's state too; checkpoints
+    hold every rank's points and only rank 0 prints and writes."""
     schur.check_mode(mode)
     config = config or LMConfig()
     if config.polish_iters and (config.geometry or config.matmul_dtype):
@@ -406,7 +471,7 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
             tol_fun=max(config.tol_fun, _POLISH_FAST_TOL))
         observe = dict(checkpoint_path=checkpoint_path,
                        checkpoint_every=checkpoint_every,
-                       metrics_path=metrics_path)
+                       metrics_path=metrics_path, reduce=reduce)
         fast = minimize(problem, mode, fast_cfg, state=state, device=device,
                         resume=resume, metrics_phase="fast", **observe)
         polish_cfg = dataclasses.replace(
@@ -423,46 +488,20 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
         return polish._replace(status=status, **counts)
 
     dev = resolve_device(device)
-    kernels = config.use_kernels(dev)
-    if config.geometry not in (None, "df32"):
-        raise ValueError(f"unknown geometry {config.geometry!r}")
-    if config.refine_steps and schur.MODE_STRATEGY[mode][1] != "chol":
-        raise ValueError(
-            f"refine_steps={config.refine_steps} needs the chol camera "
-            f"solver (cholesky, qrchol, moreqr); mode {mode!r} keeps its rhs "
-            "in its lambda-free cache")
     problem = problem.to(dev)
     state = problem.state if state is None else state.to(dev)
+    prepare, trial, to_loop, to_state = step_functions(problem, mode, config,
+                                                       dev, reduce)
 
-    if config.geometry == "df32":
-        def prepare(x):
-            return _prepare_fast(x, problem, mode, config.matmul_dtype,
-                                 kernels=kernels)
+    def to_checkpoint(x):
+        s = to_state(x)
+        return dataclasses.replace(s, points=reduce.points(s.points))
 
-        def trial(ctx, x, lam):
-            return _trial_fast(ctx, x, lam, problem, mode,
-                               config.matmul_dtype, kernels=kernels,
-                               refine=config.refine_steps)
-
-        def to_state(x):
-            return problem_mod.from_fast(x, dtype=state.T.dtype)
-
-        x0 = problem_mod.to_fast(state)
-    else:
-        def prepare(x):
-            return _prepare(x, problem, mode, config.matmul_dtype)
-
-        def trial(ctx, x, lam):
-            return _trial(ctx, x, lam, problem, mode, config.matmul_dtype,
-                          refine=config.refine_steps)
-
-        def to_state(x):
-            return x
-
-        x0 = state
     with RunLog(config.verbose, metrics_path, metrics_phase, checkpoint_path,
-                checkpoint_every, to_state) as run_log:
+                checkpoint_every, to_checkpoint,
+                write=reduce.rank == 0) as run_log:
         x, status, it, fun_evals, energy, lam = lm_loop(
-            x0, prepare, trial, config, resume=resume, run_log=run_log)
+            to_loop(state), prepare, trial, config, resume=resume,
+            run_log=run_log)
     return LMResult(state=to_state(x), status=status, iterations=it,
                     fun_evals=fun_evals, energy=energy, lam=lam)

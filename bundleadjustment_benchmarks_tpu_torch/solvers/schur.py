@@ -44,7 +44,9 @@ point columns is exactly the rows sqrt(lam/(eh+lam)) Qh^T Rpc: a diagonal
 rescaling of the cached QtRpc.
 
 ``build_context`` runs once per outer LM iteration, ``solve_damped`` once
-per damping trial.
+per damping trial. Both take a ``Reduce``: on one device (``LOCAL``) it does
+nothing; on a shard (``parallel/sharded.py``) it all-reduces the partial
+sums that the rank's slice of the points contributes to camera-sized totals.
 """
 
 from __future__ import annotations
@@ -80,6 +82,37 @@ def check_mode(mode: str) -> None:
     """Raise unless ``mode`` is one of MODES."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+
+
+class Reduce:
+    """How one rank's partial results become the whole problem's.
+
+    The solver sums over observations and points. Where a rank holds only
+    a slice of the points (``parallel/sharded.py``), the sums that land in
+    camera-sized totals (U, g_cams, the reduced system, the camera grams)
+    and the scalars (energies, rho's point terms) are partial, and so is
+    the max of diag(V). This class, the single-device case (``LOCAL``),
+    returns them as they are; the sharded subclass all-reduces them.
+    ``points`` maps the rank's (M_rank, 3) points to all (M, 3)."""
+
+    #: True where the ranks hold slices: qrkit without pair tables then
+    #: re-damps in gram form, which sums over points (see
+    #: _camera_solve_qr_cached).
+    sharded = False
+    rank = 0
+
+    def sum(self, *ts):
+        """The totals of partial sums, as a tuple (in place where it can)."""
+        return ts
+
+    def max(self, t):
+        return t
+
+    def points(self, pts):
+        return pts
+
+
+LOCAL = Reduce()
 
 
 @dataclasses.dataclass
@@ -398,7 +431,7 @@ def _rpp_eigenbasis(Jp_stacked, f_dtype):
     return Q1_0, Rpp, fill_evals, Qh64.to(Jp_stacked.dtype)
 
 
-def _qrkit_row_cache(ctx, blocks, problem, mm):
+def _qrkit_row_cache(ctx, blocks, problem, mm, reduce):
     """qrkit without pair tables: QtRpc = Qh^T Q1_0^T [A_cam | b] placed
     densely, and Rcc_aug, the gram square root of U_aug - QtRpc^T QtRpc."""
     n, m = problem.n_cameras, problem.n_points
@@ -408,12 +441,13 @@ def _qrkit_row_cache(ctx, blocks, problem, mm):
     ctx.QtRpc = _place_rows(Bq, cq, _cam_per_slot(problem), n, mm)
     flat = ctx.QtRpc.reshape(3 * m, 9 * n + 1)
     f_mm = f.to(mm)
-    U_aug = _aug_camera_gram(ctx.U, ctx.g_cams, (f_mm * f_mm).sum(), mm)
+    G, ff = reduce.sum(flat.T @ flat, (f_mm * f_mm).sum())
     # The rhs column carries b = -f, whose camera gram column is g_cams.
-    ctx.Rcc_aug = _gram_sqrt_factor(U_aug - flat.T @ flat).to(mm)
+    ctx.Rcc_aug = _gram_sqrt_factor(
+        _aug_camera_gram(ctx.U, ctx.g_cams, ff, mm) - G).to(mm)
 
 
-def _qrkit_pair_cache(ctx, blocks, problem):
+def _qrkit_pair_cache(ctx, blocks, problem, reduce):
     """qrkit with pair tables: with Q1_0 = Jp_stacked Rpp^-1, each observation's
     projected camera block is B_k = P_p W_k^T with P_p = Qh_p^T Rpp_p^-T
     (rank-guarded: zero rows for zeroed pivots), so the cache is the planar
@@ -438,21 +472,23 @@ def _qrkit_pair_cache(ctx, blocks, problem):
         setattr(ctx, name, v)
     ctx.qr_cqT = cq.T.to(f.dtype)
     ones = torch.ones((3, m), dtype=f.dtype, device=f.device)
-    S_sum0, b_sum0 = _pair_gram_tables(ctx, _ext(ones), _ext(ctx.qr_cqT),
-                                       problem.pairs, n, f.dtype)
+    S_sum0, b_sum0 = reduce.sum(*_pair_gram_tables(
+        ctx, _ext(ones), _ext(ctx.qr_cqT), problem.pairs, n, f.dtype))
     ctx.qr_S0cam = _add_blockdiag(-S_sum0.to(f.dtype), ctx.U.to(f.dtype))
     ctx.qr_b0 = ctx.g_cams.reshape(-1).to(f.dtype) - b_sum0.reshape(-1)
 
 
 def build_context(blocks: JacobianBlocks, problem, mode: str,
-                  mm_dtype=None) -> SchurContext:
+                  mm_dtype=None, reduce: Reduce = LOCAL) -> SchurContext:
     """Normal-equation blocks and the mode's lambda-free cache from J.
 
     ``mm_dtype``: dtype of the large cached operands (the pair stacks, the
     stacked camera rows, qrkit's QtRpc/Rcc_aug; float32 on the df32 drive);
     None = the blocks' dtype. The 3x3 eigendecompositions run in float64.
     The chol camera solver and qrkit use the problem's pair tables where it
-    has them (``problem.pairs``), and the dense forms where it has none."""
+    has them (``problem.pairs``), and the dense forms where it has none.
+    ``reduce`` totals U, g_cams, the max column norm and qrkit's lambda-free
+    camera system over the ranks (see Reduce)."""
     check_mode(mode)
     if problem.cam_banded is None or problem.pt_banded is None:
         raise ValueError("the problem has no banded segment tables "
@@ -469,7 +505,7 @@ def build_context(blocks: JacobianBlocks, problem, mode: str,
     f_pl = f.T.reshape(2, 1, k)
     Jc10 = torch.cat([Jc.reshape(k, 18).T.reshape(2, 9, k), f_pl], dim=1)
     Jp4 = torch.cat([Jp.reshape(k, 6).T.reshape(2, 3, k), f_pl], dim=1)
-    M10 = banded_planar_gram(Jc10, problem.cam_banded)
+    (M10,) = reduce.sum(banded_planar_gram(Jc10, problem.cam_banded))
     M4 = banded_planar_gram(Jp4, problem.pt_banded)
     U, V = M10[:, :9, :9], M4[:, :3, :3]
     ctx = SchurContext(
@@ -477,7 +513,7 @@ def build_context(blocks: JacobianBlocks, problem, mode: str,
         g_cams=-M10[:, :9, 9], g_pts=-M4[:, :3, 3],
         max_colnorm_sq=torch.maximum(
             torch.diagonal(U, dim1=-2, dim2=-1).max(),
-            torch.diagonal(V, dim1=-2, dim2=-1).max()),
+            reduce.max(torch.diagonal(V, dim1=-2, dim2=-1).max())),
     )
     mm = mm_dtype or Jc.dtype
 
@@ -493,9 +529,9 @@ def build_context(blocks: JacobianBlocks, problem, mode: str,
             ctx.rhs_stacked = (-_ext0(f)[tbl]).reshape(m, 2 * lmax).to(mm)
         if camera_solver == "qr_cached":
             if pairs is not None:
-                _qrkit_pair_cache(ctx, blocks, problem)
+                _qrkit_pair_cache(ctx, blocks, problem, reduce)
             else:
-                _qrkit_row_cache(ctx, blocks, problem, mm)
+                _qrkit_row_cache(ctx, blocks, problem, mm, reduce)
 
     if point_factor == "eig" or (camera_solver == "chol" and pairs is not None):
         evals64, evecs64 = linalg.eigh3x3_sym(V.to(torch.float64))
@@ -628,30 +664,34 @@ def qrkit_pair_trial_sums(ctx: SchurContext, lam, pairs, n: int):
                              pairs, n, ctx.qr_S0cam.dtype)
 
 
-def _camera_solve_qr_cached(ctx: SchurContext, lam, problem, n: int):
+def _camera_solve_qr_cached(ctx: SchurContext, lam, problem, n: int,
+                            reduce: Reduce = LOCAL):
     """qrkit camera step from the cached lambda-free factors: with pair
     tables S(lam) = S0 + sum B^T (lam/(eh+lam)) B + lam I and the refined
     Cholesky solve; without them the row-QR re-damp of the dense cache and
-    a triangular solve."""
+    a triangular solve on one device, the gram re-damp on a shard (a row-QR
+    does not split over ranks; a gram is a sum)."""
     dtype = ctx.U.dtype
     if ctx.qr_S0cam is not None:
-        S_sum, b_sum = qrkit_pair_trial_sums(ctx, lam, problem.pairs, n)
+        S_sum, b_sum = reduce.sum(*qrkit_pair_trial_sums(ctx, lam, problem.pairs, n))
         Scam = ctx.qr_S0cam + S_sum.to(dtype)
         Scam.diagonal().add_(lam)
         return _camera_solve_chol(Scam, ctx.qr_b0 + b_sum.reshape(-1).to(dtype))
+    if reduce.sharded:
+        return _qrkit_gram_camera_step(ctx, lam, n, reduce)
     n9 = 9 * n
     R = _redamp_qr(ctx.Rcc_aug, ctx.QtRpc, ctx.fill_evals, lam).to(dtype)
     return linalg.solve_upper_triangular(R[:n9, :n9], R[:n9, n9])
 
 
 def _qrkit_gram_camera_step(ctx: SchurContext, lam, n: int,
-                            chunk_points: int = 8192):
+                            reduce: Reduce = LOCAL, chunk_points: int = 8192):
     """The JAX package's TPU re-damp of the dense qrkit cache, in gram form
-    (a reference for the parity tests):
+    (the sharded path's, and a reference for the parity tests):
         S_aug(lam) = Rcc_aug^T Rcc_aug + F^T F,
         F = diag(sqrt(lam/(eh+lam))) QtRpc,
-    F^T F accumulated over point chunks, then lam I and the refined
-    Cholesky solve."""
+    F^T F accumulated over point chunks (and ranks), then lam I and the
+    refined Cholesky solve."""
     dtype = ctx.Rcc_aug.dtype
     n9 = 9 * n
     scale = torch.sqrt(_redamp_scale(ctx.fill_evals, lam)).to(dtype)
@@ -660,6 +700,7 @@ def _qrkit_gram_camera_step(ctx: SchurContext, lam, n: int,
         F = (ctx.QtRpc[lo:lo + chunk_points]
              * scale[lo:lo + chunk_points, :, None]).reshape(-1, n9 + 1)
         G += F.T @ F
+    (G,) = reduce.sum(G)
     S_aug = ctx.Rcc_aug.T @ ctx.Rcc_aug + G
     Scam = S_aug[:n9, :n9].clone()
     Scam.diagonal().add_(lam)
@@ -669,12 +710,14 @@ def _qrkit_gram_camera_step(ctx: SchurContext, lam, n: int,
 # -- spqr: the whole augmented matrix re-factored every trial -----------------
 
 
-def camera_solve_qr(ctx: SchurContext, lam, problem, chunk: int = 1024):
+def camera_solve_qr(ctx: SchurContext, lam, problem, chunk: int = 1024,
+                    reduce: Reduce = LOCAL):
     """spqr camera step, re-factored every trial in R-only CholeskyQR form:
     per chunk of points, the MGS QR of the augmented panels
     [Jp; sqrt(lam) I3] (Q1(lam)), the projected camera rows placed densely,
-    and their gram accumulated; then B^T B = U_aug - Rpc(lam)^T Rpc(lam)
-    (projector identity), lam I, and the refined Cholesky solve."""
+    and their gram accumulated (over chunks and ranks); then B^T B = U_aug -
+    Rpc(lam)^T Rpc(lam) (projector identity), lam I, and the refined
+    Cholesky solve."""
     dtype = ctx.U.dtype
     n = problem.n_cameras
     Js = ctx.Jp_stacked
@@ -693,6 +736,7 @@ def camera_solve_qr(ctx: SchurContext, lam, problem, chunk: int = 1024):
         flat = _place_rows(B, c, cam_slot[lo:lo + chunk], n,
                            Js.dtype).reshape(-1, n9 + 1).to(dtype)
         G += flat.T @ flat
+    (G,) = reduce.sum(G)
     # The corner energy is irrelevant: only S[:9N, :9N] and the rhs column
     # are used.
     S_aug = _aug_camera_gram(ctx.U, ctx.g_cams, 0.0, dtype) - G
@@ -758,11 +802,14 @@ def _back_substitute(ctx: SchurContext, lam, problem, dxc, Linv=None):
 
 
 def solve_damped(ctx: SchurContext, lam: float, problem, mode: str,
-                 mm_dtype=None):
+                 mm_dtype=None, reduce: Reduce = LOCAL):
     """Solve (J^T J + lam I) dx = -J^T f; returns (dx_pts (M,3), dx_cams (N,9)).
 
     ``lam`` is a Python float already rounded to the context's dtype by
-    the caller; ``mm_dtype`` must be the value ``build_context`` used."""
+    the caller; ``mm_dtype`` and ``reduce`` must be the values
+    ``build_context`` used. On a shard the reduced camera system (or
+    spqr's and qrkit's camera gram) is totalled over the ranks and solved
+    on every rank; the point step stays the rank's own."""
     check_mode(mode)
     point_factor, camera_solver = MODE_STRATEGY[mode]
     n = problem.n_cameras
@@ -786,11 +833,12 @@ def solve_damped(ctx: SchurContext, lam: float, problem, mode: str,
             y = torch.einsum("mij,mj->mi", Linv, ctx.g_pts)
             S_sum, b_sum = _schur_gram_chunked(C, None, y, cam_idx,
                                                problem.pt_obs_idx, n, mm)
+        S_sum, b_sum = reduce.sum(S_sum, b_sum)
         dxc = _camera_solve_chol(*assemble_reduced(S_sum, b_sum, ctx, lam, n))
     elif camera_solver == "qr_cached":
-        dxc = _camera_solve_qr_cached(ctx, lam, problem, n)
+        dxc = _camera_solve_qr_cached(ctx, lam, problem, n, reduce)
     else:
-        dxc = camera_solve_qr(ctx, lam, problem)
+        dxc = camera_solve_qr(ctx, lam, problem, reduce=reduce)
     dxc = dxc.reshape(n, 9)
     return _back_substitute(ctx, lam, problem, dxc, Linv), dxc
 
@@ -848,16 +896,19 @@ def refine_step(ctx: SchurContext, lam: float, problem, mode: str, dxp, dxc,
             (dxc_a + ddxc.to(f64)).to(dxc.dtype))
 
 
-def gradient_dot(ctx: SchurContext, dxp, dxc, lam: float) -> torch.Tensor:
+def gradient_dot(ctx: SchurContext, dxp, dxc, lam: float,
+                 reduce: Reduce = LOCAL) -> torch.Tensor:
     """rhoScale = dx^T (lam dx + JtRes) (BacktrackLevMarqCholesky.h:300), as
     a float64 0-dim tensor. float32 steps are summed in float32 and the sums
-    promoted (both terms are positive: no cancellation)."""
+    promoted (both terms are positive: no cancellation). On a shard the
+    point terms are totalled over the ranks."""
     f64 = torch.float64
 
     def dsum(a, b):
         return (a * b).sum().to(f64)
 
-    jtres_dot = dsum(dxc, ctx.g_cams.to(dxc.dtype)) + dsum(
-        dxp, ctx.g_pts.to(dxp.dtype))
-    dx_norm2 = dsum(dxc, dxc) + dsum(dxp, dxp)
+    pt_dot, pt_norm2 = reduce.sum(dsum(dxp, ctx.g_pts.to(dxp.dtype)),
+                                  dsum(dxp, dxp))
+    jtres_dot = dsum(dxc, ctx.g_cams.to(dxc.dtype)) + pt_dot
+    dx_norm2 = dsum(dxc, dxc) + pt_norm2
     return lam * dx_norm2 + jtres_dot

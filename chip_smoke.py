@@ -14,7 +14,14 @@ and "tsqr" forms (``spqr_forms_p257``), then the command line in-process
 (``cli_mixed_p257``), p16 in float64 with every solver and a two-phase
 ``--polish`` run (``cli_f64_p16``), and a generated stand-in of BAL's
 Ladybug problem-1723-156502 whose 1,723 cameras the kernels do not stage in
-shared memory (``cli_ladybug_df32``), and fails on any disagreement.
+shared memory (``cli_ladybug_df32``), then the sharded path
+(``parallel/sharded.py``): NCCL at world size 1 against one device on p257
+(``sharded_nccl_p257``), 2 and 4 gloo ranks sharing the card on p257, every
+mode at 2 ranks on p257 df32 and on p16 float64 (``sharded_gloo_p257``,
+``sharded_f64_p16``), 2 ranks on the Ladybug stand-in
+(``sharded_ladybug_df32``), a checkpoint written at 2 ranks resumed on one
+device, the command line's ``--shards`` (``cli_shards``) and the dry run at
+1 and 2 ranks (``dryrun_multichip``), and fails on any disagreement.
 Each phase prints JSON lines with its wall time; then come one line of
 per-kernel numbers (the kernel's and its entry point's device
 time, the host time to issue one call, the device operations one call
@@ -29,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gzip
+import hashlib
 import io
 import json
 import re
@@ -413,11 +421,12 @@ def kernel_bounds(n: int, m: int, k_obs: int, bw: float, op_rate: float) -> dict
 
 
 def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
-               bw, op_rate) -> dict:
+               bw, op_rate, ladybug) -> dict:
     """The command line on the card, in-process, its log, metrics and
     checkpoints in a temporary directory. Each run's chain-kernel launches
-    are counted from 0. Returns per kernel the CLI phases' launch counts
-    and the Ladybug stand-in's kernel numbers."""
+    are counted from 0. ``ladybug`` is the generated stand-in's
+    (BalDataset, seconds to generate). Returns per kernel the CLI phases'
+    launch counts and the Ladybug stand-in's kernel numbers."""
     extra = {"chain_blocks": {}, "chain_energy": {}}
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
@@ -529,10 +538,8 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
 
         # -- Ladybug stand-in, mixed: cameras past the shared-memory stage ------
         t_phase = time.perf_counter()
-        n, m, k_real = LADYBUG
-        t0 = time.perf_counter()
-        ds = balgen.generate_bal_like(n, m, seed=n, mean_degree=k_real / m)
-        gen_s = time.perf_counter() - t0
+        n, m, _ = LADYBUG
+        ds, gen_s = ladybug
         path = tmp / "problem-1723-156502-pre-standin.txt.gz"
         t0 = time.perf_counter()
         balgen.write_bal_gz(str(path), ds)
@@ -601,6 +608,343 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
     return extra
 
 
+#: The sharded phases' tolerances against the single-device run of the
+#: same configuration. NCCL at world size 1 runs the same arithmetic: equal
+#: LM paths, energies within NCCL_RTOL. gloo ranks sum their partial camera
+#: systems in another order than one device does. On the float64 drive
+#: that moves a run's energy at the rounding level: equal LM paths, and
+#: energies within SHARDED_F64_RTOL (p16 at 2 ranks on the CPU, 5
+#: iterations: <= 1.7e-7, qrchol). On the df32 drive float32 rounding,
+#: amplified by the reduced system's conditioning, parts the LM paths
+#: within a few iterations (p16 at 2 ranks on the CPU: 6.1% apart after 5),
+#: so a df32 run is held to descent and rank agreement, and one prepare
+#: and trial at the loaded state to the single device's: the energy to
+#: SHARDED_PREPARE_RTOL (a sum of per-rank DF sums), lambda0 to
+#: SHARDED_LAMBDA_RTOL (float32 U summed in another order), the trial
+#: energy at AGREE_LAMBDA_FACTOR x lambda0 to SHARDED_DF32_RTOL (the JAX
+#: package's sharded df32 test; p16 at 2 and 4 ranks on the CPU: <= 2.4e-6).
+#: At lambda0 itself the float32 reduced system is singular to rounding
+#: (the Cholesky breaks down) and the trial is noise (3% apart on p16).
+NCCL_RTOL = 1e-12
+SHARDED_F64_RTOL = 1e-6
+SHARDED_PREPARE_RTOL = 1e-9
+SHARDED_LAMBDA_RTOL = 1e-5
+SHARDED_DF32_RTOL = 2e-3
+DF32 = {"matmul_dtype": "float32", "geometry": "df32"}
+MODES = ("cholesky", "qrchol", "moreqr", "qrkit", "spqr")
+
+
+def portable(prob):
+    """What a rank needs of a problem to shard it, on the CPU: the state
+    and the observations (each shard builds its own tables)."""
+    return dataclasses.replace(prob, pairs=None, pt_banded=None,
+                               cam_banded=None).to("cpu")
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def sharded_rank(rank, device, problems, runs, checkpoint_path=None) -> list:
+    """One rank of a sharded group on the card: each run of ``runs`` (name,
+    problem, mode, iters, config; optionally warmup, bytes, checkpoint)
+    through ``sharded.minimize_sharded``, timed after an optional
+    one-iteration warm-up, with this rank's chain-kernel launches and peak
+    device memory and a digest of its final cameras and points (all ranks
+    must agree). With ``bytes``, one prepare and one trial at the loaded
+    state and AGREE_LAMBDA_FACTOR x lambda0: their energies and all-reduce
+    traffic."""
+    import torch.distributed as dist
+
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
+    from bundleadjustment_benchmarks_tpu_torch.parallel import sharded
+    from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+
+    n = dist.get_world_size()
+    shards, out = {}, []
+    for run in runs:
+        t0 = time.perf_counter()
+        if run["problem"] not in shards:
+            shards[run["problem"]] = sharded.shard_problem(
+                problems[run["problem"]], n, rank, device=device)
+        sp = shards[run["problem"]]
+        shard_s = time.perf_counter() - t0
+        cfg = lm.LMConfig(max_iter=run["iters"], **run.get("config", {}))
+        if run.get("warmup"):
+            sharded.minimize_sharded(sp, run["mode"], dataclasses.replace(cfg, max_iter=1))
+        observe = (dict(checkpoint_path=checkpoint_path, checkpoint_every=2)
+                   if run.get("checkpoint") else {})
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        cuda_chain.reset_launches()
+        t0 = time.perf_counter()
+        res = sharded.minimize_sharded(sp, run["mode"], cfg, **observe)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        line = {"run": run["name"], "rank": rank, "shards": n,
+                "backend": dist.get_backend(), "problem": run["problem"],
+                "mode": run["mode"], "drive": "df32" if cfg.geometry else "f64",
+                "observations": sp.problem.n_observations,
+                "points": sp.problem.n_points, "shard_s": shard_s,
+                "iterations": res.iterations, "fun_evals": res.fun_evals,
+                "status": res.status.name, "final_energy": res.energy,
+                "lam": res.lam, "wall_s": wall,
+                "lm_iter_per_s": res.iterations / wall,
+                "launches": dict(cuda_chain.LAUNCHES),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+                "digest": digest(res.state.T) + digest(res.state.points)}
+        if run.get("bytes"):
+            reduce = sharded.AllReduce(sp)
+            prepare, trial, to_loop, _ = lm.step_functions(
+                sp.problem, run["mode"], cfg, device, reduce)
+            x = to_loop(sp.problem.state)
+            ctx, energy, lam0 = prepare(x)
+            done = reduce.bytes, reduce.calls
+            _, e_test, _ = trial(ctx, x, AGREE_LAMBDA_FACTOR * float(lam0))
+            line["allreduce_per_prepare"] = {"bytes": done[0], "calls": done[1]}
+            line["allreduce_per_trial"] = {"bytes": reduce.bytes - done[0],
+                                           "calls": reduce.calls - done[1]}
+            line["first_trial"] = first_trial_line(energy, lam0, e_test)
+        out.append(line)
+    return out
+
+
+def first_trial_line(energy, lam0, e_test) -> dict:
+    return {"energy": float(energy), "lambda0": float(lam0),
+            "trial_energy": float(e_test)}
+
+
+def single_runs(lm, problems, runs) -> dict:
+    """The single-device lm.minimize of each sharded run's configuration,
+    {name: (iterations, fun_evals, status name, energy, first trial)}: the
+    first trial (with ``bytes``) is one prepare and one trial at the loaded
+    state and AGREE_LAMBDA_FACTOR x lambda0."""
+    out = {}
+    for run in runs:
+        prob = problems[run["problem"]]
+        cfg = lm.LMConfig(max_iter=run["iters"], **run.get("config", {}))
+        res = lm.minimize(prob, run["mode"], cfg)
+        first = None
+        if run.get("bytes"):
+            prepare, trial, to_loop, _ = lm.step_functions(
+                prob, run["mode"], cfg, prob.state.T.device)
+            x = to_loop(prob.state)
+            ctx, energy, lam0 = prepare(x)
+            first = first_trial_line(
+                energy, lam0, trial(ctx, x, AGREE_LAMBDA_FACTOR * float(lam0))[1])
+        out[run["name"]] = (res.iterations, res.fun_evals, res.status.name,
+                            res.energy, first)
+    return out
+
+
+def first_trial_gaps(sharded_first, single_first) -> dict:
+    """Relative gaps of the first prepare and trial, sharded to single."""
+    return {k: abs(sharded_first[k] - single_first[k]) / abs(single_first[k])
+            for k in single_first}
+
+
+def summarize(lines: list, single: dict, e0: dict) -> dict:
+    """Per run of a sharded group: rank 0's numbers, every rank's launches
+    and peak memory, whether the ranks agree, and the gaps to the
+    single-device run."""
+    runs = {}
+    for rank_lines in lines:
+        for line in rank_lines:
+            runs.setdefault(line["run"], []).append(line)
+    out = {}
+    keys = ("iterations", "fun_evals", "status", "final_energy", "lam", "digest")
+    for name, per_rank in runs.items():
+        lead = per_rank[0]
+        it, ev, status, energy, first = single.get(name, (None,) * 5)
+        run = {
+            **{k: lead[k] for k in ("shards", "backend", "problem", "mode", "drive",
+                                    "iterations", "fun_evals", "status",
+                                    "final_energy", "wall_s", "lm_iter_per_s")},
+            **{k: lead[k] for k in ("allreduce_per_prepare", "allreduce_per_trial")
+               if k in lead},
+            "initial_energy": e0.get(lead["problem"]),
+            "ranks_agree": all([r[k] for k in keys] == [lead[k] for k in keys]
+                               for r in per_rank),
+            "launches_per_rank": [r["launches"] for r in per_rank],
+            "observations_per_rank": [r["observations"] for r in per_rank],
+            "max_memory_allocated_per_rank": [r["max_memory_allocated"]
+                                              for r in per_rank],
+            "shard_s_per_rank": [r["shard_s"] for r in per_rank],
+            "single": {"iterations": it, "fun_evals": ev, "status": status,
+                       "final_energy": energy},
+            "rel_gap": None if energy is None
+            else abs(lead["final_energy"] - energy) / energy,
+        }
+        if first is not None:
+            run["first_trial"] = lead["first_trial"]
+            run["first_trial_rel_gap"] = first_trial_gaps(lead["first_trial"], first)
+        out[name] = run
+    return out
+
+
+def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
+                   problems, ladybug, smi) -> dict:
+    """The sharded path on the card: NCCL at world size 1 on p257
+    (``sharded_nccl_p257``), 2 and 4 gloo ranks sharing the card on p257 and
+    the Ladybug stand-in (``sharded_gloo_p257``, ``sharded_ladybug_df32``),
+    every mode on the float64 drive at 2 ranks (``sharded_f64_p16``), the
+    command line's ``--shards`` and a checkpoint written at 2 ranks resumed
+    on one device (``cli_shards``), and the dry run at 1 and 2 ranks
+    (``dryrun_multichip``). Returns per kernel the launches per rank."""
+    extra = {"chain_blocks": {}, "chain_energy": {}}
+    p257 = problems["p257"]
+    e0 = {"p257": cuda_chain.fused_energy(pm.to_fast(p257.state), p257.obs,
+                                          p257.tau2).item(),
+          "p16": float(lm._prepare(problems["p16"].state, problems["p16"],
+                                   "cholesky")[1])}
+
+    # -- NCCL, world size 1: p257 df32 cholesky, 10 iterations ---------------
+    t_phase = time.perf_counter()
+    nccl = dict(name="cholesky_10", problem="p257", mode="cholesky", iters=10,
+                config=DF32, warmup=True, bytes=True)
+    single = single_runs(lm, problems, [nccl])
+    lines = multihost.run_ranks(sharded_rank, ["cuda:0"],
+                                args=({"p257": p257}, [nccl]))
+    (run,) = summarize(lines, single, e0).values()
+    emit({"phase": "sharded_nccl_p257", **run, "tolerance": NCCL_RTOL,
+          "nvidia_smi": smi, "phase_s": time.perf_counter() - t_phase})
+    check(run["backend"] == "nccl", f"sharded_nccl_p257: backend {run['backend']}")
+    check((run["iterations"], run["fun_evals"], run["status"])
+          == tuple(single["cholesky_10"][:3]),
+          f"sharded_nccl_p257: LM path {run} differs from one device's")
+    check(run["rel_gap"] <= NCCL_RTOL, f"sharded_nccl_p257: energy gap {run['rel_gap']}")
+    for which in extra:
+        count = run["launches_per_rank"][0][which]
+        check(count > 0, f"sharded_nccl_p257: {which} not launched")
+        extra[which]["launches_sharded_nccl_p257"] = count
+
+    # -- gloo: 2 and 4 ranks on the one card ------------------------------------
+    t_phase = time.perf_counter()
+    n, m, _ = LADYBUG
+    ds, _ = ladybug
+    t0 = time.perf_counter()
+    lady = pm.from_bal_dataset(ds, device="cuda")
+    load_s = time.perf_counter() - t0
+    e0["ladybug"] = cuda_chain.fused_energy(pm.to_fast(lady.state), lady.obs,
+                                            lady.tau2).item()
+    local = {"p257": portable(p257), "p16": portable(problems["p16"]),
+             "ladybug": portable(lady)}
+    five = dict(name="cholesky_5", problem="p257", mode="cholesky", iters=5,
+                config=DF32, warmup=True, bytes=True)
+    modes = [dict(name=f"{mode}_3", problem="p257", mode=mode, iters=3,
+                  config=DF32, warmup=True) for mode in MODES]
+    f64 = [dict(name=f"{mode}_f64", problem="p16", mode=mode, iters=5)
+           for mode in MODES]
+    ck_run = dict(name="checkpoint", problem="p257", mode="cholesky", iters=4,
+                  config=DF32, checkpoint=True)
+    lady_run = dict(name="ladybug", problem="ladybug", mode="cholesky", iters=2,
+                    config=DF32, bytes=True)
+    single = single_runs(lm, {**problems, "ladybug": lady},
+                         [five] + modes + f64 + [lady_run])
+    del lady
+    torch.cuda.empty_cache()
+    groups = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        ck = str(Path(tmp_name) / "d2.ckpt.npz")
+        for d, runs in ((2, [five] + modes + f64 + [ck_run, lady_run]), (4, [five])):
+            t0 = time.perf_counter()
+            lines = multihost.run_ranks(sharded_rank, ["cuda:0"] * d,
+                                        args=(local, runs, ck), timeout=600)
+            groups[d] = summarize(lines, single, e0)
+            groups[d]["group_s"] = time.perf_counter() - t0
+        state, meta = checkpoint.load_checkpoint(ck, device="cuda")
+    resumed = lm.minimize(p257, "cholesky", lm.LMConfig(max_iter=6, **DF32),
+                          state=state, resume=meta)
+    for d, group in groups.items():
+        for name, run in group.items():
+            if name == "group_s":
+                continue
+            phase = {"p257": "sharded_gloo_p257", "p16": "sharded_f64_p16",
+                     "ladybug": "sharded_ladybug_df32"}[run["problem"]]
+            tol = SHARDED_F64_RTOL if run["drive"] == "f64" else SHARDED_DF32_RTOL
+            tolerances = ({"tolerance": tol} if run["drive"] == "f64" else {
+                "tolerance_first_trial": {"energy": SHARDED_PREPARE_RTOL,
+                                          "lambda0": SHARDED_LAMBDA_RTOL,
+                                          "trial_energy": tol}})
+            emit({"phase": phase, "run": name, **run, **tolerances,
+                  "group_s": group["group_s"], "nvidia_smi": smi})
+            where = f"{phase} {name} D={d}"
+            check(run["backend"] == "gloo", f"{where}: backend {run['backend']}")
+            check(run["ranks_agree"], f"{where}: the ranks disagree")
+            check(np.isfinite(run["final_energy"])
+                  and run["final_energy"] < run["initial_energy"],
+                  f"{where}: energy {run['final_energy']} not below "
+                  f"{run['initial_energy']}")
+            if run["drive"] == "df32":
+                for launches in run["launches_per_rank"]:
+                    check(all(c > 0 for c in launches.values()),
+                          f"{where}: a rank did not launch both kernels")
+            if run["drive"] == "f64":
+                check((run["iterations"], run["fun_evals"], run["status"])
+                      == tuple(single[name][:3]) and run["rel_gap"] <= tol,
+                      f"{where}: LM path or energy ({run['rel_gap']}) differs "
+                      "from one device's")
+            if "first_trial_rel_gap" in run:
+                gaps = run["first_trial_rel_gap"]
+                check(gaps["energy"] <= SHARDED_PREPARE_RTOL
+                      and gaps["lambda0"] <= SHARDED_LAMBDA_RTOL
+                      and gaps["trial_energy"] <= tol,
+                      f"{where}: first prepare and trial {gaps} off one device's")
+    for which in extra:
+        for d in groups:
+            extra[which][f"launches_sharded_gloo_p257_d{d}"] = [
+                r[which] for r in groups[d]["cholesky_5"]["launches_per_rank"]]
+        extra[which]["launches_sharded_ladybug_d2"] = [
+            r[which] for r in groups[2]["ladybug"]["launches_per_rank"]]
+    emit({"phase": "sharded_gloo_done", "ladybug_load_s": load_s,
+          "checkpoint_d2_resumed_on_one_device": {
+              "checkpoint_iteration": meta["iteration"],
+              "iterations": resumed.iterations, "fun_evals": resumed.fun_evals,
+              "status": resumed.status.name, "final_energy": resumed.energy},
+          "phase_s": time.perf_counter() - t_phase})
+    check(meta["iteration"] == 4 and resumed.iterations == 7
+          and np.isfinite(resumed.energy) and resumed.energy < e0["p257"],
+          f"sharded_gloo: the D=2 checkpoint did not resume ({meta}, {resumed})")
+
+    # -- the command line's --shards -------------------------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        log = ["--log-file", tmp / "run.log"]
+        metrics = tmp / "shards1.jsonl"
+        cuda_chain.reset_launches()
+        rc, out = run_cli(cli, [P257, "--precision", "mixed", "--shards", 1,
+                                "--max-iters", 5, "--quiet", "--metrics",
+                                metrics] + log)
+        launches = dict(cuda_chain.LAUNCHES)
+        check(rc == cli.RETURN_SUCCESS, f"cli_shards --shards 1: rc {rc}")
+        line = cli_summary(out, metrics)
+        gpus = torch.cuda.device_count()
+        rc2, _ = run_cli(cli, [P257, "--shards", 2, "--max-iters", 1, "--quiet"] + log)
+    want = cli.RETURN_WRONG_INPUT_PARAMS if gpus < 2 else cli.RETURN_SUCCESS
+    emit({"phase": "cli_shards", **line, "launches": launches,
+          "shards_2_rc": rc2, "gpus": gpus, "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
+    check(line["objective_post"] < line["objective_pre"],
+          "cli_shards: the true objective did not descend")
+    check(all(c > 0 for c in launches.values()), "cli_shards: a kernel not launched")
+    check(rc2 == want, f"cli_shards: --shards 2 with {gpus} GPU(s) returned {rc2}")
+    for which in extra:
+        extra[which]["launches_cli_shards_1"] = launches[which]
+
+    # -- the dry run --------------------------------------------------------------
+    t_phase = time.perf_counter()
+    runs = {"n1": sharded.dryrun_multichip(1),
+            "n2": sharded.dryrun_multichip(2, devices=["cuda:0", "cuda:0"])}
+    emit({"phase": "dryrun_multichip", **runs, "phase_s": time.perf_counter() - t_phase})
+    check(runs["n1"]["backend"] == "nccl" and runs["n2"]["backend"] == "gloo",
+          "dryrun_multichip: backends")
+    for name, run in runs.items():
+        check(all(c > 0 for c in run["launches"].values()),
+              f"dryrun_multichip {name}: the df32 configuration launched no kernel")
+    return extra
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; needs a GPU")
@@ -612,6 +956,7 @@ def main() -> None:
     from bundleadjustment_benchmarks_tpu_torch.io import bal
     from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
     from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian
+    from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
     from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
     from bundleadjustment_benchmarks_tpu_torch.utils import balgen, checkpoint
 
@@ -819,8 +1164,17 @@ def main() -> None:
     modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi)
 
     # -- the command line ---------------------------------------------------------
+    n, m, k_real = LADYBUG
+    t0 = time.perf_counter()
+    ladybug = (balgen.generate_bal_like(n, m, seed=n, mean_degree=k_real / m),
+               time.perf_counter() - t0)
     for which, more in cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain,
-                                  smi, flush, bw, op_rate).items():
+                                  smi, flush, bw, op_rate, ladybug).items():
+        kern[which].update(more)
+
+    # -- the sharded path ---------------------------------------------------------
+    for which, more in sharded_phases(pm, lm, sharded, multihost, cli, checkpoint,
+                                      cuda_chain, problems, ladybug, smi).items():
         kern[which].update(more)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 

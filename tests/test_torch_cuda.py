@@ -241,6 +241,30 @@ def test_minimize_goes_through_the_kernels(p16_cuda):
     assert cuda_chain.LAUNCHES["chain_energy"] == res.fun_evals - prepares
 
 
+def test_sharded_nccl_world_size_1_matches_single(p16_cuda):
+    """The sharded path in a process group of one over NCCL, on p16 df32
+    with the kernels: lm.minimize's iterations, evaluations and status,
+    energies within 1e-12, one blocks launch per prepare."""
+    from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
+
+    prob, _ = p16_cuda
+    cfg = lm.LMConfig(max_iter=4, matmul_dtype="float32", geometry="df32")
+    ref = lm.minimize(prob, config=cfg)
+
+    def run(rank, device):
+        sp = sharded.shard_problem(prob, 1, rank, device=device)
+        return sharded.minimize_sharded(sp, config=cfg)
+
+    assert multihost.backend_for(["cuda:0"]) == "nccl"
+    cuda_chain.reset_launches()
+    res = multihost.run_ranks(run, ["cuda:0"])[0]
+    assert (res.iterations, res.fun_evals, res.status) == (
+        ref.iterations, ref.fun_evals, ref.status)
+    assert abs(res.energy - ref.energy) <= 1e-12 * ref.energy
+    assert cuda_chain.LAUNCHES["chain_blocks"] == res.iterations - 1
+    assert res.state.points.shape == (prob.n_points, 3)
+
+
 def test_cli_mixed_launches_both_kernels(p16_cuda, tmp_path, capsys):
     """The command line on p16 with --precision mixed runs the df32 drive
     through both chain kernels: one blocks launch per prepare, one energy

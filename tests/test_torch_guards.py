@@ -39,7 +39,8 @@ def test_port_modules_import_no_jax():
                          capture_output=True, text=True).stdout.split()
     for name in ("solvers.lm", "convert", "cli", "utils.stats",
                  "utils.logger", "utils.checkpoint", "utils.synthetic",
-                 "utils.balgen", "models.camera", "solvers.norms"):
+                 "utils.balgen", "models.camera", "solvers.norms",
+                 "parallel.sharded", "parallel.multihost"):
         assert f"bundleadjustment_benchmarks_tpu_torch.{name}" in out
     assert [m for m in out if _is_jax_side(m)] == []
 
