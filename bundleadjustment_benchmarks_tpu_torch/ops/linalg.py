@@ -1,5 +1,7 @@
 """Batched closed-form 3x3 linear algebra (elementwise tensor ops), plus
-the batched 3-column QR and the triangular solve of the QR solver modes.
+the batched 3-column QR and the triangular solve of the QR solver modes,
+and the blocked Cholesky pair (``blocked_cholesky``, ``blocked_tril_inv``)
+of the JAX package's opt-in reduced-system factorization.
 
 M independent 3x3 point blocks are factored in closed form instead of by a
 batched LAPACK call: pure elementwise arithmetic over (..., 3, 3) tensors.
@@ -199,3 +201,65 @@ def mgs_qr3(A: torch.Tensor, zero_deficient: bool = False):
 def solve_upper_triangular(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve R x = b for upper-triangular R (n, n) and b (n,)."""
     return torch.linalg.solve_triangular(R, b[:, None], upper=True)[:, 0]
+
+
+def _pad_identity(A: torch.Tensor, block: int):
+    """A (n, n) padded to a multiple of ``block`` with an identity tail."""
+    n = A.shape[0]
+    nfull = -(-n // block) * block
+    Ap = torch.zeros((nfull, nfull), dtype=A.dtype, device=A.device)
+    Ap[:n, :n] = A
+    Ap[n:, n:].diagonal().fill_(1.0)
+    return Ap
+
+
+def blocked_cholesky(S: torch.Tensor, block: int = 384):
+    """Left-looking blocked Cholesky of an SPD (n, n) matrix, unrolled over
+    panels of ``block`` columns (JAX linalg.py:293-344): each panel subtracts
+    the finished panels' product, factors its diagonal block and scales the
+    rows below it by that block's inverse.
+
+    Returns (L, info) as ``torch.linalg.cholesky_ex`` does: ``info`` is a
+    0-dim int32 tensor, 0 where every diagonal block factored, else the
+    1-based order of the first leading minor found not positive definite
+    (no host read); L past that column is not a factor. Where JAX's version
+    propagates NaN on an indefinite input, a caller here tests
+    ``info == 0`` and that L is finite."""
+    n = S.shape[0]
+    Sp = _pad_identity(S, block)
+    nb = Sp.shape[0] // block
+    eye_b = torch.eye(block, dtype=S.dtype, device=S.device)
+    info = torch.zeros((), dtype=torch.int32, device=S.device)
+    cols = []  # full-height (nfull, block) panels of L
+    for i in range(nb):
+        lo, hi = i * block, (i + 1) * block
+        C = Sp[:, lo:hi]
+        if cols:
+            done = torch.cat(cols, dim=1)  # (nfull, i * block)
+            C = C - done @ done[lo:hi].T
+        Ld, bad = torch.linalg.cholesky_ex(C[lo:hi])
+        info = torch.where((info == 0) & (bad > 0), bad + lo, info)
+        Ldinv = torch.linalg.solve_triangular(Ld, eye_b, upper=False)
+        below = C[hi:] @ Ldinv.T
+        cols.append(torch.cat([C.new_zeros((lo, block)), Ld, below], dim=0))
+    return torch.cat(cols, dim=1)[:n, :n], info
+
+
+def blocked_tril_inv(L: torch.Tensor, block: int = 384) -> torch.Tensor:
+    """Inverse of a lower-triangular (n, n) matrix by block forward
+    substitution, unrolled over block rows (JAX linalg.py:347-383):
+    X_i = L_ii^-1 (I_i - sum_{k<i} L_ik X_k). A Cholesky solve then becomes
+    two matrix-vector products, Linv^T (Linv b)."""
+    n = L.shape[0]
+    Lp = _pad_identity(L, block)
+    nfull = Lp.shape[0]
+    rows = []  # (block, nfull) block rows of X
+    for i in range(nfull // block):
+        lo, hi = i * block, (i + 1) * block
+        rhs = torch.zeros((block, nfull), dtype=L.dtype, device=L.device)
+        rhs[:, lo:hi].diagonal().fill_(1.0)
+        if rows:
+            rhs = rhs - Lp[lo:hi, :lo] @ torch.cat(rows, dim=0)
+        rows.append(torch.linalg.solve_triangular(Lp[lo:hi, lo:hi], rhs,
+                                                  upper=False))
+    return torch.cat(rows, dim=0)[:n, :n]

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import datetime
+import math
 import multiprocessing
 import os
 import queue
@@ -146,7 +147,8 @@ def _spawned(fn, rank, devices, backend, init_method, timeout, args, results):
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(fn, devices, args=(), timeout: float = DEFAULT_TIMEOUT) -> list:
+def run_ranks(fn, devices, args=(), timeout: float = DEFAULT_TIMEOUT,
+              deadline: Optional[float] = None) -> list:
     """Run ``fn(rank, device, *args)`` on ``len(devices)`` ranks of one
     process group, rank r on ``devices[r]``, and return their values in
     rank order.
@@ -155,9 +157,12 @@ def run_ranks(fn, devices, args=(), timeout: float = DEFAULT_TIMEOUT) -> list:
     ``args`` are pickled, ``fn`` by its module path, so it must live in a
     module that the ranks can import). The group meets in a file under a
     temporary directory; its backend is ``backend_for(devices)``.
-    Every collective fails after ``timeout`` seconds, and the whole run
-    too: on a timeout or a failed rank the other ranks are killed and this
-    raises (TimeoutError, RuntimeError with the rank's traceback)."""
+    Every collective fails after ``timeout`` seconds, so a rank that hangs
+    fails the group however long the run. ``deadline``, where given, bounds
+    the whole run of spawned ranks in seconds; by default the run has none.
+    On a failed rank, a failed collective or the deadline the other ranks
+    are killed and this raises (RuntimeError with the rank's traceback,
+    TimeoutError)."""
     n = len(devices)
     if n < 1:
         raise ValueError("run_ranks needs at least one device")
@@ -167,7 +172,7 @@ def run_ranks(fn, devices, args=(), timeout: float = DEFAULT_TIMEOUT) -> list:
     try:
         if n == 1:
             return [_in_group(fn, 0, devices, backend, init_method, timeout, args)]
-        return _spawn(fn, devices, backend, init_method, timeout, args)
+        return _spawn(fn, devices, backend, init_method, timeout, deadline, args)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -193,7 +198,7 @@ def _failures(results, n: int, rank: int, trace: str) -> str:
     return "\n".join(f"rank {r} of {n} failed:\n{failed[r]}" for r in sorted(failed))
 
 
-def _spawn(fn, devices, backend, init_method, timeout, args) -> list:
+def _spawn(fn, devices, backend, init_method, timeout, deadline, args) -> list:
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_spawned, daemon=True,
@@ -201,16 +206,16 @@ def _spawn(fn, devices, backend, init_method, timeout, args) -> list:
                                args, results))
              for r in range(len(devices))]
     values = {}
-    deadline = time.monotonic() + timeout
+    end = math.inf if deadline is None else time.monotonic() + deadline
     try:
         for p in procs:
             p.start()
         while len(values) < len(procs):
-            left = deadline - time.monotonic()
+            left = end - time.monotonic()
             if left <= 0:
                 raise TimeoutError(
                     f"{len(procs)} ranks ({backend}) did not finish in "
-                    f"{timeout:g} s; {sorted(values)} did")
+                    f"{deadline:g} s; {sorted(values)} did")
             try:
                 rank, ok, value = results.get(timeout=min(left, 1.0))
             except queue.Empty:
@@ -224,8 +229,8 @@ def _spawn(fn, devices, backend, init_method, timeout, args) -> list:
             if not ok:
                 raise RuntimeError(_failures(results, len(procs), rank, value))
             values[rank] = value
-        for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
+        for p in procs:  # every rank has reported; let it exit
+            p.join(5.0)
     finally:
         for p in procs:
             if p.is_alive():

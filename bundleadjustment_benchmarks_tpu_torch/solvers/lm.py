@@ -285,19 +285,21 @@ class RunLog:
     """What one LM run reports as it goes: the reference's iteration table
     (``verbose``), one JSONL record per trial appended to ``metrics_path``
     (keys iter, status, f, rho, lambda, elapsed_s, and phase when
-    ``phase`` is set), and a checkpoint of the accepted state every
-    ``checkpoint_every`` iterations. ``to_state`` maps the loop state to the
-    BAState a checkpoint holds. ``write=False`` (a sharded run's ranks other
-    than 0) prints and writes nothing but still calls ``to_state`` where a
-    checkpoint falls due, since on a shard that is a collective. Use it as a
-    context manager."""
+    ``phase`` is set), a checkpoint of the accepted state every
+    ``checkpoint_every`` iterations, and one dict per accepted iteration
+    appended to ``trace`` (iter, energy: the accepted energy, lam: the
+    lambda after the update, and phase when set). ``to_state`` maps the
+    loop state to the BAState a checkpoint holds. ``write=False`` (a
+    sharded run's ranks other than 0) prints and writes nothing but still
+    calls ``to_state`` where a checkpoint falls due, since on a shard that
+    is a collective. Use it as a context manager."""
 
     def __init__(self, verbose: bool = False,
                  metrics_path: Optional[str] = None,
                  phase: Optional[str] = None,
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 0, to_state=None,
-                 write: bool = True):
+                 write: bool = True, trace: Optional[list] = None):
         self.verbose = verbose and write
         self.metrics_path = metrics_path if write else None
         self.phase = phase
@@ -305,6 +307,7 @@ class RunLog:
         self.checkpoint_every = checkpoint_every
         self.to_state = to_state
         self.write = write
+        self.trace = trace
         self._metrics = None
 
     def __enter__(self):
@@ -335,6 +338,11 @@ class RunLog:
             self._metrics.flush()
 
     def accepted(self, it: int, x, lam: float, fun_evals: int, hist) -> None:
+        if self.trace is not None:
+            rec = {"iter": it, "energy": hist[it % len(hist)], "lam": lam}
+            if self.phase:
+                rec["phase"] = self.phase
+            self.trace.append(rec)
         if self.checkpoint_path and it % self.checkpoint_every == 0:
             from bundleadjustment_benchmarks_tpu_torch.utils import checkpoint
 
@@ -439,7 +447,8 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
              checkpoint_every: int = 0,
              metrics_path: Optional[str] = None,
              metrics_phase: Optional[str] = None,
-             reduce: schur.Reduce = schur.LOCAL) -> LMResult:
+             reduce: schur.Reduce = schur.LOCAL,
+             trace: Optional[list] = None) -> LMResult:
     """Run LM on a BA problem on ``device`` (CUDA unless the caller passes
     one, e.g. ``device="cpu"``; without CUDA and without ``device`` it
     raises). The problem and state are moved there first. ``mode`` is one
@@ -449,7 +458,8 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     ``resume`` continues from a checkpoint's meta (``state`` is then the
     checkpoint's state); ``checkpoint_path`` with ``checkpoint_every > 0``
     writes the accepted state every that many iterations; ``metrics_path``
-    appends one JSONL record per trial, tagged ``metrics_phase``.
+    appends one JSONL record per trial, tagged ``metrics_phase``;
+    ``trace``, a list, gets one record per accepted iteration (``RunLog``).
 
     With ``config.polish_iters`` and a df32 or float32-matmul config, the
     two-phase drive: the fast phase (records tagged "fast") to its own stop
@@ -471,7 +481,7 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
             tol_fun=max(config.tol_fun, _POLISH_FAST_TOL))
         observe = dict(checkpoint_path=checkpoint_path,
                        checkpoint_every=checkpoint_every,
-                       metrics_path=metrics_path, reduce=reduce)
+                       metrics_path=metrics_path, reduce=reduce, trace=trace)
         fast = minimize(problem, mode, fast_cfg, state=state, device=device,
                         resume=resume, metrics_phase="fast", **observe)
         polish_cfg = dataclasses.replace(
@@ -499,7 +509,7 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
 
     with RunLog(config.verbose, metrics_path, metrics_phase, checkpoint_path,
                 checkpoint_every, to_checkpoint,
-                write=reduce.rank == 0) as run_log:
+                write=reduce.rank == 0, trace=trace) as run_log:
         x, status, it, fun_evals, energy, lam = lm_loop(
             to_loop(state), prepare, trial, config, resume=resume,
             run_log=run_log)

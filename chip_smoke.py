@@ -21,7 +21,12 @@ mode at 2 ranks on p257 df32 and on p16 float64 (``sharded_gloo_p257``,
 ``sharded_f64_p16``), 2 ranks on the Ladybug stand-in
 (``sharded_ladybug_df32``), a checkpoint written at 2 ranks resumed on one
 device, the command line's ``--shards`` (``cli_shards``) and the dry run at
-1 and 2 ranks (``dryrun_multichip``), and fails on any disagreement.
+1 and 2 ranks (``dryrun_multichip``), then every mode on p16 float64 to the
+reference's flatline stop, each held to the JAX campaign's f64 budget
+against the scipy oracle (``flatline_p16_f64``), the ellipse-fitting example
+on the card (``ellipse``) and the blocked Cholesky pair against cuSOLVER's
+at the p257 and Ladybug reduced-system sizes (``blocked_chol``), and fails
+on any disagreement.
 Each phase prints JSON lines with its wall time; then come one line of
 per-kernel numbers (the kernel's and its entry point's device
 time, the host time to issue one call, the device operations one call
@@ -945,6 +950,134 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
     return extra
 
 
+P16_ORACLE = HERE / "benchmarks" / "results" / "cpu_p16_flatline.json"
+
+
+def flatline_phase(campaign, cuda_chain, smi) -> None:
+    """``flatline_p16_f64``: every mode from the loaded p16 state to the
+    flatline stop on the float64 drive (``flatline_campaign.run_row``: a
+    2-iteration warm-up, then the timed run), each held to the JAX
+    campaign's f64 budget (``flatline_campaign.BUDGETS``) against the scipy
+    oracle's p16 flatline. The float64 drive launches no chain kernel."""
+    t_phase = time.perf_counter()
+    budget = campaign.BUDGETS["f64"]
+    oracle = json.loads(P16_ORACLE.read_text())["post"]
+    problem, name = campaign.load_problem("p16", "cuda")
+    for mode in MODES:
+        row, state = campaign.run_row(problem, name, mode, "f64", device="cuda")
+        verdict = campaign.budget_gaps(row["post"], oracle, budget)
+        emit({"phase": "flatline_p16_f64",
+              **{k: row[k] for k in ("mode", "status", "iterations", "fun_evals",
+                                     "energy", "wall_s", "it_per_s", "peak_bytes",
+                                     "launches", "post")},
+              "oracle": oracle, "budget": budget, **verdict, "nvidia_smi": smi})
+        check(row["status"] in ("Success (Energy Flatlined)",
+                                "Success (Exceeded Maximum Lambda)"),
+              f"flatline_p16_f64 {mode}: stopped with {row['status']!r}")
+        check(bool(torch.isfinite(state.points).all()),
+              f"flatline_p16_f64 {mode}: points not finite")
+        check(verdict["within"],
+              f"flatline_p16_f64 {mode}: {verdict} outside {budget}")
+        check(all(c == 0 for c in row["launches"].values()),
+              f"flatline_p16_f64 {mode}: the float64 drive launched {row['launches']}")
+    emit({"phase": "flatline_p16_f64_done", "phase_s": time.perf_counter() - t_phase})
+
+
+def ellipse_phase(lm, smi) -> None:
+    """``ellipse``: ``examples/ellipse_fitting_torch.py`` on the card, held
+    to tests/test_examples.py's assertions, and its gap to the same fit on
+    the CPU."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(HERE / "examples"))
+    import ellipse_fitting_torch as example
+
+    samples = example.sample_ellipse(center=(1.0, -2.0), axes=(3.0, 1.5), phi=0.6)
+    t0 = time.perf_counter()
+    res = example.fit_ellipse(samples, device="cuda")
+    wall = time.perf_counter() - t0
+    cpu = example.fit_ellipse(samples, device="cpu")
+    cx, cy, a, b, phi = res.state.tolist()
+    emit({"phase": "ellipse", "status": res.status.name,
+          "iterations": res.iterations, "fun_evals": res.fun_evals,
+          "energy": res.energy, "params": [cx, cy, a, b, phi], "wall_s": wall,
+          "cpu": {"status": cpu.status.name, "iterations": cpu.iterations,
+                  "params_max_abs_gap": (res.state.cpu() - cpu.state).abs().max().item()},
+          "device": str(res.state.device), "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
+    check(res.state.is_cuda, "ellipse: the fit did not run on the card")
+    check(res.status in (lm.LMStatus.Success, lm.LMStatus.MaxItersReached),
+          f"ellipse: status {res.status.name}")
+    check(abs(cx - 1.0) <= 0.02 and abs(cy + 2.0) <= 0.02,
+          f"ellipse: centre ({cx}, {cy})")
+    check(all(abs(v - w) <= 0.05 for v, w in zip(sorted([a, b]), [1.5, 3.0])),
+          f"ellipse: axes ({a}, {b})")
+    check(res.energy < 0.05, f"ellipse: energy {res.energy}")
+
+
+#: blocked_chol: the reduced systems' sizes at p257 (9 x 257) and at the
+#: Ladybug stand-in (9 x 1,723).
+BLOCKED_SIZES = (2313, 15507)
+
+
+def blocked_chol_phase(linalg, flush, smi) -> None:
+    """``blocked_chol``: ``ops/linalg.blocked_cholesky`` against float32
+    ``torch.linalg.cholesky_ex``, and the two products through
+    ``blocked_tril_inv`` against ``torch.cholesky_solve``, on a
+    Jacobi-scaled SPD matrix (G G^T / 2n for a normal (n, 2n) G, scaled to
+    a unit diagonal) at each of BLOCKED_SIZES: median of 20 by CUDA events,
+    cold L2, and each float32 result's relative error against the float64
+    factor and solve."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sleep = int(2e7)
+    for n in BLOCKED_SIZES:
+        G = torch.randn((n, 2 * n), dtype=torch.float64, device="cuda", generator=gen)
+        S = G @ G.T / (2 * n)
+        del G
+        d = S.diagonal().rsqrt()
+        S = S * d[:, None] * d[None, :]
+        b = torch.randn(n, dtype=torch.float64, device="cuda", generator=gen)
+        L64 = torch.linalg.cholesky(S)
+        x64 = torch.cholesky_solve(b[:, None], L64)[:, 0]
+        S32, b32 = S.float(), b.float()
+        del S
+        Lc, info_c = torch.linalg.cholesky_ex(S32)
+        Lb, info_b = linalg.blocked_cholesky(S32)
+        X = linalg.blocked_tril_inv(Lb)
+        xc = torch.cholesky_solve(b32[:, None], Lc)[:, 0]
+        xb = X.T @ (X @ b32)
+
+        def rel(v, ref):
+            return ((v.double() - ref).abs().max() / ref.abs().max()).item()
+
+        line = {
+            "n": n, "info": [int(info_c), int(info_b)],
+            "cholesky_ex_ms": time_ms(lambda: torch.linalg.cholesky_ex(S32), 20,
+                                      sleep, flush),
+            "blocked_cholesky_ms": time_ms(lambda: linalg.blocked_cholesky(S32), 20,
+                                           sleep, flush),
+            "blocked_tril_inv_ms": time_ms(lambda: linalg.blocked_tril_inv(Lb), 20,
+                                           sleep, flush),
+            "cholesky_solve_ms": time_ms(
+                lambda: torch.cholesky_solve(b32[:, None], Lc), 20, sleep, flush),
+            "two_matvecs_ms": time_ms(lambda: X.T @ (X @ b32), 20, sleep, flush),
+            "factor_rel_err": {"cholesky_ex": rel(Lc, L64), "blocked": rel(Lb, L64)},
+            "solve_rel_err": {"cholesky_solve": rel(xc, x64),
+                              "blocked_tril_inv": rel(xb, x64)},
+            "blocked_vs_cholesky_ex": rel(Lb, Lc.double()),
+        }
+        emit({"phase": "blocked_chol", **line, "dtype": "float32", "block": 384,
+              "timing": "median of 20, CUDA events, cold L2", "nvidia_smi": smi})
+        check(line["info"] == [0, 0], f"blocked_chol n={n}: breakdown {line['info']}")
+        for what, err in (*line["factor_rel_err"].items(),
+                          *line["solve_rel_err"].items()):
+            check(np.isfinite(err) and err < 1e-3,
+                  f"blocked_chol n={n}: {what} relative error {err}")
+        del L64, Lc, Lb, X, S32
+        torch.cuda.empty_cache()
+    emit({"phase": "blocked_chol_done", "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; needs a GPU")
@@ -952,10 +1085,11 @@ def main() -> None:
         sys.exit(f"chip_smoke: run from a checkout of the repository "
                  f"(missing {PACKAGE.name}/ or data/ beside {Path(__file__).name})")
     sys.path.insert(0, str(HERE))
+    import flatline_campaign
     from bundleadjustment_benchmarks_tpu_torch import cli
     from bundleadjustment_benchmarks_tpu_torch.io import bal
     from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian, linalg
     from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
     from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
     from bundleadjustment_benchmarks_tpu_torch.utils import balgen, checkpoint
@@ -1176,6 +1310,11 @@ def main() -> None:
     for which, more in sharded_phases(pm, lm, sharded, multihost, cli, checkpoint,
                                       cuda_chain, problems, ladybug, smi).items():
         kern[which].update(more)
+
+    # -- the flatline stop, the ellipse example, the blocked Cholesky pair ------
+    flatline_phase(flatline_campaign, cuda_chain, smi)
+    ellipse_phase(lm, smi)
+    blocked_chol_phase(linalg, flush, smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     src = "bundleadjustment_benchmarks_tpu_torch/ops/csrc/chain_kernels.cu"

@@ -279,3 +279,43 @@ def test_cli_mixed_launches_both_kernels(p16_cuda, tmp_path, capsys):
     records = metrics.read_text().splitlines()
     assert cuda_chain.LAUNCHES["chain_blocks"] == 2
     assert cuda_chain.LAUNCHES["chain_energy"] == len(records) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_blocked_cholesky_on_card_matches_cpu(dtype):
+    """The blocked Cholesky pair on the card against the same functions on
+    the CPU (n = 1,000, padded panels), and an indefinite input's ``info``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bundleadjustment_benchmarks_tpu_torch.ops import linalg
+
+    g = np.random.default_rng(0).normal(size=(1000, 1000))
+    S = torch.from_numpy(g @ g.T / 1000 + np.eye(1000)).to(dtype)
+    L, info = linalg.blocked_cholesky(S.cuda())
+    L_cpu, _ = linalg.blocked_cholesky(S)
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    assert info.is_cuda and info.item() == 0
+    assert (L.cpu() - L_cpu).abs().max().item() <= tol * L_cpu.abs().max().item()
+    X = linalg.blocked_tril_inv(L)
+    eye = torch.eye(1000, dtype=dtype, device="cuda")
+    assert (X @ L - eye).abs().max().item() <= 10 * tol
+    S[700, 700] = -10.0
+    assert linalg.blocked_cholesky(S.cuda())[1].item() == 701
+
+
+def test_ellipse_example_on_card():
+    """examples/ellipse_fitting_torch.py on the card takes the CPU's path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples"))
+    import ellipse_fitting_torch as example
+
+    samples = example.sample_ellipse()
+    res = example.fit_ellipse(samples)
+    cpu = example.fit_ellipse(samples, device="cpu")
+    assert res.state.is_cuda
+    assert (res.status, res.iterations) == (cpu.status, cpu.iterations)
+    assert (res.state.cpu() - cpu.state).abs().max().item() <= 1e-10

@@ -17,6 +17,8 @@ from bundleadjustment_benchmarks_tpu_torch.solvers import lm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
+CAMPAIGN = os.path.join(ROOT, "flatline_campaign.py")
+ELLIPSE = os.path.join(ROOT, "examples", "ellipse_fitting_torch.py")
 P16 = os.path.join(ROOT, "data", "problem-16-22106-pre.txt.gz")
 
 
@@ -90,6 +92,52 @@ def test_chip_smoke_imports_no_jax():
             names.append(node.module or "")
     assert "bundleadjustment_benchmarks_tpu_torch.solvers" in names
     assert [n for n in names if _is_jax_side(n)] == []
+
+
+def _imported_names(path):
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", [CAMPAIGN, ELLIPSE], ids=os.path.basename)
+def test_campaign_and_example_import_no_jax(path):
+    """The flatline campaign and the ellipse example name no JAX module,
+    and importing them (and the package modules they reach) loads none."""
+    names = _imported_names(path)
+    assert "bundleadjustment_benchmarks_tpu_torch.solvers" in names
+    assert [n for n in names if _is_jax_side(n)] == []
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('m', {path!r})\n"
+        "m = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(m)\n"
+        "m.drive_config('df32p', 3) if hasattr(m, 'drive_config') else None\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert "bundleadjustment_benchmarks_tpu_torch.solvers.lm" in out
+    assert [m for m in out if _is_jax_side(m)] == []
+
+
+def test_campaign_needs_cuda_unless_told(tmp_path):
+    """Without CUDA and without ``--device cpu`` the campaign exits non-zero
+    and runs and writes nothing; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = tmp_path / "rows.json"
+    proc = subprocess.run([sys.executable, CAMPAIGN, "--problems", "p16",
+                           "--modes", "cholesky", "--drives", "f64",
+                           "--json", str(out)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2
+    assert "no CUDA device" in proc.stderr
+    assert proc.stdout == "" and not out.exists()
 
 
 def _run_smoke(cwd):

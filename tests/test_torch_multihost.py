@@ -125,6 +125,23 @@ def test_hung_rank_times_out():
         multihost.run_ranks(worker.hang_on_rank_1, ["cpu", "cpu"], timeout=6.0)
 
 
+def test_run_outlasts_the_collective_timeout():
+    """Two ranks whose run (~6 s of fast all-reduces) lasts twice the
+    collective timeout (3 s) finish: the timeout bounds each collective,
+    not the run, which has no deadline unless one is given."""
+    outs = multihost.run_ranks(worker.all_reduce_for, ["cpu", "cpu"],
+                               args=(60, 0.1), timeout=3.0)
+    assert [o["value"] for o in outs] == [2.0 ** 60] * 2
+    assert min(o["seconds"] for o in outs) > 3.0
+
+
+def test_deadline_bounds_the_run():
+    """A deadline given to ``run_ranks`` ends a run that outlasts it."""
+    with pytest.raises(TimeoutError, match="did not finish in 2 s"):
+        multihost.run_ranks(worker.all_reduce_for, ["cpu", "cpu"],
+                            args=(100, 0.1), timeout=30.0, deadline=2.0)
+
+
 def test_backend_for():
     assert multihost.backend_for(["cuda:0", "cuda:1"]) == "nccl"
     assert multihost.backend_for(["cuda:0"]) == "nccl"

@@ -124,6 +124,18 @@ def hang_on_rank_1(rank: int, device) -> None:
     dist.all_reduce(t)
 
 
+def all_reduce_for(rank: int, device, rounds: int, pause: float) -> dict:
+    """``rounds`` all-reduces, ``pause`` seconds apart: a run that lasts far
+    longer than any one collective."""
+    import time
+    t0 = time.monotonic()
+    t = torch.ones(1)
+    for _ in range(rounds):
+        dist.all_reduce(t)
+        time.sleep(pause)
+    return {"value": float(t.item()), "seconds": time.monotonic() - t0}
+
+
 def env_worker_main() -> None:
     """A torchrun-style rank (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT in
     the environment): ``multihost.initialize()`` with no arguments, one
