@@ -11,7 +11,8 @@ print the post-optimization statistics. The reference's five binaries are
 Runs on the current CUDA device; ``--device cpu`` runs on the CPU. Without
 a CUDA device and without ``--device`` it refuses to run (return code 1).
 ``--shards N`` runs N local ranks of the sharded path, one per GPU (NCCL), or
-on the CPU with ``--device cpu`` (gloo); rank 0 prints.
+on the CPU with ``--device cpu`` (gloo); rank 0 prints. ``--drive jit`` runs
+the device-resident LM drive (``lm.DeviceLoop``), one device only.
 """
 
 from __future__ import annotations
@@ -79,9 +80,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--drive",
         default="host",
         choices=["host", "jit"],
-        help="accepted for the JAX package's command lines; both values run "
-        "the one loop, which returns to the host on every trial and prints "
-        "the iteration table",
+        help="'host': the Python LM loop, one host read per trial, true "
+        "per-trial table rows; 'jit': the device-resident drive (on CUDA one "
+        "captured CUDA graph with conditional nodes replayed per chunk of 16 "
+        "iterations, the LM scalars read once per chunk; rejected table "
+        "rows are synthesized, Elapsed is the chunk's average per trial). "
+        "Not with --shards",
     )
     p.add_argument("--max-iters", type=int, default=1_000_000)
     p.add_argument(
@@ -263,6 +267,11 @@ def main(argv=None) -> int:
         print(f"--shards {args.shards}: give 0 (one device) or a number of "
               "ranks", file=sys.stderr)
         return RETURN_WRONG_INPUT_PARAMS
+    if args.shards and args.drive == "jit":
+        print("--drive jit has no sharded form yet (its all-reduces would "
+              "have to be captured into the CUDA graph); use --drive host "
+              "with --shards", file=sys.stderr)
+        return RETURN_WRONG_INPUT_PARAMS
 
     from bundleadjustment_benchmarks_tpu_torch import resolve_device
     from bundleadjustment_benchmarks_tpu_torch.models.problem import load_bal_problem
@@ -307,6 +316,7 @@ def main(argv=None) -> int:
         geometry=geometry,
         polish_iters=args.polish,
         debug_nans=args.debug_nans,
+        drive=args.drive,
     )
 
     if args.shards:

@@ -11,31 +11,29 @@ Replaces the two Pallas TPU kernels of the reference package
 
 The kernels (csrc/chain_kernels.cu, math in csrc/chain_math.cuh) are built on
 first use with nvcc for sm_90a into ``_build/`` beside the package and bound
-through ctypes. Each entry point issues one device kernel: it reads the
+through ctypes (``ops/nvcc.py``). Each entry point issues one device kernel: it reads the
 state's float64 cameras and DF points as they are and folds its energy in
 the same launch (see chain_kernels.cu). Each kernel has its plain PyTorch
 version beside it (``*_plain``). The wrappers take the plain version only for
 tensors on the CPU; on a CUDA tensor they launch the kernel or raise. Every
-launch adds one to ``LAUNCHES``.
+launch adds one to ``LAUNCHES``; a launch captured into a CUDA graph (the
+device-resident LM drive) adds one on the device each time the graph runs
+it, and ``collect_graph_launches`` brings those counts into ``LAUNCHES``.
+The workspace (ticket + block partials) is one per (device, stream),
+allocated before any capture; each kernel resets its ticket itself, so every
+replay finds it at 0.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import subprocess
 import threading
-import time
-from pathlib import Path
 
 import torch
 
-from bundleadjustment_benchmarks_tpu_torch.ops import jacobian, projection
+from bundleadjustment_benchmarks_tpu_torch.ops import jacobian, nvcc, projection
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("chain_kernels.cu", "chain_math.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,29 +41,46 @@ NVCC_FLAGS = (
     "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: Launch counts of the kernels, by name. Only the wrappers' launches count.
+#: Launch counts of the kernels, by name. Only the wrappers' launches count;
+#: a launch captured into a CUDA graph counts once per time the graph runs
+#: it (see ``collect_graph_launches``).
 LAUNCHES = {"chain_blocks": 0, "chain_energy": 0}
 #: What the last build did: seconds, library path, nvcc's -Xptxas=-v output.
 BUILD_INFO: dict = {}
 
 _lib = None
 _lock = threading.Lock()
+#: Per device, an int64 (2,) tensor that a captured launch's graph adds one
+#: to each time it runs the launch (chain_blocks, chain_energy).
+_graph_counts: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counts in _graph_counts.values():
+        counts.zero_()
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
+def collect_graph_launches() -> None:
+    """Add the launches that CUDA graphs ran since the last call to
+    ``LAUNCHES`` (one host read per device that has captured launches)."""
+    for counts in _graph_counts.values():
+        blocks, energy = counts.tolist()
+        LAUNCHES["chain_blocks"] += blocks
+        LAUNCHES["chain_energy"] += energy
+        counts.zero_()
 
-    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (CUDA_HOME or /usr/local/cuda/bin)")
+
+def prepare_capture(dev: torch.device) -> None:
+    """Before a CUDA graph captures launches on the current stream: build
+    the library and allocate that stream's workspace and the device's
+    graph launch counters outside the capture (an allocation inside it
+    would be zeroed again on every replay)."""
+    lib = load_library()
+    _workspace(lib, dev, torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index not in _graph_counts:
+        _graph_counts[dev.index] = torch.zeros(2, dtype=torch.int64, device=dev)
 
 
 def load_library():
@@ -80,26 +95,9 @@ def load_library():
                 f"the chain kernels are built for sm_90a; this device is "
                 f"{torch.cuda.get_device_name()} (sm_{major}x)"
             )
-        h = hashlib.sha256()
-        for name in SOURCES:
-            h.update((CSRC / name).read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"libchain_{h.hexdigest()[:16]}.so"
-        t0 = time.perf_counter()
-        log = ""
-        if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / "chain_kernels.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, so)
-        BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(so),
-                          ptxas=log)
-        lib = ctypes.CDLL(str(so))
+        BUILD_INFO.update(nvcc.build("chain", "chain_kernels.cu", SOURCES,
+                                     NVCC_FLAGS))
+        lib = ctypes.CDLL(BUILD_INFO["library"])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         operands = [p] * 10 + [i, i, i, i, f]
         lib.chain_blocks.argtypes = operands + [p, p, p, p]
@@ -135,6 +133,10 @@ _workspaces: dict = {}
 def _workspace(lib, dev: torch.device, stream: int) -> torch.Tensor:
     ws = _workspaces.get((dev.index, stream))
     if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the chain kernels' workspace for the capturing stream does "
+                "not exist; call cuda_chain.prepare_capture before capture")
         words = ctypes.c_int()
         _raise(lib, "workspace", lib.chain_workspace_words(ctypes.byref(words)))
         ws = torch.zeros(words.value, dtype=torch.int32, device=dev)
@@ -187,7 +189,15 @@ def launch(which: str, operands, tau2: float, valid_count=None):
     else:
         raise ValueError(f"unknown chain kernel {which!r}")
     _raise(lib, f"{which} launch", err)
-    LAUNCHES[which] += 1
+    if torch.cuda.is_current_stream_capturing():
+        # The graph counts the launch each time it runs it.
+        which_i = 0 if which == "chain_blocks" else 1
+        counts = _graph_counts.get(dev.index)
+        if counts is None:
+            raise RuntimeError("call cuda_chain.prepare_capture before capture")
+        counts[which_i:which_i + 1].add_(1)
+    else:
+        LAUNCHES[which] += 1
     return rows, energy
 
 

@@ -153,8 +153,9 @@ def planar_energy_df(camg, XX, m0, m1, tau2) -> tf.DF:
 
 
 def tau2_f32(tau2: float, device) -> torch.Tensor:
-    """The robust threshold as the float32 0-dim tensor the df32 rows use."""
-    return torch.tensor(tau2, dtype=torch.float32, device=device)
+    """The robust threshold as the float32 0-dim tensor the df32 rows use
+    (a fill on the device: no host copy, so it can be captured)."""
+    return torch.full((), tau2, dtype=torch.float32, device=device)
 
 
 def energy_fast(fast, obs, tau2) -> torch.Tensor:

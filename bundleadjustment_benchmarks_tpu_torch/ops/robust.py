@@ -37,6 +37,15 @@ def robust_scale(tau2, r: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a number or a 0-dim tensor) as a 0-dim tensor of ``like``'s
+    dtype and device, made by a fill on the device (no host copy, so it can
+    be captured into a CUDA graph)."""
+    if torch.is_tensor(v):
+        return v.to(dtype=like.dtype, device=like.device)
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
 def robust_outer_derivative(tau2, r: torch.Tensor) -> torch.Tensor:
     """2x2 outer derivative of the robustified residual with respect to the
     raw residual, as the reference writes it (BAFunctor.h:227-242):
@@ -46,8 +55,8 @@ def robust_outer_derivative(tau2, r: torch.Tensor) -> torch.Tensor:
     outer_coeffs) and is 0 at r = 0. The f64 Jacobian uses it; ``tau2``
     becomes a 0-dim tensor, so its divisions are true divisions on CUDA too.
     ``r`` is (..., 2); returns (..., 2, 2)."""
-    eps = torch.as_tensor(EPS_PSI_RESIDUAL, dtype=r.dtype, device=r.device)
-    tau2 = torch.as_tensor(tau2, dtype=r.dtype, device=r.device)
+    eps = _scalar(EPS_PSI_RESIDUAL, r)
+    tau2 = _scalar(tau2, r)
     r2 = (r * r).sum(-1)
     W = psi_weight(tau2, r2)
     sqrt_psi = torch.sqrt(psi(tau2, r2))

@@ -209,7 +209,14 @@ def minimize_sharded(sp: ShardedProblem, mode: str = "cholesky",
     checkpoints; a checkpoint holds the full state, so it resumes at any
     shard count or on one device (shard the problem with the checkpoint's
     state and pass its meta as ``resume``). ``config.refine_steps`` raises:
-    the JAX package's sharded solve has no refinement either."""
+    the JAX package's sharded solve has no refinement either. So does
+    ``config.drive == "jit"``: the device-resident drive would have to
+    capture the per-trial all-reduces into its CUDA graph, which it does
+    not yet."""
+    if config is not None and config.drive == "jit":
+        raise ValueError(
+            "minimize_sharded: drive='jit' has no sharded form yet (NCCL "
+            "collectives captured into the CUDA graph); use drive='host'")
     reduce = AllReduce(sp)
     res = lm.minimize(sp.problem, mode, config, device=sp.device, resume=resume,
                       checkpoint_path=checkpoint_path,

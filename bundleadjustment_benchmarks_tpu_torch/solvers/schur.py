@@ -44,7 +44,10 @@ point columns is exactly the rows sqrt(lam/(eh+lam)) Qh^T Rpc: a diagonal
 rescaling of the cached QtRpc.
 
 ``build_context`` runs once per outer LM iteration, ``solve_damped`` once
-per damping trial. Both take a ``Reduce``: on one device (``LOCAL``) it does
+per damping trial. lambda is a Python float (the host LM drive) or a 0-dim
+float64 tensor on the problem's device (the device-resident drive, which
+captures the trial into a CUDA graph); both give the same arithmetic, bit
+for bit (``_sqrt``, ``_redamp_scale``). Both take a ``Reduce``: on one device (``LOCAL``) it does
 nothing; on a shard (``parallel/sharded.py``) it all-reduces the partial
 sums that the rank's slice of the points contributes to camera-sized totals.
 """
@@ -58,7 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bundleadjustment_benchmarks_tpu_torch.ops import linalg
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph, linalg
 from bundleadjustment_benchmarks_tpu_torch.ops.jacobian import JacobianBlocks
 
 MODES = ("cholesky", "qrchol", "qrkit", "moreqr", "spqr")
@@ -167,6 +170,14 @@ class SchurContext:
     qr_b0: Optional[torch.Tensor] = None
 
 
+def _sqrt(lam):
+    """sqrt(lambda) in float64: math.sqrt of a float, torch.sqrt of a 0-dim
+    tensor (both correctly rounded, so the two agree bit for bit)."""
+    if torch.is_tensor(lam):
+        return torch.sqrt(lam.to(torch.float64))
+    return math.sqrt(lam)
+
+
 def _ext(P: torch.Tensor) -> torch.Tensor:
     """Append one zero column: (C, K) -> (C, K+1), so sentinel K gathers 0."""
     return torch.cat([P, P.new_zeros((P.shape[0], 1))], dim=1)
@@ -205,6 +216,19 @@ def banded_planar_sum(P, banded, budget_bytes: int = 64 << 20):
     return torch.cat(outs, dim=1)[:, banded.unperm]
 
 
+#: (c, device) -> the upper-triangle index pair, made once per device (a
+#: host-to-device copy cannot run inside a CUDA graph capture).
+_TRIU: dict = {}
+
+
+def _triu_indices(c: int, device):
+    key = (c, str(device))
+    if key not in _TRIU:
+        _TRIU[key] = tuple(torch.from_numpy(a).to(device)
+                           for a in np.triu_indices(c))
+    return _TRIU[key]
+
+
 def banded_planar_gram(P, banded, budget_bytes: int = 128 << 20):
     """Per-segment gram M[s][c][d] = sum_{slots, r} P[r, c, k] P[r, d, k].
 
@@ -212,7 +236,7 @@ def banded_planar_gram(P, banded, budget_bytes: int = 128 << 20):
     are formed once in planar (C(C+1)/2, K) form and reduced with the banded
     table sum. Returns (S, C, C) in natural segment order."""
     _, c, _ = P.shape
-    iu, ju = (torch.from_numpy(a).to(P.device) for a in np.triu_indices(c))
+    iu, ju = _triu_indices(c, P.device)
     prod = (P[:, iu, :] * P[:, ju, :]).sum(dim=0)  # (C(C+1)/2, K)
     sums = banded_planar_sum(prod, banded, budget_bytes).T  # (S, C(C+1)/2)
     out = P.new_zeros((sums.shape[0], c, c))
@@ -403,7 +427,11 @@ def _aug_camera_gram(U, g_cams, energy, dtype):
     g = g_cams.reshape(-1).to(dtype)
     Ua[:n9, n9] = g
     Ua[n9, :n9] = g
-    Ua[n9, n9] = energy
+    # In place on the device (no host copy of a Python number).
+    if torch.is_tensor(energy):
+        Ua[n9, n9].copy_(energy)
+    else:
+        Ua[n9, n9].fill_(energy)
     return Ua
 
 
@@ -573,7 +601,11 @@ def _camera_solve_chol(S, b):
     refined twice with float64 residuals b - S x (S promoted to float64);
     if the Cholesky breaks down (the Schur subtraction can leave S
     indefinite at the 1e-10 level for tiny lambda) the refinement runs on a
-    QR of the scaled system instead. Returns x in S's dtype."""
+    QR of the scaled system instead. The breakdown test (``cholesky_ex``'s
+    info == 0 and a finite factor) is a device predicate: the host drive on
+    CUDA reads it once per float32 solve; under a CUDA graph capture both
+    branches become conditional nodes (the JAX package's lax.cond), and on
+    the CPU the predicate is read. Returns x in S's dtype."""
     in_dtype = S.dtype
     f64 = torch.float64
     S64, b64 = S.to(f64), b.to(f64)
@@ -589,22 +621,28 @@ def _camera_solve_chol(S, b):
 
     Ss32 = Ss64.to(in_dtype)
     L, info = torch.linalg.cholesky_ex(Ss32)
-    if bool((info == 0) & torch.isfinite(L).all()):
-        def solve32(r64):
-            r = r64.to(in_dtype)[:, None]
-            return torch.cholesky_solve(r, L)[:, 0].to(f64)
-    else:
+    ok = (info == 0) & torch.isfinite(L).all()
+
+    def refined(solve32):
+        x = solve32(b64 * dinv) * dinv
+        for _ in range(2):
+            r = b64 - S64 @ x
+            x = x + solve32(r * dinv) * dinv
+        return x.to(in_dtype)
+
+    def by_cholesky():
+        return refined(lambda r64: torch.cholesky_solve(
+            r64.to(in_dtype)[:, None], L)[:, 0].to(f64))
+
+    def by_qr():
         Q, R = torch.linalg.qr(Ss32)
+        return refined(lambda r64: linalg.solve_upper_triangular(
+            R, Q.T @ r64.to(in_dtype)).to(f64))
 
-        def solve32(r64):
-            return linalg.solve_upper_triangular(
-                R, Q.T @ r64.to(in_dtype)).to(f64)
-
-    x = solve32(b64 * dinv) * dinv
-    for _ in range(2):
-        r = b64 - S64 @ x
-        x = x + solve32(r * dinv) * dinv
-    return x.to(in_dtype)
+    if S.is_cuda and not cuda_graph.capturing():
+        return by_cholesky() if bool(ok) else by_qr()
+    return cuda_graph.device_cond(ok, by_cholesky, by_qr,
+                                  torch.empty_like(b, dtype=in_dtype))
 
 
 def _point_factor_inv(ctx: SchurContext, lam, mode: str, dtype):
@@ -620,14 +658,15 @@ def _point_factor_inv(ctx: SchurContext, lam, mode: str, dtype):
         return linalg.inv_lower3x3(L).to(dtype)
     Js = ctx.Jp_stacked
     eye3 = torch.eye(3, dtype=Js.dtype, device=Js.device)
-    lam_rows = (math.sqrt(lam) * eye3).expand(Js.shape[0], 3, 3)
+    lam_rows = (_sqrt(lam) * eye3).expand(Js.shape[0], 3, 3)
     _, R = linalg.mgs_qr3(torch.cat([Js, lam_rows], dim=1))
     return linalg.inv_lower3x3(R.transpose(-1, -2)).to(dtype)
 
 
 def _redamp_scale(fill_evals, lam):
     """lam / (fill_evals + lam) in fill_evals' dtype (true division)."""
-    lam_t = torch.full_like(fill_evals, lam)
+    lam_t = (lam.to(fill_evals.dtype) if torch.is_tensor(lam)
+             else torch.full_like(fill_evals, lam))
     return lam_t / (fill_evals + lam_t)
 
 
@@ -643,7 +682,7 @@ def _redamp_qr(Rcc_aug, QtRpc, fill_evals, lam,
     n9 = ncols - 1
     scale = torch.sqrt(_redamp_scale(fill_evals, lam)).to(dtype)  # (M, 3)
     lam_rows = torch.cat([
-        math.sqrt(lam) * torch.eye(n9, dtype=dtype, device=Rcc_aug.device),
+        _sqrt(lam) * torch.eye(n9, dtype=dtype, device=Rcc_aug.device),
         Rcc_aug.new_zeros((n9, 1))], dim=1)
     R = torch.linalg.qr(torch.cat([Rcc_aug, lam_rows]), mode="r")[1]
     step = max(1, max(ncols, chunk_rows) // 3)  # points per chunk
@@ -725,7 +764,7 @@ def camera_solve_qr(ctx: SchurContext, lam, problem, chunk: int = 1024,
     n9 = 9 * n
     cam_slot = _cam_per_slot(problem)
     eye3 = torch.eye(3, dtype=Js.dtype, device=Js.device)
-    sl_eye = math.sqrt(lam) * eye3
+    sl_eye = _sqrt(lam) * eye3
     G = Js.new_zeros((n9 + 1, n9 + 1), dtype=dtype)
     for lo in range(0, m, chunk):
         Jpc = Js[lo:lo + chunk]
@@ -765,7 +804,7 @@ def _camera_solve_tsqr(ctx: SchurContext, lam, problem, Linv, mm_dtype=None,
     n9 = 9 * n
     # Q1 in the accurate dtype (it encodes the point factor), then cast.
     Q1 = torch.cat([torch.einsum("mrj,mcj->mrc", ctx.Jp_stacked, Linv),
-                    math.sqrt(lam) * Linv.transpose(-1, -2)], dim=1).to(dtype)
+                    _sqrt(lam) * Linv.transpose(-1, -2)], dim=1).to(dtype)
     slot_cam = _cam_per_slot(problem).long().repeat_interleave(2, dim=1)
     j9 = torch.arange(9, device=Q1.device)
     R = Q1.new_zeros((n9 + 1, n9 + 1))
@@ -782,7 +821,7 @@ def _camera_solve_tsqr(ctx: SchurContext, lam, problem, Linv, mm_dtype=None,
         R = torch.linalg.qr(torch.cat([R, B.reshape(-1, n9 + 1)]), mode="r")[1]
     R = R.to(ctx.U.dtype)
     lam_rows = torch.cat([
-        math.sqrt(lam) * torch.eye(n9, dtype=R.dtype, device=R.device),
+        _sqrt(lam) * torch.eye(n9, dtype=R.dtype, device=R.device),
         R.new_zeros((n9, 1))], dim=1)
     R = torch.linalg.qr(torch.cat([R, lam_rows]), mode="r")[1]
     return linalg.solve_upper_triangular(R[:n9, :n9], R[:n9, n9])
@@ -801,12 +840,12 @@ def _back_substitute(ctx: SchurContext, lam, problem, dxc, Linv=None):
     return torch.einsum("mji,mj->mi", Linv, y)
 
 
-def solve_damped(ctx: SchurContext, lam: float, problem, mode: str,
+def solve_damped(ctx: SchurContext, lam, problem, mode: str,
                  mm_dtype=None, reduce: Reduce = LOCAL):
     """Solve (J^T J + lam I) dx = -J^T f; returns (dx_pts (M,3), dx_cams (N,9)).
 
-    ``lam`` is a Python float already rounded to the context's dtype by
-    the caller; ``mm_dtype`` and ``reduce`` must be the values
+    ``lam`` is a Python float or a 0-dim float64 tensor (module
+    docstring), already rounded to the context's dtype by the caller; ``mm_dtype`` and ``reduce`` must be the values
     ``build_context`` used. On a shard the reduced camera system (or
     spqr's and qrkit's camera gram) is totalled over the ranks and solved
     on every rank; the point step stays the rank's own."""
@@ -858,7 +897,7 @@ def _reference_step(ctx: SchurContext, lam: float, problem, mode: str):
     return _back_substitute(ctx, lam, problem, dxc, Linv), dxc
 
 
-def refine_step(ctx: SchurContext, lam: float, problem, mode: str, dxp, dxc,
+def refine_step(ctx: SchurContext, lam, problem, mode: str, dxp, dxc,
                 mm_dtype=None):
     """One iterative-refinement pass on a damped step: the residual of
     (J^T J + lam I) dx = -J^T f in float64,
@@ -896,7 +935,7 @@ def refine_step(ctx: SchurContext, lam: float, problem, mode: str, dxp, dxc,
             (dxc_a + ddxc.to(f64)).to(dxc.dtype))
 
 
-def gradient_dot(ctx: SchurContext, dxp, dxc, lam: float,
+def gradient_dot(ctx: SchurContext, dxp, dxc, lam,
                  reduce: Reduce = LOCAL) -> torch.Tensor:
     """rhoScale = dx^T (lam dx + JtRes) (BacktrackLevMarqCholesky.h:300), as
     a float64 0-dim tensor. float32 steps are summed in float32 and the sums

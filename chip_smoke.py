@@ -25,8 +25,14 @@ device, the command line's ``--shards`` (``cli_shards``) and the dry run at
 reference's flatline stop, each held to the JAX campaign's f64 budget
 against the scipy oracle (``flatline_p16_f64``), the ellipse-fitting example
 on the card (``ellipse``) and the blocked Cholesky pair against cuSOLVER's
-at the p257 and Ladybug reduced-system sizes (``blocked_chol``), and fails
-on any disagreement.
+at the p257 and Ladybug reduced-system sizes (``blocked_chol``), then the
+device-resident LM drive (``drive="jit"``): both kernels replayed from a
+captured graph (``jit_kernels_replayed``), p257 df32 cholesky on both
+drives alternated (``jit_p257_df32``), the chunk loop with no
+synchronization between its reads (``jit_no_sync``), every mode
+(``jit_modes``) and the Ladybug stand-in (``jit_ladybug_df32``), and fails
+on any disagreement. ``--jit-only`` runs the build and the jit phases
+alone.
 Each phase prints JSON lines with its wall time; then come one line of
 per-kernel numbers (the kernel's and its entry point's device
 time, the host time to issue one call, the device operations one call
@@ -38,6 +44,7 @@ result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gzip
@@ -52,6 +59,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -142,18 +150,31 @@ def host_us(fn, calls: int = 100) -> float:
     return statistics.median(times) * 1e6
 
 
-def device_ops_per_call(fn) -> int:
+def device_ops_per_call(fn, profiles: int = 3) -> dict:
     """Device kernels and memory operations one call of ``fn`` issues, as
-    ``torch.profiler`` records them (after a warm-up call)."""
+    ``torch.profiler`` records them in each of ``profiles`` profiles (after
+    a warm-up call): ``kernels_per_call``, the count the profiles that
+    recorded any device activity agree on (None where they disagree or
+    none did), and ``empty_profiles``, how many recorded none. On the H100
+    one profile of ``fused_energy`` came back empty in one full run of this
+    script, though the call's kernel ran (its energy was checked), and the
+    cause is not known; the gate allows one empty profile in three."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    counts = []
+    for _ in range(profiles):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.device_type == DeviceType.CUDA
+                          for e in prof.events()))
+    seen = {c for c in counts if c}
+    return {"kernels_per_call": seen.pop() if len(seen) == 1 else None,
+            "empty_profiles": counts.count(0)}
 
 
 def time_entry_points(cuda_chain, fast, obs, tau2, flush) -> dict:
@@ -161,7 +182,8 @@ def time_entry_points(cuda_chain, fast, obs, tau2, flush) -> dict:
     beforehand); ``entry_ms``, the entry point a caller uses
     (``fused_blocks_energy`` / ``fused_energy`` on a FastBAState), both by
     ``time_ms``; ``host_us`` of the entry point; ``kernels_per_call``, the
-    device operations one entry-point call issues."""
+    device operations one entry-point call issues, and ``empty_profiles``
+    (``device_ops_per_call``)."""
     sleep = int(2e7)  # ~10 ms: longer than the host's enqueue
     ops = cuda_chain.chain_operands(fast, obs)
     entry = {"chain_blocks": lambda: cuda_chain.fused_blocks_energy(fast, obs, tau2),
@@ -173,7 +195,7 @@ def time_entry_points(cuda_chain, fast, obs, tau2, flush) -> dict:
                           sleep, flush),
             "entry_ms": time_ms(fn, 20, sleep, flush),
             "host_us": host_us(fn),
-            "kernels_per_call": device_ops_per_call(fn),
+            **device_ops_per_call(fn),
         }
     return out
 
@@ -950,6 +972,307 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
     return extra
 
 
+#: The jit drive against the host drive: energies within this relative gap
+#: where both take the same LM path; where float32 rounding parts the paths
+#: (atomic sums run in another order from run to run), one captured prepare
+#: and trial at AGREE_LAMBDA_FACTOR x lambda0 against the eager one within
+#: JIT_TRIAL_RTOL (the sharded path's gate), and descent.
+JIT_RTOL = 1e-9
+JIT_TRIAL_RTOL = 2e-3
+
+
+def timed_minimize(lm, cuda_chain, prob, mode, cfg) -> dict:
+    """One lm.minimize, synchronized: result, wall, peak allocated bytes,
+    reserved bytes after, chain launches and (jit) the drive's counters."""
+    torch.cuda.synchronize()
+    cuda_chain.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = lm.minimize(prob, mode, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"res": res, "wall_s": wall, "it_per_s": res.iterations / wall,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved(),
+            "launches": dict(cuda_chain.LAUNCHES),
+            "jit": dict(lm.LAST_JIT_RUN) if cfg.drive == "jit" else None}
+
+
+def loop_under_test(lm, prob, mode, cfg):
+    """The cached jit-drive loop that ``lm.minimize(prob, mode, cfg)`` with
+    ``drive="jit"`` replayed, its step functions and start state."""
+    dev = prob.state.T.device
+    cfg = dataclasses.replace(cfg, drive="jit")
+    prepare, trial, to_loop, _ = lm.step_functions(prob, mode, cfg, dev)
+    x0 = to_loop(prob.state)
+    loop, capture_s = lm._device_loop(prob, mode, cfg, x0, dev, prepare, trial)
+    check(capture_s == 0.0, f"{mode}: the jit run's graph is not cached")
+    return loop, prepare, trial, x0
+
+
+def first_trial(lm, prob, mode, cfg) -> dict:
+    """One prepare and one trial at AGREE_LAMBDA_FACTOR x lambda0 from the
+    loaded state: eager at a float lambda (the host drive) and as one slot
+    of the jit run's own captured loop (``DeviceLoop.first_trial``)."""
+    loop, prepare, trial, x0 = loop_under_test(lm, prob, mode, cfg)
+    ctx, energy, lam0 = prepare(x0)
+    lam = AGREE_LAMBDA_FACTOR * float(lam0)
+    host = trial(ctx, x0, lam)[1].item()
+    jit = loop.first_trial(x0, lam)
+    return {"energy": energy.item(), "lambda0": lam0.item(), "host_trial": host,
+            "jit_trial": jit, "rel_gap": abs(jit - host) / abs(host)}
+
+
+def parting_iteration(lm, prob, mode, cfg) -> Optional[int]:
+    """The first iteration whose accepted energy differs between the host
+    and the jit drive (traced runs), or None."""
+    traces = {}
+    for drive in ("host", "jit"):
+        traces[drive] = []
+        lm.minimize(prob, mode, dataclasses.replace(cfg, drive=drive),
+                    trace=traces[drive])
+    for a, b in zip(traces["host"], traces["jit"]):
+        if a["iter"] != b["iter"] or a["energy"] != b["energy"]:
+            return a["iter"]
+    return None
+
+
+def hold_jit(lm, prob, mode, cfg, host, jit, e0, where) -> dict:
+    """The gate of a jit run against a host run: always the same iterations,
+    function evaluations and status; energies within JIT_RTOL, or, only
+    where float32 rounding parts the two paths (the iteration where they
+    part is printed), the jit loop's own first trial at AGREE_LAMBDA_FACTOR
+    x lambda0 against the eager one within JIT_TRIAL_RTOL, and descent."""
+    h, j = host["res"], jit["res"]
+    gap = abs(j.energy - h.energy) / abs(h.energy)
+    check((h.iterations, h.fun_evals, h.status) == (j.iterations, j.fun_evals,
+                                                     j.status),
+          f"{where}: host {h.iterations} iterations, {h.fun_evals} evaluations, "
+          f"{h.status.name}; jit {j.iterations}, {j.fun_evals}, {j.status.name}")
+    out = {"same_path": gap <= JIT_RTOL, "energy_rel_gap": gap}
+    if out["same_path"]:
+        out["gate"] = "same LM path, energies within 1e-9"
+        return out
+    parted = parting_iteration(lm, prob, mode, cfg)
+    print(f"{where}: the drives part at iteration {parted}", flush=True)
+    check(parted is not None,
+          f"{where}: energies {gap} apart, but the traced runs do not part")
+    first = first_trial(lm, prob, mode, cfg)
+    out.update(parted_at_iteration=parted, first_trial=first,
+               gate="same counts; first trial at 1e4 x lambda0 within 2e-3, "
+               "and descent")
+    check(first["rel_gap"] <= JIT_TRIAL_RTOL,
+          f"{where}: the jit loop's first trial {first}")
+    check(np.isfinite(j.energy) and j.energy < e0,
+          f"{where}: jit energy {j.energy} not below {e0}")
+    return out
+
+
+def chunks_and_trials(lm, res, chunk: int) -> tuple:
+    """(host reads, trials) a jit run of result ``res`` should show: one
+    read per chunk of the iterations it started, and a trial for every
+    evaluation that was not an iteration's prepare."""
+    started = res.iterations - (res.status in (
+        lm.LMStatus.MaxItersReached, lm.LMStatus.TooManyFunctionEvaluation))
+    return -(-started // chunk), res.fun_evals - started
+
+
+def summary(run: dict) -> dict:
+    res = run["res"]
+    out = {"iterations": res.iterations, "fun_evals": res.fun_evals,
+           "status": res.status.name, "energy": res.energy,
+           **{k: run[k] for k in ("wall_s", "it_per_s", "peak_bytes",
+                                  "reserved_bytes", "launches")}}
+    if run["jit"]:
+        out.update(run["jit"])
+    return out
+
+
+def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
+    """The device-resident drive (``drive="jit"``): ``jit_kernels_replayed``
+    (both chain kernels replayed from a graph equal the eager launch and the
+    plain version bit for bit, and count once per replay that runs them),
+    ``jit_p257_df32`` (cholesky, 20 iterations, jit and host alternated
+    three times each), ``jit_modes`` (all five modes at p257 df32 and p16
+    float64), ``jit_ladybug_df32`` (the Ladybug stand-in, both drives'
+    peaks) and ``jit_no_sync`` (the chunk loop under
+    ``torch.cuda.set_sync_debug_mode("error")`` between its reads).
+    Returns per kernel its launches in the jit p257 run."""
+    dev = torch.device("cuda", 0)
+    extra = {"chain_blocks": {}, "chain_energy": {}}
+
+    # -- jit_kernels_replayed ------------------------------------------------
+    t_phase = time.perf_counter()
+    cases = []
+    for name in ("p16", "p257"):
+        prob = problems[name]
+        ops = cuda_chain.chain_operands(pm.to_fast(prob.state), prob.obs)
+        tau2 = prob.tau2
+        rows_p, eb_p = cuda_chain.chain_blocks_plain(pm.to_fast(prob.state),
+                                                     prob.obs, tau2)
+        ee_p = cuda_chain.fused_energy_plain(pm.to_fast(prob.state), prob.obs, tau2)
+        rows_e, eb_e = cuda_chain.launch("chain_blocks", ops, tau2)
+        _, ee_e = cuda_chain.launch("chain_energy", ops, tau2)
+        graph = cuda_graph.DeviceGraph(dev)
+        with torch.cuda.stream(graph.stream):
+            cuda_chain.prepare_capture(dev)
+        pred = torch.ones((), dtype=torch.bool, device=dev)
+        out = {}
+
+        def body():
+            out["rows"], out["eb"] = cuda_chain.launch("chain_blocks", ops, tau2)
+            out["ee"] = cuda_chain.launch("chain_energy", ops, tau2)[1]
+
+        graph.capture(lambda: cuda_graph.device_if(pred, body))
+        cuda_chain.reset_launches()
+        graph.replay()
+        graph.replay()
+        pred.fill_(False)
+        graph.replay()
+        torch.cuda.synchronize()
+        cuda_chain.collect_graph_launches()
+        case = {"problem": name, "K": prob.n_observations,
+                "rows_equal_eager": torch.equal(out["rows"], rows_e),
+                "rows_equal_plain": torch.equal(out["rows"], rows_p),
+                "blocks_energy_equal_eager": out["eb"].item() == eb_e.item(),
+                "energy_equal_eager": out["ee"].item() == ee_e.item(),
+                "blocks_energy_rel_err_plain":
+                    abs(out["eb"].item() - eb_p.item()) / abs(eb_p.item()),
+                "energy_rel_err_plain":
+                    abs(out["ee"].item() - ee_p.item()) / abs(ee_p.item()),
+                "launches_3_replays_2_taken": dict(cuda_chain.LAUNCHES)}
+        graph.close()
+        cases.append(case)
+        check(case["rows_equal_eager"] and case["rows_equal_plain"],
+              f"jit_kernels_replayed {name}: replayed rows differ")
+        check(case["blocks_energy_equal_eager"] and case["energy_equal_eager"],
+              f"jit_kernels_replayed {name}: replayed energies differ from eager")
+        check(case["blocks_energy_rel_err_plain"] <= ENERGY_RTOL
+              and case["energy_rel_err_plain"] <= ENERGY_RTOL,
+              f"jit_kernels_replayed {name}: energies against plain {case}")
+        check(case["launches_3_replays_2_taken"] == {"chain_blocks": 2,
+                                                     "chain_energy": 2},
+              f"jit_kernels_replayed {name}: counted {case['launches_3_replays_2_taken']}")
+    emit({"phase": "jit_kernels_replayed", "cases": cases, "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
+
+    # -- jit_p257_df32 ---------------------------------------------------------
+    t_phase = time.perf_counter()
+    p257 = problems["p257"]
+    kw = dict(matmul_dtype="float32", geometry="df32")
+    e0 = cuda_chain.fused_energy(pm.to_fast(p257.state), p257.obs, p257.tau2).item()
+    reserved0 = torch.cuda.memory_reserved()
+    warm = {d: timed_minimize(lm, cuda_chain, p257, "cholesky",
+                              lm.LMConfig(drive=d, max_iter=2, **kw))
+            for d in ("host", "jit")}
+    capture = dict(warm["jit"]["jit"],
+                   reserved_by_capture=torch.cuda.memory_reserved() - reserved0)
+    runs = {"host": [], "jit": []}
+    for drive in ("host", "jit", "jit", "host", "host", "jit"):
+        runs[drive].append(timed_minimize(
+            lm, cuda_chain, p257, "cholesky",
+            lm.LMConfig(drive=drive, max_iter=20, **kw)))
+    gate = hold_jit(lm, p257, "cholesky", lm.LMConfig(max_iter=20, **kw),
+                    runs["host"][0], runs["jit"][0], e0, "jit_p257_df32")
+    jit_launches = runs["jit"][0]["launches"]
+    emit({"phase": "jit_p257_df32", "mode": "cholesky", "initial_energy": e0,
+          "capture": capture, **gate,
+          "host_it_per_s": [r["it_per_s"] for r in runs["host"]],
+          "jit_it_per_s": [r["it_per_s"] for r in runs["jit"]],
+          "host": [summary(r) for r in runs["host"]],
+          "jit": [summary(r) for r in runs["jit"]],
+          "nvidia_smi": smi, "phase_s": time.perf_counter() - t_phase})
+    for which, count in jit_launches.items():
+        check(count > 0, f"jit_p257_df32: {which} not launched in the graph")
+        extra[which]["launches_jit_p257_df32"] = count
+    for r in runs["jit"]:
+        reads, trials = chunks_and_trials(lm, r["res"], lm.LMConfig().chunk_size)
+        check((r["jit"]["reads"], r["jit"]["replays"], r["jit"]["slots"])
+              == (reads, reads, trials),
+              f"jit_p257_df32: {r['jit']} for {r['res'].iterations} iterations, "
+              f"{r['res'].fun_evals} evaluations")
+
+    # -- jit_no_sync -------------------------------------------------------------
+    t_phase = time.perf_counter()
+    cfg = lm.LMConfig(drive="jit", max_iter=20, **kw)
+    prepare, trial, to_loop, _ = lm.step_functions(p257, "cholesky", cfg, dev)
+    x0 = to_loop(p257.state)
+    loop, capture_s = lm._device_loop(p257, "cholesky", cfg, x0, dev, prepare, trial)
+    loop.reads = 0
+    _, status, it, fun_evals, energy, _ = loop.run(x0, sync_debug=True,
+                                                   config=cfg)
+    torch.cuda.synchronize()
+    emit({"phase": "jit_no_sync", "iterations": it, "fun_evals": fun_evals,
+          "status": status.name, "energy": energy, "reads": loop.reads,
+          "captured_here": capture_s > 0, "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
+    check(capture_s == 0.0, "jit_no_sync: the p257 graph was not cached")
+    check((it, fun_evals) == (runs["jit"][0]["res"].iterations,
+                              runs["jit"][0]["res"].fun_evals),
+          f"jit_no_sync: {it} iterations, {fun_evals} evaluations")
+    check(np.isfinite(energy) and energy < e0, f"jit_no_sync: energy {energy}")
+    lm.clear_graphs()
+
+    # -- jit_modes -----------------------------------------------------------------
+    t_phase = time.perf_counter()
+    for name, iters, kw_mode in (("p257", 5, kw), ("p16", 10, {})):
+        prob = problems[name]
+        for mode in MODES:
+            cfg = lm.LMConfig(max_iter=iters, **kw_mode)
+            if kw_mode:
+                e0_m = cuda_chain.fused_energy(pm.to_fast(prob.state), prob.obs,
+                                               prob.tau2).item()
+            else:
+                e0_m = float(lm._prepare(prob.state, prob, mode)[1])
+            lm.minimize(prob, mode, dataclasses.replace(cfg, drive="jit",
+                                                        max_iter=1))
+            capture = dict(lm.LAST_JIT_RUN)
+            host = timed_minimize(lm, cuda_chain, prob, mode, cfg)
+            jit = timed_minimize(lm, cuda_chain, prob, mode,
+                                 dataclasses.replace(cfg, drive="jit"))
+            gate = hold_jit(lm, prob, mode, cfg, host, jit, e0_m,
+                            f"jit_modes {name} {mode}")
+            reads, trials = chunks_and_trials(lm, jit["res"], cfg.chunk_size)
+            check((jit["jit"]["reads"], jit["jit"]["slots"]) == (reads, trials),
+                  f"jit_modes {name} {mode}: {jit['jit']}")
+            emit({"phase": "jit_modes", "problem": name, "mode": mode,
+                  "drive": "df32" if kw_mode else "f64", "capture": capture,
+                  **gate, "host": summary(host), "jit": summary(jit),
+                  "nvidia_smi": smi})
+            if kw_mode:
+                for which, count in jit["launches"].items():
+                    check(count == host["launches"][which] or not gate["same_path"],
+                          f"jit_modes {name} {mode}: {which} launched "
+                          f"{count} times in the graph, {host['launches'][which]} "
+                          "by the host drive")
+            lm.clear_graphs()
+    emit({"phase": "jit_modes_done", "phase_s": time.perf_counter() - t_phase})
+
+    # -- jit_ladybug_df32 ------------------------------------------------------------
+    t_phase = time.perf_counter()
+    ds, _ = ladybug
+    lady = pm.from_bal_dataset(ds, device=dev)
+    e0 = cuda_chain.fused_energy(pm.to_fast(lady.state), lady.obs, lady.tau2).item()
+    reserved0 = torch.cuda.memory_reserved()
+    lm.minimize(lady, "cholesky", lm.LMConfig(drive="jit", max_iter=1, **kw))
+    capture = dict(lm.LAST_JIT_RUN,
+                   reserved_by_capture=torch.cuda.memory_reserved() - reserved0)
+    cfg = lm.LMConfig(max_iter=3, **kw)
+    host = timed_minimize(lm, cuda_chain, lady, "cholesky", cfg)
+    jit = timed_minimize(lm, cuda_chain, lady, "cholesky",
+                         dataclasses.replace(cfg, drive="jit"))
+    gate = hold_jit(lm, lady, "cholesky", cfg, host, jit, e0, "jit_ladybug_df32")
+    emit({"phase": "jit_ladybug_df32", "N": lady.n_cameras, "M": lady.n_points,
+          "K": lady.n_observations, "initial_energy": e0, "capture": capture,
+          **gate, "host": summary(host), "jit": summary(jit), "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
+    lm.clear_graphs()
+    del lady
+    torch.cuda.empty_cache()
+    return extra
+
+
+
 P16_ORACLE = HERE / "benchmarks" / "results" / "cpu_p16_flatline.json"
 
 
@@ -1089,7 +1412,8 @@ def main() -> None:
     from bundleadjustment_benchmarks_tpu_torch import cli
     from bundleadjustment_benchmarks_tpu_torch.io import bal
     from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian, linalg
+    from bundleadjustment_benchmarks_tpu_torch.ops import (cuda_chain, cuda_graph,
+                                                           jacobian, linalg)
     from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
     from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
     from bundleadjustment_benchmarks_tpu_torch.utils import balgen, checkpoint
@@ -1111,19 +1435,29 @@ def main() -> None:
           "fp32_instr_per_s": op_rate})
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
 
-    # -- build ---------------------------------------------------------------
+    # -- build: one nvcc per library, started together ---------------------------
     t0 = time.perf_counter()
-    cuda_chain.load_library()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for built in [pool.submit(cuda_chain.load_library),
+                      pool.submit(cuda_graph.load_library)]:
+            built.result()
     ptxas = [ln.strip() for ln in cuda_chain.BUILD_INFO["ptxas"].splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_flags": " ".join(cuda_chain.NVCC_FLAGS), "ptxas": ptxas})
+          "nvcc_flags": " ".join(cuda_chain.NVCC_FLAGS), "ptxas": ptxas,
+          "graph_cond_build_s": cuda_graph.BUILD_INFO["seconds"]})
 
     # -- kernels against their plain versions --------------------------------
     t0 = t_phase = time.perf_counter()
     problems = {name: pm.load_bal_problem(str(path), device=dev)
                 for name, path in (("p16", P16), ("p257", P257))}
     load_s = time.perf_counter() - t0
+    if sys.argv[1:] == ["--jit-only"]:  # the device-resident drive's phases
+        n, m, k_real = LADYBUG
+        ladybug = (balgen.generate_bal_like(n, m, seed=n, mean_degree=k_real / m), 0.0)
+        jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi)
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        return
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rng = np.random.default_rng(0)
     kern = {"chain_blocks": {"max_abs_err": 0.0, "energy_abs_err": 0.0},
@@ -1205,9 +1539,10 @@ def main() -> None:
         check(c["energy_repeats_identical"] and c["blocks_energy_repeats_identical"],
               f"{where}: repeat launches gave different energies")
     for which, k in kern.items():
-        check(k["kernels_per_call"] == 1,
+        check(k["kernels_per_call"] == 1 and k["empty_profiles"] <= 1,
               f"{which}: one entry-point call issued {k['kernels_per_call']} "
-              f"device operations, not 1")
+              f"device operations, not 1 ({k['empty_profiles']} of 3 "
+              "profiles empty)")
 
     # -- main path, df32 drive with the kernels, p257 ---------------------------
     t_phase = time.perf_counter()
@@ -1315,6 +1650,11 @@ def main() -> None:
     flatline_phase(flatline_campaign, cuda_chain, smi)
     ellipse_phase(lm, smi)
     blocked_chol_phase(linalg, flush, smi)
+
+    # -- the device-resident drive ------------------------------------------------
+    for which, more in jit_phases(pm, lm, cuda_chain, cuda_graph, problems,
+                                  ladybug, smi).items():
+        kern[which].update(more)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     src = "bundleadjustment_benchmarks_tpu_torch/ops/csrc/chain_kernels.cu"

@@ -3,8 +3,8 @@ reference's energy-flatline stop, on the card.
 
     python3 flatline_campaign.py [--problems p16,p126,p257,ladybug]
         [--modes cholesky,qrchol,qrkit,moreqr,spqr] [--drives f64,df32,df32p]
-        [--max-iter 2000] [--timeout 1800] [--json torch_results/flatline_h100.json]
-        [--commit TEXT] [--device cpu]
+        [--lm-drive host|jit] [--max-iter 2000] [--timeout 1800]
+        [--json torch_results/flatline_h100.json] [--commit TEXT] [--device cpu]
     python3 flatline_campaign.py --table    # the artifact as a markdown table
 
 The counterpart of ``benchmarks/parity_campaign.py`` for the port
@@ -21,6 +21,10 @@ post-run statistics (Utils.h:15-68) at focal 1.0 and tau 0.5 px.
 Drives (all ``max_iter=2000``): ``f64`` the defaults; ``df32`` two-float
 geometry, float32 Schur stacks and the CUDA chain kernels; ``df32p`` df32
 then up to 300 float64 polish iterations (``LMConfig.polish_iters``).
+``--lm-drive`` picks the LM drive around them (``LMConfig.drive``): the
+host loop (the default) or the device-resident one (``jit``, whose warm-up
+captures the CUDA graph that the timed run replays); each row records it as
+``lm_drive``.
 Problems: the in-repo stand-ins p16, p126 and p257 (``data/``) under every
 mode and drive, and ``ladybug``, a stand-in of BAL's Ladybug
 problem-1723-156502 generated in memory (``utils/balgen``, seed 1723), under
@@ -30,7 +34,8 @@ Every row runs in a subprocess of its own with a wall limit (``--timeout``),
 since a CUDA fault poisons its process: a crash or a timeout is a row with
 status CRASHED or TIMEOUT under the same problem key, and the campaign then
 exits 1. The artifact is rewritten after every row, rows with the same
-(problem, mode, drive) replaced; its header names the card
+(problem, mode, drive, lm_drive) replaced (a row without ``lm_drive`` ran
+the host drive); its header names the card
 (``nvidia-smi --query-gpu=name,power.limit``) and ``--commit``. Runs on the
 CUDA device; without one and without ``--device cpu`` it exits 2 and runs
 nothing. Imports nothing of JAX.
@@ -130,16 +135,19 @@ def post_statistics(state, obs) -> dict:
 
 
 def run_row(problem, name: str, mode: str, drive: str, max_iter: int = 2000,
-            device=None) -> tuple:
+            device=None, lm_drive: str = "host") -> tuple:
     """One campaign row: a warm-up of WARMUP_ITERS iterations (each phase of
     df32p), then ``lm.minimize`` from the problem's state to its stop,
-    timed between two synchronizes. Returns (row, the final BAState)."""
+    timed between two synchronizes, on the LM drive ``lm_drive`` (a jit
+    row records the timed run's ``lm.LAST_JIT_RUN``: host reads, graph
+    replays, trials; its graph is freed after it). Returns (row, the final
+    BAState)."""
     from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
     from bundleadjustment_benchmarks_tpu_torch.solvers import lm
 
     dev = resolve_device(device)
     problem = problem.to(dev)
-    cfg = drive_config(drive, max_iter)
+    cfg = dataclasses.replace(drive_config(drive, max_iter), drive=lm_drive)
     warm = dataclasses.replace(cfg, max_iter=WARMUP_ITERS,
                                polish_iters=min(cfg.polish_iters, WARMUP_ITERS))
     lm.minimize(problem, mode, warm, device=dev)
@@ -153,7 +161,7 @@ def run_row(problem, name: str, mode: str, drive: str, max_iter: int = 2000,
     _sync(dev)
     wall = time.perf_counter() - t0
     row = {
-        "problem": name, "mode": mode, "drive": drive,
+        "problem": name, "mode": mode, "drive": drive, "lm_drive": lm_drive,
         "platform": "gpu" if dev.type == "cuda" else dev.type,
         "status": lm.STATUS_STRINGS[res.status],
         "iterations": res.iterations, "fun_evals": res.fun_evals,
@@ -164,7 +172,10 @@ def run_row(problem, name: str, mode: str, drive: str, max_iter: int = 2000,
         "launches": dict(cuda_chain.LAUNCHES),
         "post": post_statistics(res.state, problem.obs),
         "trace": trace,
+        "jit": dict(lm.LAST_JIT_RUN) if lm_drive == "jit" else None,
     }
+    if lm_drive == "jit":
+        lm.clear_graphs()
     return row, res.state
 
 
@@ -223,16 +234,22 @@ def plan(problems, modes, drives) -> list:
     return rows
 
 
+def row_key(row: dict) -> tuple:
+    """(problem, mode, drive, LM drive) of a row; rows recorded before the
+    jit drive existed ran the host drive."""
+    return (row["problem"], row["mode"], row["drive"],
+            row.get("lm_drive", "host"))
+
+
 def merge_write(path: str, header: dict, rows: list) -> None:
     """Rewrite the artifact: ``header`` and the rows, replacing earlier rows
-    with the same (problem, mode, drive)."""
+    with the same ``row_key``."""
     prev = {}
     if os.path.exists(path):
         with open(path) as f:
             prev = json.load(f)
-    seen = {(r["problem"], r["mode"], r["drive"]) for r in rows}
-    merged = [r for r in prev.get("rows", [])
-              if (r["problem"], r["mode"], r["drive"]) not in seen] + rows
+    seen = {row_key(r) for r in rows}
+    merged = [r for r in prev.get("rows", []) if row_key(r) not in seen] + rows
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump({"header": header, "rows": merged}, f, indent=1)
@@ -256,13 +273,15 @@ def table(path: str) -> str:
              "| inlier px | objective | inliers | vs | gap px | gap obj |",
              "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     order = {d: i for i, d in enumerate(DRIVES)}
-    def key(r):  # by problem size, then drive and mode
+    def key(r):  # by problem size, then drive, LM drive and mode
         size = r["post"]["n_observations"] if "post" in r else 0
-        return size, r["problem"], order[r["drive"]], MODES.index(r["mode"])
+        return (size, r["problem"], order[r["drive"]], r.get("lm_drive", "host"),
+                MODES.index(r["mode"]))
 
     for r in sorted(data["rows"], key=key):
+        drive = r["drive"] + (" jit" if r.get("lm_drive") == "jit" else "")
         if "post" not in r:
-            lines.append(f"| {r['problem']} | {r['drive']} | {r['mode']} | "
+            lines.append(f"| {r['problem']} | {drive} | {r['mode']} | "
                          f"{r['status']} |" + " |" * 10)
             continue
         post = r["post"]
@@ -284,7 +303,7 @@ def table(path: str) -> str:
                       r["status"], r["status"])
         peak = "-" if r["peak_bytes"] is None else f"{r['peak_bytes'] / 1e9:.2f}"
         lines.append(
-            f"| {r['problem'].split('-pre')[0]} | {r['drive']} | {r['mode']} | "
+            f"| {r['problem'].split('-pre')[0]} | {drive} | {r['mode']} | "
             f"{status} | {r['iterations']} | {r['wall_s']:.3f} | "
             f"{r['it_per_s']:.2f} | {peak} | "
             f"{post['inlier_mean_reprojection_error']:.6f} | "
@@ -297,12 +316,12 @@ def run_subprocess(key, mode, drive, args, header) -> dict:
     name = LADYBUG_NAME if key == "ladybug" else os.path.basename(
         PROBLEMS.get(key, key))
     cmd = [sys.executable, os.path.abspath(__file__), "--one", key, mode, drive,
-           "--max-iter", str(args.max_iter)]
+           "--max-iter", str(args.max_iter), "--lm-drive", args.lm_drive]
     if args.device:
         cmd += ["--device", args.device]
     t0 = time.perf_counter()
     failed = {"problem": name, "mode": mode, "drive": drive,
-              "card": header["card"]}
+              "lm_drive": args.lm_drive, "card": header["card"]}
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
                               timeout=args.timeout)
@@ -323,6 +342,9 @@ def main(argv=None) -> int:
     ap.add_argument("--problems", default="p16,p126,p257,ladybug")
     ap.add_argument("--modes", default=",".join(MODES))
     ap.add_argument("--drives", default=",".join(DRIVES))
+    ap.add_argument("--lm-drive", default="host", choices=("host", "jit"),
+                    help="the LM drive: the host loop or the device-resident "
+                    "CUDA graph (default host)")
     ap.add_argument("--max-iter", type=int, default=2000)
     ap.add_argument("--json", default=ARTIFACT,
                     help="the artifact, relative to this file's directory")
@@ -350,7 +372,8 @@ def main(argv=None) -> int:
     if args.one:
         key, mode, drive = args.one
         problem, name = load_problem(key, device)
-        row, _ = run_row(problem, name, mode, drive, args.max_iter, device)
+        row, _ = run_row(problem, name, mode, drive, args.max_iter, device,
+                         args.lm_drive)
         print(SENTINEL + json.dumps(row), flush=True)
         return 0
 

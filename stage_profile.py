@@ -1,13 +1,15 @@
 """Where the LM's time goes on the GPU, for one solver mode and drive.
 
     python3 stage_profile.py [BAL file] [--mode M] [--drive df32|f64|both]
-                             [--iters N] [--chain]
+                             [--lm-drive host|jit|both] [--iters N] [--chain]
 
 Loads the problem (default: the in-repo p257 stand-in) onto CUDA. For the
 df32 drive (kernels on) and then the float64 drive (or the one named) it
 runs a two-iteration warm-up and traces ``lm.minimize(mode=M,
 max_iter=N)`` (default cholesky, 6) with ``torch.profiler``, printing one
-JSON line per drive: the card, the traced wall time, the
+JSON line per drive, for the host LM drive, the device-resident one
+(``--lm-drive jit``: the warm-up captures its CUDA graph, the traced run
+replays it) or both: the card, the traced wall time, the
 device-busy share (the sum of kernel times over the wall time), the kernels
 and the PyTorch operators with the most device time, and the count of
 ``torch.linalg.qr`` calls (in cholesky's float32 reduced solve, its
@@ -58,15 +60,16 @@ def _top(events, n=15):
 
 
 def profile_drives(prob, card: str, path: str, mode: str, drive: str,
-                   iters: int) -> None:
-    for name in ("df32", "f64"):
-        if drive not in ("both", name):
+                   iters: int, lm_drive: str = "host") -> None:
+    for name, lm_name in [(d, ld) for d in ("df32", "f64")
+                          for ld in ("host", "jit")]:
+        if drive not in ("both", name) or lm_drive not in ("both", lm_name):
             continue
         kw = dict(matmul_dtype="float32", geometry="df32") if name == "df32" else {}
 
         def run(max_iter):
-            return lm.minimize(prob, mode=mode,
-                               config=lm.LMConfig(max_iter=max_iter, **kw))
+            return lm.minimize(prob, mode=mode, config=lm.LMConfig(
+                max_iter=max_iter, drive=lm_name, **kw))
 
         run(2)
         torch.cuda.synchronize()
@@ -85,7 +88,8 @@ def profile_drives(prob, card: str, path: str, mode: str, drive: str,
         qr = sum(e.count for e in events if e.key == "aten::linalg_qr")
         print(json.dumps({
             "card": card, "problem": Path(path).name, "mode": mode,
-            "drive": name,
+            "drive": name, "lm_drive": lm_name,
+            "jit": dict(lm.LAST_JIT_RUN) if lm_name == "jit" else None,
             "K": prob.n_observations, "N": prob.n_cameras, "M": prob.n_points,
             "iterations": res.iterations, "fun_evals": res.fun_evals,
             "energy": res.energy, "wall_ms": wall * 1e3,
@@ -179,6 +183,10 @@ def main() -> None:
                     help="solver mode to trace (default cholesky)")
     ap.add_argument("--drive", default="both", choices=("df32", "f64", "both"),
                     help="drive(s) to trace (default both)")
+    ap.add_argument("--lm-drive", default="host",
+                    choices=("host", "jit", "both"),
+                    help="LM drive(s) to trace: the host loop, the "
+                    "device-resident graph, or both (default host)")
     ap.add_argument("--iters", type=int, default=6,
                     help="LM iterations traced (default 6)")
     ap.add_argument("--chain", action="store_true",
@@ -192,7 +200,7 @@ def main() -> None:
         chain_line(prob, card, args.path)
     else:
         profile_drives(prob, card, args.path, args.mode, args.drive,
-                       args.iters)
+                       args.iters, args.lm_drive)
 
 
 if __name__ == "__main__":

@@ -89,7 +89,9 @@ class Run:
         self.rc, self.out = rc, out
         lines = out.splitlines()
         self.lines = [ln for ln in lines if ln.startswith(KEPT)]
-        self.rows = [(int(m[1]), m[2], *map(float, m.groups()[2:]))
+        # rho "-": a Rejected row that the jit drive synthesized.
+        self.rows = [(int(m[1]), m[2], float(m[3]),
+                      None if m[4] == "-" else float(m[4]), float(m[5]))
                      for m in map(ROW.match, lines) if m]
         self.records = []
         if metrics_path and os.path.exists(metrics_path):
@@ -391,14 +393,32 @@ def test_polish(tiny, tmp_path, capsys):
 
 
 def test_drive_jit_and_profile_and_debug_nans_accepted(tiny, tmp_path, capsys):
-    """--drive jit runs the same loop as host; --profile-dir writes a
-    trace; --debug-nans changes nothing on a finite run."""
-    base = run_cli("port", [tiny, "--max-iters", "3"] + TAU, tmp_path, capsys, "a")
-    other = run_cli("port", [tiny, "--max-iters", "3"] + TAU + ["--drive", "jit",
-                             "--debug-nans", "--profile-dir",
-                             str(tmp_path / "prof")], tmp_path, capsys, "b")
+    """--drive jit runs the device-resident drive (on the CPU, its slot
+    eagerly): its table is the host drive's row for row, f and lambda
+    exactly, with JAX's convention for the rejected rows it synthesizes
+    from each iteration's record (rho "-" where the host prints 0; JSONL
+    rho null and synthesized true); Elapsed is not compared.
+    --profile-dir writes a trace; --debug-nans changes nothing on a finite
+    run."""
+    args = [tiny, "--max-iters", "12", "--tol", "1e-30"] + TAU
+    base = run_cli("port", args, tmp_path, capsys, "a")
+    other = run_cli("port", args + ["--drive", "jit", "--debug-nans",
+                                    "--profile-dir", str(tmp_path / "prof")],
+                    tmp_path, capsys, "b")
     assert other.rc == cli.RETURN_SUCCESS
-    assert other.lines == base.lines and other.rows[0][:5] == base.rows[0][:5]
+    assert other.lines == base.lines
+    assert "Rejected" in [r[1] for r in base.rows]
+    assert [(r[0], r[1], r[2], r[4]) for r in other.rows] == [
+        (r[0], r[1], r[2], r[4]) for r in base.rows]
+    assert [r[3] for r in other.rows] == [
+        r[3] if r[1] == "Accepted" else None for r in base.rows]
+    assert [(r["iter"], r["status"], r["f"], r["lambda"]) for r in other.records
+            if "iter" in r] == [(r["iter"], r["status"], r["f"], r["lambda"])
+                                for r in base.records]
+    assert [(r["rho"] is None, r["synthesized"]) for r in other.records
+            if "iter" in r] == [(r["status"] == "Rejected",) * 2
+                                for r in base.records]
+    assert "compile_s" in other.records[0]
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
 
 

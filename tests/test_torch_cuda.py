@@ -319,3 +319,91 @@ def test_ellipse_example_on_card():
     assert res.state.is_cuda
     assert (res.status, res.iterations) == (cpu.status, cpu.iterations)
     assert (res.state.cpu() - cpu.state).abs().max().item() <= 1e-10
+
+
+# -- the device-resident LM drive ----------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["cholesky", "qrkit"])
+def test_jit_drive_matches_host_on_card(p16_cuda, mode):
+    """drive="jit" on p16 df32: the host drive's LM path and energy, both
+    chain kernels counted as the graph ran them, a cached capture on the
+    second call, and one host read for 5 iterations."""
+    prob, _ = p16_cuda
+    cfg = lm.LMConfig(max_iter=5, matmul_dtype="float32", geometry="df32")
+    host = lm.minimize(prob, mode, cfg)
+    cfg = dataclasses.replace(cfg, drive="jit")
+    lm.minimize(prob, mode, dataclasses.replace(cfg, max_iter=1))
+    assert lm.LAST_JIT_RUN["captured"]
+    cuda_chain.reset_launches()
+    jit = lm.minimize(prob, mode, cfg)
+    assert not lm.LAST_JIT_RUN["captured"] and lm.LAST_JIT_RUN["reads"] == 1
+    assert lm.LAST_JIT_RUN["replays"] == 1
+    assert (jit.iterations, jit.fun_evals, jit.status) == (
+        host.iterations, host.fun_evals, host.status)
+    assert abs(jit.energy - host.energy) <= 1e-9 * host.energy
+    prepares = jit.iterations - 1
+    assert cuda_chain.LAUNCHES["chain_blocks"] == prepares
+    assert cuda_chain.LAUNCHES["chain_energy"] == jit.fun_evals - prepares
+    lm.clear_graphs()
+
+
+def test_device_conditionals_on_card():
+    """device_if and device_cond inside a DeviceGraph follow their
+    predicates at each replay; outside a capture a CUDA predicate raises."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.zeros((), dtype=torch.float64, device="cuda")
+    pred = torch.ones((), dtype=torch.bool, device="cuda")
+    out = torch.zeros((), dtype=torch.float64, device="cuda")
+    graph = cuda_graph.DeviceGraph("cuda")
+
+    def body():
+        x.add_(1.0)
+        cuda_graph.device_cond(pred, lambda: x * 10.0, lambda: x * -1.0, out)
+
+    graph.capture(lambda: cuda_graph.device_if(pred, body))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (x.item(), out.item()) == (2.0, 20.0)
+    pred.fill_(False)
+    graph.replay()
+    assert x.item() == 2.0
+    graph.close()
+    with pytest.raises(RuntimeError, match="outside a DeviceGraph"):
+        cuda_graph.device_if(pred, body)
+
+
+def test_device_while_on_card():
+    """device_while inside a DeviceGraph runs its body until its condition,
+    recomputed on the device after each pass, is false (a nested device_if
+    inside), with the bound read from the device at each replay."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.zeros((), dtype=torch.float64, device="cuda")
+    odd = torch.zeros((), dtype=torch.float64, device="cuda")
+    bound = torch.full((), 5.0, dtype=torch.float64, device="cuda")
+    graph = cuda_graph.DeviceGraph("cuda")
+
+    def body():
+        x.add_(1.0)
+        cuda_graph.device_if(torch.remainder(x, 2.0) == 1.0,
+                             lambda: odd.add_(1.0))
+
+    graph.capture(lambda: cuda_graph.device_while(lambda: x < bound, body))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (x.item(), odd.item()) == (5.0, 3.0)
+    bound.fill_(8.0)
+    graph.replay()
+    graph.replay()  # the condition is false at once: no pass
+    torch.cuda.synchronize()
+    assert (x.item(), odd.item()) == (8.0, 4.0)
+    graph.close()
+    with pytest.raises(RuntimeError, match="outside a DeviceGraph"):
+        cuda_graph.device_while(lambda: x < bound, body)

@@ -12,7 +12,10 @@ BacktrackLevMarqCholesky.h:343-350) held to the JAX campaign's checks
 * mutual parity of the five modes at p126 and p257 on f64 and df32;
 * each f64 row against the JAX campaign's f64 row of the same problem and
   mode (``benchmarks/parity_campaign.json``), the same comparison at the
-  f64 budget (statistics, not times).
+  f64 budget (statistics, not times);
+* the rows of the device-resident LM drive (``lm_drive: "jit"``, p257
+  under every mode on f64 and df32) to the same checks: recorded on the
+  card, mutual parity, and each f64 row against JAX's.
 
 A missing row skips; a CRASHED or TIMEOUT row fails. The file reads JSON
 and runs on the CPU; two tests run code: the trajectory anchor (the JAX
@@ -56,19 +59,25 @@ def _load(path):
         return json.load(f)
 
 
-def _rows(path):
+def _rows(path, lm_drive="host"):
+    """(problem, mode, drive) -> row of the artifact, for one LM drive."""
     data = _load(path)
     if data is None:
         return {}
-    return {(r["problem"], r["mode"], r["drive"]): r for r in data["rows"]}
+    return {(r["problem"], r["mode"], r["drive"]): r for r in data["rows"]
+            if r.get("lm_drive", "host") == lm_drive}
 
 
 PORT_ROWS = _rows(ARTIFACT)
+JIT_ROWS = _rows(ARTIFACT, "jit")
 JAX_ROWS = _rows(JAX_CAMPAIGN)
+#: The jit drive's rows: p257, every mode, f64 and df32.
+JIT_PROBLEM, JIT_DRIVES = "problem-257-65132-pre.txt.gz", ("f64", "df32")
 
 
-def port_row(problem, mode, drive):
-    row = PORT_ROWS.get((problem, mode, drive))
+def port_row(problem, mode, drive, rows=None):
+    rows = PORT_ROWS if rows is None else rows
+    row = rows.get((problem, mode, drive))
     if row is None:
         pytest.skip(f"port row ({problem}, {mode}, {drive}) not recorded")
     assert row["status"] not in ("CRASHED", "TIMEOUT"), row
@@ -131,7 +140,20 @@ def test_row_recorded_on_the_card(problem, mode, drive):
     launched the chain kernels exactly on the df32 drives."""
     name = campaign.LADYBUG_NAME if problem == "ladybug" else os.path.basename(
         campaign.PROBLEMS[problem])
-    row = port_row(name, mode, drive)
+    check_row_on_card(port_row(name, mode, drive), drive)
+
+
+@pytest.mark.parametrize("drive", JIT_DRIVES)
+@pytest.mark.parametrize("mode", MODES)
+def test_jit_row_recorded_on_the_card(mode, drive):
+    """The jit drive's p257 rows pass the checks of every row."""
+    row = port_row(JIT_PROBLEM, mode, drive, JIT_ROWS)
+    assert row["lm_drive"] == "jit"
+    check_row_on_card(row, drive)
+    check_jit_reads(row)
+
+
+def check_row_on_card(row, drive):
     assert row["platform"] == "gpu"
     assert row["status"] in ("Success (Energy Flatlined)",
                              "Success (Exceeded Maximum Lambda)"), row["status"]
@@ -166,7 +188,17 @@ def test_p16_against_oracle(mode, drive):
 def test_large_scale_mutual_parity(problem, drive):
     """All five modes recorded and within budget of the cholesky row (the
     JAX campaign's test_large_scale_mutual_parity)."""
-    rows = {m: port_row(problem, m, drive) for m in MODES}
+    check_mutual_parity(problem, drive, PORT_ROWS)
+
+
+@pytest.mark.parametrize("drive", JIT_DRIVES)
+def test_jit_large_scale_mutual_parity(drive):
+    """The jit drive's p257 rows: mutual parity, as the host drive's."""
+    check_mutual_parity(JIT_PROBLEM, drive, JIT_ROWS)
+
+
+def check_mutual_parity(problem, drive, table):
+    rows = {m: port_row(problem, m, drive, table) for m in MODES}
     budget, anchor = BUDGETS[drive], rows["cholesky"]["post"]
     for m, row in rows.items():
         post = row["post"]
@@ -218,10 +250,20 @@ def test_f64_against_jax_row(problem, mode):
     """Each f64 row against the JAX campaign's f64 row of the same problem
     and mode, at the f64 budget; where JAX's row is off the oracle
     (JAX_OFF_ORACLE), against the oracle at the same budget."""
+    check_f64_against_jax(problem, mode, PORT_ROWS)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_jit_f64_against_jax_row(mode):
+    """The jit drive's p257 f64 rows against JAX's, as the host drive's."""
+    check_f64_against_jax(JIT_PROBLEM, mode, JIT_ROWS)
+
+
+def check_f64_against_jax(problem, mode, table):
     ref = JAX_ROWS.get((problem, mode, "f64"))
     if ref is None:
         pytest.skip(f"JAX row ({problem}, {mode}, f64) not recorded")
-    row = port_row(problem, mode, "f64")
+    row = port_row(problem, mode, "f64", table)
     if (problem, mode) in JAX_OFF_ORACLE:
         assert_within_budget(row["post"], _load(ORACLE[problem])["post"],
                              BUDGETS["f64"], f"{mode}/f64/{problem} vs scipy")
@@ -294,12 +336,13 @@ def test_row_function_on_cpu(tiny_bal, drive):
     problem, name = campaign.load_problem(tiny_bal, "cpu")
     row, state = campaign.run_row(problem, name, "cholesky", drive, max_iter=30,
                                   device="cpu")
-    assert set(row) == {"problem", "mode", "drive", "platform", "status",
-                        "iterations", "fun_evals", "energy", "wall_s", "post",
-                        "it_per_s", "peak_bytes", "launches", "trace"}
-    assert (row["problem"], row["mode"], row["drive"], row["platform"]) == (
-        "tiny.txt", "cholesky", drive, "cpu")
-    assert row["peak_bytes"] is None
+    assert set(row) == {"problem", "mode", "drive", "lm_drive", "platform",
+                        "status", "iterations", "fun_evals", "energy", "wall_s",
+                        "post", "it_per_s", "peak_bytes", "launches", "trace",
+                        "jit"}
+    assert (row["problem"], row["mode"], row["drive"], row["lm_drive"],
+            row["platform"]) == ("tiny.txt", "cholesky", drive, "host", "cpu")
+    assert row["peak_bytes"] is None and row["jit"] is None
     assert row["launches"] == {"chain_blocks": 0, "chain_energy": 0}
     assert row["trace"] and set(row["trace"][0]) >= {"iter", "energy", "lam"}
     assert json.loads(json.dumps(row)) == row
@@ -317,6 +360,43 @@ def test_row_function_on_cpu(tiny_bal, drive):
     for k in ("mean_reprojection_error", "inlier_mean_reprojection_error",
               "true_objective"):
         np.testing.assert_allclose(row["post"][k], ref[k], rtol=1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("drive", ["f64", "df32"])
+def test_row_function_jit_on_cpu(tiny_bal, drive):
+    """``run_row`` with ``lm_drive="jit"``: the host drive's row, the same
+    LM path and statistics (the two drives do the same arithmetic)."""
+    problem, name = campaign.load_problem(tiny_bal, "cpu")
+    rows = {d: campaign.run_row(problem, name, "cholesky", drive, max_iter=30,
+                                device="cpu", lm_drive=d)[0]
+            for d in ("host", "jit")}
+    assert rows["jit"]["lm_drive"] == "jit"
+    for k in ("status", "iterations", "fun_evals", "energy", "post", "trace"):
+        assert rows["jit"][k] == rows["host"][k], k
+    check_jit_reads(rows["jit"])
+
+
+def check_jit_reads(row):
+    """One host read and one graph replay per chunk of 16 iterations, and
+    every trial counted on the device."""
+    started = row["iterations"] - (row["status"] in (
+        "Maximum Iterations Reached", "Too Many Function Evaluations"))
+    assert row["jit"]["reads"] == row["jit"]["replays"] == -(-started // 16)
+    assert row["jit"]["slots"] == row["fun_evals"] - started
+
+
+def test_campaign_keeps_host_and_jit_rows(tmp_path):
+    """A jit row sits beside the host row of the same (problem, mode,
+    drive), and a row recorded without ``lm_drive`` counts as the host's."""
+    path = str(tmp_path / "out.json")
+    old = {"problem": "p", "mode": "cholesky", "drive": "f64", "status": "a"}
+    jit = dict(old, lm_drive="jit", status="b")
+    campaign.merge_write(path, {"card": "c"}, [old])
+    campaign.merge_write(path, {"card": "c"}, [jit])
+    assert sorted(r["status"] for r in _load(path)["rows"]) == ["a", "b"]
+    campaign.merge_write(path, {"card": "c"}, [dict(old, lm_drive="host",
+                                                    status="c")])
+    assert sorted(r["status"] for r in _load(path)["rows"]) == ["b", "c"]
 
 
 def test_campaign_merges_rows_by_key(tmp_path):
