@@ -12,7 +12,12 @@ Runs on the current CUDA device; ``--device cpu`` runs on the CPU. Without
 a CUDA device and without ``--device`` it refuses to run (return code 1).
 ``--shards N`` runs N local ranks of the sharded path, one per GPU (NCCL), or
 on the CPU with ``--device cpu`` (gloo); rank 0 prints. ``--drive jit`` runs
-the device-resident LM drive (``lm.DeviceLoop``), one device only.
+the device-resident LM drive (``lm.DeviceLoop``); with ``--shards`` each
+rank captures its collectives into its graph (NCCL only on CUDA) and, as
+the JAX package's sharded jit drive, prints no iteration table, while
+``--checkpoint`` or ``--metrics`` send a sharded run to the host drive. A
+collective replayed from a graph has no timeout of its own: a hung rank
+holds the others until the job's limit.
 """
 
 from __future__ import annotations
@@ -85,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
         "captured CUDA graph with conditional nodes replayed per chunk of 16 "
         "iterations, the LM scalars read once per chunk; rejected table "
         "rows are synthesized, Elapsed is the chunk's average per trial). "
-        "Not with --shards",
+        "With --shards: the ranks' all-reduces captured too (NCCL; gloo on "
+        "the CPU), no table; --checkpoint/--metrics take the host drive",
     )
     p.add_argument("--max-iters", type=int, default=1_000_000)
     p.add_argument(
@@ -266,11 +272,6 @@ def main(argv=None) -> int:
     if args.shards < 0:
         print(f"--shards {args.shards}: give 0 (one device) or a number of "
               "ranks", file=sys.stderr)
-        return RETURN_WRONG_INPUT_PARAMS
-    if args.shards and args.drive == "jit":
-        print("--drive jit has no sharded form yet (its all-reduces would "
-              "have to be captured into the CUDA graph); use --drive host "
-              "with --shards", file=sys.stderr)
         return RETURN_WRONG_INPUT_PARAMS
 
     from bundleadjustment_benchmarks_tpu_torch import resolve_device

@@ -41,10 +41,38 @@ int cg_graph_destroy(void *graph) {
   return (int)cudaGraphDestroy(static_cast<cudaGraph_t>(graph));
 }
 
-// Number of nodes of a graph (an empty captured segment is not added).
-int cg_node_count(void *graph, size_t *count) {
-  return (int)cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr,
-                                count);
+// Number of nodes of a graph (an empty captured segment is not added), in
+// `total`, and by cudaGraphNodeType in `by_type` (CG_NODE_TYPES entries,
+// zeroed first), the nodes of child graphs counted again by their types.
+#define CG_NODE_TYPES 16
+
+static cudaError_t count_types(cudaGraph_t g, size_t *by_type) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return err;
+  cudaGraphNode_t *nodes = new cudaGraphNode_t[n];
+  err = cudaGraphGetNodes(g, nodes, &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType t;
+    err = cudaGraphNodeGetType(nodes[i], &t);
+    if (err != cudaSuccess) break;
+    by_type[(int)t < CG_NODE_TYPES ? (int)t : CG_NODE_TYPES - 1] += 1;
+    if (t == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child = nullptr;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = count_types(child, by_type);
+    }
+  }
+  delete[] nodes;
+  return err;
+}
+
+int cg_node_count(void *graph, size_t *total, size_t *by_type) {
+  for (int i = 0; i < CG_NODE_TYPES; ++i) by_type[i] = 0;
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, total);
+  if (err != cudaSuccess) return (int)err;
+  return (int)count_types(g, by_type);
 }
 
 // Append a child graph node (a clone of `child`) after `dep` (or as a root

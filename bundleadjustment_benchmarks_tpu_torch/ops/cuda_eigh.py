@@ -1,0 +1,127 @@
+"""Symmetric eigendecomposition on the device that a CUDA graph can capture.
+
+qrkit on a problem without pair tables factors its augmented camera gram
+once per LM iteration by an eigendecomposition (``schur._gram_sqrt_factor``;
+the JAX package leaves it to XLA's eigh, no Pallas kernel).
+``torch.linalg.eigh`` on CUDA reads its info flag on the host, and cuSOLVER's
+``syevd`` and ``syevj`` synchronize inside (each invalidates a stream
+capture on the H100), so none can run in the jit drive's graph. ``eigh``
+runs the block Jacobi method of ``csrc/eigh.cu`` (built with nvcc for sm_90a
+at first use, bound through ctypes) on the current stream, in float64: a
+fixed sequence of kernel launches with no host read, whose convergence is
+a device flag.
+It returns info on the device (0 converged, 1 not within ``MAX_SWEEPS``
+sweeps); ``schur._gram_sqrt_factor`` turns a nonzero info into NaN there, so
+the LM loop's non-finite guard stops the run. Both LM drives call it on
+CUDA; a build or a launch that fails raises, with no fall-back to
+``torch.linalg.eigh``.
+
+``eigh_plain`` (``torch.linalg.eigh`` and a zero info) is what ``eigh``
+takes for a CPU tensor, and the reference it is held to on the card.
+Jacobi's eigenvectors are another orthonormal basis of each eigenspace, and
+its rounding is its own: the two agree to the working precision, not bit
+for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from bundleadjustment_benchmarks_tpu_torch.ops import nvcc
+
+SOURCES = ("eigh.cu",)
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+)
+#: Sweeps the launch sequence holds; a matrix that has not converged by
+#: then gets info 1. On the H100 the p257 and p16 grams and random
+#: matrices of their sizes took 9-18 (PERF.md); a sweep after convergence
+#: costs only its launches, which return at once.
+MAX_SWEEPS = 30
+#: What the last build did: seconds, library path, nvcc's -Xptxas=-v output.
+BUILD_INFO: dict = {}
+
+_lib = None
+_lock = threading.Lock()
+_DTYPES = (torch.float32, torch.float64)
+
+
+def load_library():
+    """Build (once per source content) and load the eigensolver library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        BUILD_INFO.update(nvcc.build("eigh", "eigh.cu", SOURCES, NVCC_FLAGS))
+        lib = ctypes.CDLL(BUILD_INFO["library"])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.jacobi_eigh.argtypes = [p, p, p, p, i, p, p, i, p]
+        lib.jacobi_eigh.restype = i
+        lib.jacobi_block_rows.argtypes = []
+        lib.jacobi_block_rows.restype = i
+        lib.jacobi_error_string.argtypes = [i]
+        lib.jacobi_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def eigh_plain(S: torch.Tensor):
+    """(w, V, info) of the symmetric ``S`` by ``torch.linalg.eigh`` (its
+    lower triangle; eigenvalues ascending, eigenvectors the columns of V),
+    info a 0-dim int32 zero: a failure raises there."""
+    w, V = torch.linalg.eigh(S)
+    return w, V, torch.zeros((), dtype=torch.int32, device=S.device)
+
+
+def jacobi_eigh(S: torch.Tensor):
+    """(w, V, info, sweeps) of the symmetric CUDA matrix ``S`` by the block
+    Jacobi kernels: eigenvalues ascending, eigenvectors the columns of V,
+    both in S's dtype; info (0-dim int32) 0 where the sweeps converged, and
+    the sweeps run; all on the device, nothing read by the host.
+
+    The kernels run in float64. Their V is orthonormal to ~1e-11 at n =
+    2,314 (the rounds' roundings add up), so one Newton-Schulz step
+    V (3I - V^T V) / 2 restores it and the eigenvalues are the Rayleigh
+    quotients diag(V^T S V), both float64 products."""
+    if S.device.type != "cuda":
+        raise ValueError(f"cuda_eigh.jacobi_eigh: tensor on {S.device}")
+    if S.dim() != 2 or S.shape[0] != S.shape[1] or S.dtype not in _DTYPES:
+        raise ValueError(f"cuda_eigh: a square float32 or float64 matrix, got "
+                         f"{tuple(S.shape)} {S.dtype}")
+    lib = load_library()
+    n, dev, f64 = S.shape[0], S.device, torch.float64
+    S64 = S.to(f64)
+    pair = 2 * lib.jacobi_block_rows()
+    n_pad = max(pair, -(-n // pair) * pair)
+    A = S64.new_zeros((n_pad, n_pad))
+    A[:n, :n] = S64
+    V = torch.eye(n_pad, dtype=f64, device=dev)
+    thr = (torch.finfo(f64).eps * torch.sqrt((S64 * S64).sum())).reshape(1)
+    Qs = torch.empty((n_pad // pair, pair, pair), dtype=f64, device=dev)
+    moved = torch.empty(n_pad // pair, dtype=torch.int32, device=dev)
+    flags = torch.zeros(3, dtype=torch.int32, device=dev)
+    err = lib.jacobi_eigh(A.data_ptr(), V.data_ptr(), Qs.data_ptr(),
+                          moved.data_ptr(), n_pad, thr.data_ptr(),
+                          flags.data_ptr(), MAX_SWEEPS,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi_eigh launch failed: "
+                           f"{lib.jacobi_error_string(err).decode()}")
+    V = V[:n, :n]
+    V = V @ (1.5 * torch.eye(n, dtype=f64, device=dev) - 0.5 * (V.T @ V))
+    w, order = torch.sort(((S64 @ V) * V).sum(dim=0))
+    info = (1 - flags[0]).to(torch.int32)
+    return w.to(S.dtype), V[:, order].to(S.dtype), info, flags[2]
+
+
+def eigh(S: torch.Tensor):
+    """(w, V, info) as ``eigh_plain``: by ``jacobi_eigh`` for a CUDA
+    tensor (info left on the device, 1 where it did not converge), by
+    ``eigh_plain`` for a CPU tensor."""
+    if S.device.type == "cpu":
+        return eigh_plain(S)
+    return jacobi_eigh(S)[:3]

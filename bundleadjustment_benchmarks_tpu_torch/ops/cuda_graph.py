@@ -68,7 +68,8 @@ def load_library():
         pp = ctypes.POINTER(ctypes.c_void_p)
         for name, args in (
                 ("cg_graph_create", [pp]), ("cg_graph_destroy", [p]),
-                ("cg_node_count", [p, ctypes.POINTER(ctypes.c_size_t)]),
+                ("cg_node_count", [p, ctypes.POINTER(ctypes.c_size_t),
+                                   ctypes.POINTER(ctypes.c_size_t)]),
                 ("cg_add_child", [p, p, p, pp]),
                 ("cg_add_set", [p, p, ctypes.c_ulonglong, p, pp]),
                 ("cg_add_cond", [p, p, p, i, pp, pp,
@@ -82,6 +83,26 @@ def load_library():
         lib.cg_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+#: cudaGraphNodeType by value (driver_types.h, CUDA 12.4+); other values
+#: count under their number.
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait_event", 7: "event_record",
+              8: "ext_semaphore_signal", 9: "ext_semaphore_wait",
+              10: "mem_alloc", 11: "mem_free", 13: "conditional"}
+
+
+def node_types(raw_graph) -> tuple:
+    """(nodes, {type name: count}) of a ``cudaGraph_t`` (an int): its own
+    nodes, and by type its nodes and those of its child graphs."""
+    lib = load_library()
+    total = ctypes.c_size_t()
+    by_type = (ctypes.c_size_t * 16)()
+    _call(lib, "node count", lib.cg_node_count(raw_graph, ctypes.byref(total),
+                                               by_type))
+    return total.value, {NODE_TYPES.get(i, str(i)): c
+                         for i, c in enumerate(by_type) if c}
 
 
 def _call(lib, what: str, err: int) -> None:
@@ -169,8 +190,10 @@ class DeviceGraph:
     the graph's own stream and returns what it returns; ``replay()``
     launches the graph on the current stream without a host read.
     ``capture_s`` is the capture's wall time (segments, composition and
-    instantiation); ``replays`` counts launches. ``close()`` frees the
-    graph and its memory pool."""
+    instantiation); ``replays`` counts launches; ``node_types`` counts the
+    nodes of the captured segments by type (``node_types()``), with the
+    conditional nodes and the kernels that set their conditions.
+    ``close()`` frees the graph and its memory pool."""
 
     def __init__(self, device):
         device = torch.device(device)
@@ -183,6 +206,7 @@ class DeviceGraph:
         self.pool = torch.cuda.graph_pool_handle()
         self.capture_s = None
         self.replays = 0
+        self.node_types: dict = {}
         self._segments = []  # captured torch graphs: they hold the pool
         self._keep = []  # predicates the conditional nodes read
         self._graph = None
@@ -232,14 +256,18 @@ class DeviceGraph:
         self._segments.append(g)
         lib = load_library()
         raw = g.raw_cuda_graph()
-        count = ctypes.c_size_t()
-        _call(lib, "node count", lib.cg_node_count(raw, ctypes.byref(count)))
-        if count.value:
+        count, by_type = node_types(raw)
+        self._tally(by_type)
+        if count:
             scope = self._scopes[-1]
             node = ctypes.c_void_p()
             _call(lib, "child node", lib.cg_add_child(scope[0], scope[1], raw,
                                                       ctypes.byref(node)))
             scope[1] = node.value
+
+    def _tally(self, by_type: dict) -> None:
+        for name, c in by_type.items():
+            self.node_types[name] = self.node_types.get(name, 0) + c
 
     def _check(self, pred):
         if pred.dtype != torch.bool or pred.numel() != 1:
@@ -261,6 +289,7 @@ class DeviceGraph:
             scope[0], scope[1], pred.data_ptr(), int(loop), ctypes.byref(node),
             ctypes.byref(child), ctypes.byref(handle)))
         scope[1] = node.value
+        self._tally({"conditional": 1, "condition_setter": 1})
         self._scopes.append([child.value, None])
         self._begin()
         return handle
@@ -285,6 +314,7 @@ class DeviceGraph:
         node = ctypes.c_void_p()
         _call(lib, "loop condition", lib.cg_add_set(
             scope[0], scope[1], handle, again.data_ptr(), ctypes.byref(node)))
+        self._tally({"condition_setter": 1})
         self._scopes.pop()
         self._begin()
 

@@ -126,6 +126,10 @@ def _in_group(fn, rank, devices, backend, init_method, timeout, args):
     try:
         return fn(rank, device, *args)
     finally:
+        # Graphs that captured the group's collectives go before the group.
+        from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+
+        lm.clear_graphs(sharded_only=True)
         dist.destroy_process_group()
 
 
@@ -157,9 +161,11 @@ def run_ranks(fn, devices, args=(), timeout: float = DEFAULT_TIMEOUT,
     ``args`` are pickled, ``fn`` by its module path, so it must live in a
     module that the ranks can import). The group meets in a file under a
     temporary directory; its backend is ``backend_for(devices)``.
-    Every collective fails after ``timeout`` seconds, so a rank that hangs
-    fails the group however long the run. ``deadline``, where given, bounds
-    the whole run of spawned ranks in seconds; by default the run has none.
+    Every eager collective fails after ``timeout`` seconds, so a rank that
+    hangs there fails the group however long the run; a collective that a
+    CUDA graph replays (the jit drive) has no such timeout. ``deadline``,
+    where given, bounds the whole run of spawned ranks in seconds; by
+    default the run has none.
     On a failed rank, a failed collective or the deadline the other ranks
     are killed and this raises (RuntimeError with the rank's traceback,
     TimeoutError)."""

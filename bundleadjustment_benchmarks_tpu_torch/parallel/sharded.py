@@ -25,6 +25,10 @@ Jacobians) is what shards here:
     bytes, so they take the same decisions and hold the same cameras.
 
 On the df32 drive each rank launches both chain kernels on its own slice.
+On the jit drive (``LMConfig(drive="jit")``, ``lm.DeviceLoop``) the
+collectives are captured into the rank's CUDA graph with the rest of the
+loop; that needs NCCL (``check_graph_backend``), and on the CPU the loop
+runs eagerly over gloo.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch.distributed as dist
 
 from bundleadjustment_benchmarks_tpu_torch import resolve_device
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, cuda_graph
 from bundleadjustment_benchmarks_tpu_torch.parallel import multihost
 from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 
@@ -132,10 +136,25 @@ def shard_problem(problem: pm.BAProblem, n_shards: int, rank: int,
         pt_starts=tuple(int(x) for x in pt_b[:-1]), n_points_global=m)
 
 
+def check_graph_backend(backend: str, device) -> None:
+    """Raise ValueError unless a process group of ``backend`` can have its
+    collectives on ``device`` captured into a CUDA graph (the jit drive):
+    on CUDA only NCCL can. gloo stages CUDA tensors through the host, which
+    a capture cannot hold; ranks that share one card get gloo
+    (``multihost.backend_for``), since NCCL refuses two ranks on one GPU."""
+    if torch.device(device).type == "cuda" and backend != "nccl":
+        raise ValueError(
+            f"drive='jit' on {device} needs an NCCL process group, whose "
+            f"collectives a CUDA graph can capture; this group is {backend} "
+            "(ranks that share a GPU get gloo). Give each rank its own GPU, "
+            "or run drive='host'")
+
+
 class AllReduce(schur.Reduce):
     """``schur.Reduce`` over the process group whose rank r holds shard r.
     Counts its collectives and the bytes they reduce (``calls``,
-    ``bytes``)."""
+    ``bytes``): Python calls, so a collective captured into a CUDA graph
+    counts once however often the graph replays it."""
 
     sharded = True
 
@@ -147,9 +166,17 @@ class AllReduce(schur.Reduce):
         if (rank, size) != (sp.rank, sp.n_shards):
             raise ValueError(f"the problem is shard {sp.rank} of {sp.n_shards}, "
                              f"this process is rank {rank} of {size}")
-        self.rank = sp.rank
+        self.rank, self.size = sp.rank, sp.n_shards
+        self.backend = dist.get_backend()
+        self.group = dist.group.WORLD
         self.pt_range, self.n_points = sp.pt_range, sp.n_points_global
         self.calls = self.bytes = 0
+
+    def capture_key(self):
+        return (self.backend, self.rank, self.size, id(self.group))
+
+    def check_capture(self, device) -> None:
+        check_graph_backend(self.backend, device)
 
     def _all_reduce(self, t, op) -> None:
         dist.all_reduce(t, op=op)
@@ -209,14 +236,19 @@ def minimize_sharded(sp: ShardedProblem, mode: str = "cholesky",
     checkpoints; a checkpoint holds the full state, so it resumes at any
     shard count or on one device (shard the problem with the checkpoint's
     state and pass its meta as ``resume``). ``config.refine_steps`` raises:
-    the JAX package's sharded solve has no refinement either. So does
-    ``config.drive == "jit"``: the device-resident drive would have to
-    capture the per-trial all-reduces into its CUDA graph, which it does
-    not yet."""
-    if config is not None and config.drive == "jit":
-        raise ValueError(
-            "minimize_sharded: drive='jit' has no sharded form yet (NCCL "
-            "collectives captured into the CUDA graph); use drive='host'")
+    the JAX package's sharded solve has no refinement either.
+
+    ``config.drive == "jit"`` routes as the JAX package does (its
+    sharded.py:902-929): with ``checkpoint_path``, ``metrics_path`` or
+    ``resume`` the host drive, otherwise ``lm.DeviceLoop`` on this rank's
+    shard, its collectives captured into the CUDA graph (an NCCL group; a
+    gloo group on CUDA raises, see ``check_graph_backend``) and no
+    iteration table, as JAX's ``lm_loop`` writes none; on the CPU the loop
+    runs eagerly. A collective in a replay is not watched by torch's NCCL
+    timeout: a rank that hangs holds the others at their next chunk read,
+    and the caller's deadline bounds the run (``multihost.run_ranks``'
+    ``deadline``). The captured graph is cached for the group; the group's
+    teardown in ``multihost.run_ranks`` frees it."""
     reduce = AllReduce(sp)
     res = lm.minimize(sp.problem, mode, config, device=sp.device, resume=resume,
                       checkpoint_path=checkpoint_path,
@@ -236,6 +268,34 @@ DRYRUN_CONFIGS = (
 )
 
 
+def _captured_step(prepare, trial, x0, device, kernels: bool) -> list:
+    """[energy, trial energy, rho denominator] of one prepare and one trial
+    at lambda0, captured into a CUDA graph (after one eager step on the
+    capture stream) and replayed once."""
+    graph = cuda_graph.DeviceGraph(device)
+    f64 = torch.float64
+    with torch.cuda.stream(graph.stream):
+        if kernels:
+            cuda_chain.prepare_capture(device)
+        ctx, _, lam0 = prepare(x0)
+        trial(ctx, x0, lam0.to(f64))
+        del ctx
+    out = torch.empty(3, dtype=f64, device=device)
+
+    def step():
+        ctx, energy, lam0 = prepare(x0)
+        _, e_test, rho_scale = trial(ctx, x0, lam0.to(f64))
+        out.copy_(torch.stack([energy.to(f64), e_test.to(f64),
+                               rho_scale.to(f64)]))
+
+    try:
+        graph.capture(step)
+        graph.replay()
+        return out.tolist()
+    finally:
+        graph.close()
+
+
 def _dryrun_rank(rank: int, device, n_shards: int) -> dict:
     from bundleadjustment_benchmarks_tpu_torch.utils.synthetic import (
         make_synthetic_problem)
@@ -243,32 +303,46 @@ def _dryrun_rank(rank: int, device, n_shards: int) -> dict:
     problem = make_synthetic_problem(n_cameras=4, n_points=4 * n_shards,
                                      obs_per_point=3, seed=0, device="cpu")
     sp = shard_problem(problem, n_shards, rank, device=device)
+    capture = device.type == "cuda" and dist.get_backend() == "nccl"
     before = dict(cuda_chain.LAUNCHES)
     out = {}
     for name, mode, kw in DRYRUN_CONFIGS:
-        prepare, trial = make_sharded_kernels(sp, mode, lm.LMConfig(**kw))
+        cfg = lm.LMConfig(**kw)
+        prepare, trial = make_sharded_kernels(sp, mode, cfg)
         x0 = pm.to_fast(sp.problem.state) if kw else sp.problem.state
-        ctx, energy, lam0 = prepare(x0)
-        _, e_test, rho_scale = trial(ctx, x0, float(lam0))
-        out[name] = [float(energy), float(e_test), float(rho_scale)]
+        if capture:
+            out[name] = _captured_step(prepare, trial, x0, device,
+                                       cfg.use_kernels(device))
+        else:
+            ctx, energy, lam0 = prepare(x0)
+            _, e_test, rho_scale = trial(ctx, x0, float(lam0))
+            out[name] = [float(energy), float(e_test), float(rho_scale)]
         if not all(map(math.isfinite, out[name])):
             raise FloatingPointError(f"dry run {name}: energy, trial energy, "
                                      f"rho denominator {out[name]}")
+    if capture:
+        cuda_chain.collect_graph_launches()
     out["launches"] = {k: v - before[k] for k, v in cuda_chain.LAUNCHES.items()}
+    out["captured"] = capture
     return out
 
 
 def dryrun_multichip(n_devices: int, devices=None,
                      timeout: float = 300.0) -> dict:
     """One prepare and one trial of the sharded path on ``n_devices`` ranks
-    (the JAX package's ``__graft_entry__.dryrun_multichip``), on a tiny
-    synthetic problem, per configuration of DRYRUN_CONFIGS: float64
-    cholesky, df32 cholesky (the chain kernels on CUDA), qrkit and spqr.
+    (the JAX package's ``__graft_entry__.dryrun_multichip``, which jits that
+    step), on a tiny synthetic problem, per configuration of
+    DRYRUN_CONFIGS: float64 cholesky, df32 cholesky (the chain kernels on
+    CUDA), qrkit and spqr. Over NCCL each rank captures the step, its
+    collectives included, into a CUDA graph and replays it once
+    (``captured``); over gloo (the CPU, or ranks sharing a card) it runs
+    eagerly.
 
     ``devices``: one per rank; default ``cuda:0`` ... ``cuda:{n-1}`` (NCCL).
     Raises unless every energy is finite and every rank computed the same.
     Returns rank 0's {configuration: [energy, trial energy, rho
-    denominator]}, its chain-kernel launches, and the backend."""
+    denominator]}, its chain-kernel launches (a replay's counted on the
+    device), whether it captured, and the backend."""
     if devices is None:
         if torch.cuda.device_count() < n_devices:
             raise RuntimeError(f"dryrun_multichip({n_devices}) needs {n_devices} "

@@ -22,10 +22,9 @@ run that control flow (``LMConfig.drive``):
 
   * "host" (``lm_loop``, the default): plain Python over device-resident
     tensors. The host reads the trial energy and rho's denominator once per
-    trial (with the outer energy on the first trial) for the accept test, a
-    float32 Cholesky camera solve reads its breakdown flag once, and qrkit's
-    prepare on a problem without pair tables reads the error flag of its
-    one ``torch.linalg.eigh``. LM scalars are Python floats (float64).
+    trial (with the outer energy on the first trial) for the accept test,
+    and a float32 Cholesky camera solve reads its breakdown flag once. LM
+    scalars are Python floats (float64).
   * "jit" (``DeviceLoop``, the JAX package's default and bench.py's drive,
     JAX lm.py:286-786): the LM scalars are float64 device tensors and every
     decision is taken on the device; on CUDA one chunk of ``chunk_size``
@@ -46,7 +45,9 @@ drive: the df32 descent, then a float64 polish from its endpoint.
 The sharded path (``parallel/sharded.py``) runs this same loop on each
 rank's slice of the points, with a ``schur.Reduce`` that all-reduces the
 partial sums: every rank reads the same trial scalars and so takes the same
-decisions.
+decisions. On the jit drive the all-reduces are captured into the graph
+(NCCL on CUDA) and every predicate derives from all-reduced values, so the
+ranks take the same branches without a host read.
 """
 
 from __future__ import annotations
@@ -581,12 +582,26 @@ class DeviceLoop:
     ``chunk_size * (_GROWTH + 1)`` trials, more than its iterations can take
     where lambda grows (the growth table reaches inf by its last entry for
     any base above 1); ``run`` raises if that cap ended a chunk, where the
-    host drive would loop forever."""
+    host drive would loop forever.
 
-    def __init__(self, x0, prepare, trial, config: LMConfig, device):
+    On a shard (``reduce``, a sharded ``schur.Reduce``) ``prepare`` and
+    ``trial`` hold collectives, which the capture records into the graph:
+    the IF body of an iteration's start and the loop body of its trials.
+    ``collectives`` keeps the calls and bytes of the last prepare and the
+    last trial that Python ran (the capture's on CUDA, where a replay runs
+    no Python), which times ``prepares`` and ``slots`` give a run's
+    collectives. Torch's NCCL watchdog does not see work in a replay, so
+    no collective timeout bounds it: a rank that hangs there holds the
+    others at the chunk's read, and only the caller's deadline (a
+    ``multihost.run_ranks`` ``deadline``, a job's limit) ends the run."""
+
+    def __init__(self, x0, prepare, trial, config: LMConfig, device,
+                 reduce: schur.Reduce = schur.LOCAL):
         self.config = config
         self.device = torch.device(device)
         self.prepare, self.trial = prepare, trial
+        self.reduce = reduce
+        self.collectives: dict = {}
         size = config.energy_history_size
         hist = tuple(f"hist{i}" for i in range(size))
         names = _DYN + hist + _HOST
@@ -604,7 +619,7 @@ class DeviceLoop:
         self.x = _from_leaves(x0, [t.clone() for t in _leaves(x0)])
         self.ctx = None
         self.graph = None
-        self.reads = self.replays = self.slots = 0
+        self.reads = self.replays = self.slots = self.prepares = 0
 
     def _v(self, name):
         return self.sv[self.pos[name]]
@@ -637,9 +652,21 @@ class DeviceLoop:
         cuda_graph.device_if(self._v("between") > 0, self._begin)
         self._step()
 
+    def _tallied(self, which: str, fn, *args):
+        """``fn(*args)``, noting the collectives it issued as ``which``."""
+        r = self.reduce
+        if not r.sharded:
+            return fn(*args)
+        calls, nbytes = r.calls, r.bytes
+        out = fn(*args)
+        self.collectives[which] = {"calls": r.calls - calls,
+                                   "bytes": r.bytes - nbytes}
+        return out
+
     def _begin(self):
         v = self._v
-        self.ctx, energy, lam0_rule = self.prepare(self.x)
+        self.ctx, energy, lam0_rule = self._tallied("prepare", self.prepare,
+                                                    self.x)
         it = v("it") + 1
         lam0 = torch.where(it == 1, lam0_rule.to(torch.float64), v("lam"))
         zero = self.sv.new_zeros(())
@@ -649,7 +676,8 @@ class DeviceLoop:
     def _step(self):
         v, cfg, f64 = self._v, self.config, torch.float64
         lam, f, it, trials = v("lam"), v("f"), v("it"), v("trials")
-        x_t, e_t, rho_scale = self.trial(self.ctx, self.x, lam)
+        x_t, e_t, rho_scale = self._tallied("trial", self.trial, self.ctx,
+                                            self.x, lam)
         e_t, rho_scale = e_t.to(f64), rho_scale.to(f64)
         lam_inc = torch.index_select(
             self.table_dev, 0,
@@ -708,8 +736,9 @@ class DeviceLoop:
         """Capture ``chunk`` into a CUDA graph after one eager prepare and
         trial on the capture stream (cuBLAS/cuSOLVER handles and
         workspaces, the chain kernels' workspace and launch counters, the
-        per-device index tables). Returns the capture's seconds, warm-up
-        excluded. A failed capture raises."""
+        per-device index tables; on a shard the NCCL communicator and its
+        stream, which must not start inside a capture). Returns the
+        capture's seconds, warm-up excluded. A failed capture raises."""
         graph = cuda_graph.DeviceGraph(self.device)
         with torch.cuda.stream(graph.stream):
             if kernels:
@@ -808,6 +837,7 @@ class DeviceLoop:
         max_iter = min(cfg.max_iter, 2**31 - 1)
         max_fe = min(cfg.max_fun_ev, 2**31 - 1)
         running = float(LMStatus.Running)
+        fun_evals = int(resume.get("fun_evals", 0)) if resume else 0
         while True:
             t0 = time.perf_counter()
             if sync_debug:
@@ -818,9 +848,11 @@ class DeviceLoop:
             vals = self._read(observe)
             wall = time.perf_counter() - t0
             start = int(vals[pos["chunk_start"]])
+            before, slots = fun_evals, int(vals[pos["slots"]])
             it, fun_evals = int(vals[pos["it"]]), int(vals[pos["fun_evals"]])
             status, between = vals[pos["status"]], vals[pos["between"]] > 0
-            self.slots += int(vals[pos["slots"]])
+            self.slots += slots
+            self.prepares += fun_evals - before - slots
             stopped = status != running or it + 1 > max_iter or fun_evals > max_fe
             if not (between and (stopped or it >= start + chunk)):
                 raise RuntimeError(
@@ -867,46 +899,50 @@ class DeviceLoop:
 
 
 #: Captured drives by (device, the caller's problem object, mode, config
-#: without its limits), so that warm-up, timed and polish runs reuse one
-#: capture. Each entry keeps its problem alive, so its id is not reused.
+#: without its limits, the reduce's capture key), so that warm-up, timed
+#: and polish runs reuse one capture. Each entry keeps its problem alive,
+#: so its id is not reused.
 _GRAPHS: dict = {}
 #: What the last jit-drive run did: capture_s (0 where the capture was
 #: cached or on the CPU), captured (this run captured), replays (chunks run:
 #: graph replays on CUDA), reads (host reads of the LM state), slots (trials
-#: run, counted on the device), and the size of the graph cache.
+#: run, counted on the device), prepares (iterations started), the size of
+#: the graph cache, and on a shard the collectives: allreduce_per_prepare
+#: and allreduce_per_trial ({"calls", "bytes"} of one, from the capture on
+#: CUDA) and their totals over the run, allreduce_calls and allreduce_bytes.
 LAST_JIT_RUN: dict = {}
 
 
-def clear_graphs() -> None:
-    """Free every cached jit-drive graph and its memory pool."""
-    for _, loop in _GRAPHS.values():
-        loop.close()
-    _GRAPHS.clear()
+def clear_graphs(sharded_only: bool = False) -> None:
+    """Free the cached jit-drive graphs and their memory pools: all, or
+    those that hold collectives. Free the latter before their process group
+    is destroyed (``multihost.run_ranks`` does)."""
+    for key in list(_GRAPHS):
+        if key[-1] is not None or not sharded_only:
+            _GRAPHS.pop(key)[1].close()
 
 
-def _graph_key(problem, mode, config, x0, dev):
+def _graph_key(problem, mode, config, x0, dev, reduce=schur.LOCAL):
     cfg = dataclasses.replace(config, max_iter=0, max_fun_ev=0, tol_fun=0.0,
                               verbose=False, polish_iters=0, debug_nans=False)
     return (str(dev), id(problem), mode, cfg,
-            tuple((t.dtype, tuple(t.shape)) for t in _leaves(x0)))
+            tuple((t.dtype, tuple(t.shape)) for t in _leaves(x0)),
+            reduce.capture_key())
 
 
-def _device_loop(problem, mode, config, x0, dev, prepare, trial):
+def _device_loop(problem, mode, config, x0, dev, prepare, trial,
+                 reduce: schur.Reduce = schur.LOCAL):
     """(DeviceLoop, capture seconds or 0.0 where cached). ``problem`` is the
     caller's object (the cache key), ``prepare`` and ``trial`` are its step
-    functions on ``dev``."""
+    functions on ``dev`` with ``reduce``."""
     if dev.type != "cuda":
-        return DeviceLoop(x0, prepare, trial, config, dev), 0.0
-    if (schur.MODE_STRATEGY[mode][1] == "qr_cached" and problem.pairs is None):
-        raise ValueError(
-            "drive='jit' does not run qrkit on a problem without pair tables: "
-            "its prepare's torch.linalg.eigh reads its error flag on the host, "
-            "which a CUDA graph cannot capture; use drive='host'")
-    key = _graph_key(problem, mode, config, x0, dev)
+        return DeviceLoop(x0, prepare, trial, config, dev, reduce), 0.0
+    reduce.check_capture(dev)
+    key = _graph_key(problem, mode, config, x0, dev, reduce)
     hit = _GRAPHS.get(key)
     if hit is not None:
         return hit[1], 0.0
-    loop = DeviceLoop(x0, prepare, trial, config, dev)
+    loop = DeviceLoop(x0, prepare, trial, config, dev, reduce)
     capture_s = loop.capture(config.use_kernels(dev))
     _GRAPHS[key] = (problem, loop)
     return loop, capture_s
@@ -950,20 +986,20 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
 
     ``config.drive == "jit"`` runs the device-resident drive
     (``DeviceLoop``): on CUDA its graph is captured at the first call for
-    (problem, mode, config without limits) and replayed by later ones
-    (``clear_graphs`` frees them); checkpoints fall at the first chunk end
-    at or past each multiple of ``checkpoint_every`` (25 where 0 is given
-    with a path), as in JAX's chunked drive. It has no sharded form:
-    with a sharded ``reduce`` it raises."""
+    (problem, mode, config without limits, the reduce's group) and replayed
+    by later ones (``clear_graphs`` frees them); checkpoints fall at the
+    first chunk end at or past each multiple of ``checkpoint_every`` (25
+    where 0 is given with a path), as in JAX's chunked drive. On a shard it
+    routes as the JAX package's ``minimize_sharded``: a run with
+    ``checkpoint_path``, ``metrics_path`` or ``resume`` takes the host
+    drive, any other the device loop with its collectives captured (NCCL on
+    CUDA; a gloo group on CUDA raises) and, like JAX's ``lm_loop``, no
+    iteration table. A collective in a replay has no timeout of its own
+    (see ``DeviceLoop``)."""
     schur.check_mode(mode)
     config = config or LMConfig()
     if config.drive not in ("host", "jit"):
         raise ValueError(f"drive must be 'host' or 'jit', got {config.drive!r}")
-    if config.drive == "jit" and reduce.sharded:
-        raise ValueError(
-            "drive='jit' has no sharded form yet (its per-trial all-reduces "
-            "would have to be captured into the CUDA graph); run the sharded "
-            "path with drive='host'")
     if config.polish_iters and (config.geometry or config.matmul_dtype):
         fast_cfg = dataclasses.replace(
             config, polish_iters=0,
@@ -999,26 +1035,39 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
 
     x0 = to_loop(state)
     capture_s = loop = None
-    if config.drive == "jit":
+    verbose = config.verbose
+    observed = bool(checkpoint_path or metrics_path or resume)
+    if config.drive == "jit" and not (reduce.sharded and observed):
         checkpoint_every = checkpoint_every or (25 if checkpoint_path else 0)
         loop, capture_s = _device_loop(given, mode, config, x0, dev,
-                                       prepare, trial)
-    with RunLog(config.verbose, metrics_path, metrics_phase, checkpoint_path,
+                                       prepare, trial, reduce)
+        # The sharded device loop, like JAX's lm_loop, prints no table.
+        verbose = verbose and not reduce.sharded
+    with RunLog(verbose, metrics_path, metrics_phase, checkpoint_path,
                 checkpoint_every, to_checkpoint,
                 write=reduce.rank == 0, trace=trace,
-                capture_s=capture_s) as run_log:
+                capture_s=None if reduce.sharded else capture_s) as run_log:
         if loop is None:
             x, status, it, fun_evals, energy, lam = lm_loop(
                 x0, prepare, trial, config, resume=resume, run_log=run_log)
         else:
-            loop.reads = loop.replays = loop.slots = 0
+            loop.reads = loop.replays = loop.slots = loop.prepares = 0
             x, status, it, fun_evals, energy, lam = loop.run(
                 x0, resume, run_log, checkpoint_every, config=config)
             if loop.graph is not None and config.use_kernels(dev):
                 cuda_chain.collect_graph_launches()
+            LAST_JIT_RUN.clear()
             LAST_JIT_RUN.update(
                 capture_s=capture_s, captured=capture_s > 0,
                 replays=loop.replays, reads=loop.reads, slots=loop.slots,
-                graphs_cached=len(_GRAPHS))
+                prepares=loop.prepares, graphs_cached=len(_GRAPHS))
+            if reduce.sharded:
+                per = {k: loop.collectives.get(k, {"calls": 0, "bytes": 0})
+                       for k in ("prepare", "trial")}
+                LAST_JIT_RUN.update(
+                    allreduce_per_prepare=per["prepare"],
+                    allreduce_per_trial=per["trial"],
+                    **{f"allreduce_{k}": per["prepare"][k] * loop.prepares
+                       + per["trial"][k] * loop.slots for k in ("calls", "bytes")})
     return LMResult(state=to_state(x), status=status, iterations=it,
                     fun_evals=fun_evals, energy=energy, lam=lam)

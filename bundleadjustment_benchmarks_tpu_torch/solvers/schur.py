@@ -61,7 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph, linalg
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_eigh, cuda_graph, linalg
 from bundleadjustment_benchmarks_tpu_torch.ops.jacobian import JacobianBlocks
 
 MODES = ("cholesky", "qrchol", "qrkit", "moreqr", "spqr")
@@ -103,6 +103,15 @@ class Reduce:
     #: _camera_solve_qr_cached).
     sharded = False
     rank = 0
+
+    def capture_key(self):
+        """What tells this reduce's collectives apart in the jit drive's
+        graph cache (None: it has none)."""
+        return None
+
+    def check_capture(self, device) -> None:
+        """Raise where the jit drive cannot capture this reduce's
+        collectives on ``device`` into a CUDA graph."""
 
     def sum(self, *ts):
         """The totals of partial sums, as a tuple (in place where it can)."""
@@ -439,13 +448,18 @@ def _gram_sqrt_factor(S):
     """Rows C with C^T C ~= S for symmetric S, PSD up to rounding, by a
     Jacobi-scaled eigendecomposition with the eigenvalues clamped at 0 (the
     Schur subtraction leaves eps-level indefiniteness that a Cholesky would
-    turn into NaN). Any such row set serves the row-QR that follows."""
+    turn into NaN). Any such row set serves the row-QR that follows. The
+    eigendecomposition is ``cuda_eigh.eigh`` (cuSOLVER's Xsyevd on CUDA,
+    with no host read, so the jit drive captures it; ``torch.linalg.eigh``
+    on the CPU); where it reports failure C is NaN, which the LM loop's
+    non-finite guard stops on."""
     d = torch.diagonal(S)
     dinv = torch.where(d > 0, torch.rsqrt(d.abs() + torch.finfo(S.dtype).tiny),
                        torch.ones_like(d))
     Ss = S * dinv[:, None] * dinv[None, :]
-    w, V = torch.linalg.eigh((Ss + Ss.T) / 2)
+    w, V, info = cuda_eigh.eigh((Ss + Ss.T) / 2)
     C = torch.sqrt(torch.clamp(w, min=0.0))[:, None] * V.T
+    C = torch.where(info == 0, C, torch.full_like(C, math.nan))
     return C / dinv[None, :]
 
 

@@ -21,7 +21,8 @@ mode at 2 ranks on p257 df32 and on p16 float64 (``sharded_gloo_p257``,
 ``sharded_f64_p16``), 2 ranks on the Ladybug stand-in
 (``sharded_ladybug_df32``), a checkpoint written at 2 ranks resumed on one
 device, the command line's ``--shards`` (``cli_shards``) and the dry run at
-1 and 2 ranks (``dryrun_multichip``), then every mode on p16 float64 to the
+1 and 2 ranks (``dryrun_multichip``; the NCCL rank replays its captured
+step), then every mode on p16 float64 to the
 reference's flatline stop, each held to the JAX campaign's f64 budget
 against the scipy oracle (``flatline_p16_f64``), the ellipse-fitting example
 on the card (``ellipse``) and the blocked Cholesky pair against cuSOLVER's
@@ -30,9 +31,18 @@ device-resident LM drive (``drive="jit"``): both kernels replayed from a
 captured graph (``jit_kernels_replayed``), p257 df32 cholesky on both
 drives alternated (``jit_p257_df32``), the chunk loop with no
 synchronization between its reads (``jit_no_sync``), every mode
-(``jit_modes``) and the Ladybug stand-in (``jit_ladybug_df32``), and fails
-on any disagreement. ``--jit-only`` runs the build and the jit phases
-alone.
+(``jit_modes``) and the Ladybug stand-in (``jit_ladybug_df32``), then the
+block Jacobi eigensolver that pair-less qrkit's prepare runs, against
+``torch.linalg.eigh`` and replayed from a graph (``eigh_capture``), qrkit
+without pair tables on both drives (``jit_qrkit_rows_p257``), and the
+sharded jit drive: NCCL at world size 1 against the sharded host drive and
+the single-device jit drive (``jit_sharded_nccl_p257``,
+``jit_sharded_no_sync``, ``jit_sharded_modes``), two NCCL ranks where the
+machine has two GPUs (``jit_sharded_nccl_d2``; on one GPU a line says it
+did not run), and the refusal of two gloo ranks on the card
+(``jit_sharded_gloo_refused``, in the sharded gloo group), and fails on any
+disagreement. ``--jit-only`` runs the build and the jit, eigensolver and
+sharded jit phases alone.
 Each phase prints JSON lines with its wall time; then come one line of
 per-kernel numbers (the kernel's and its entry point's device
 time, the host time to issue one call, the device operations one call
@@ -674,7 +684,8 @@ def digest(t: torch.Tensor) -> str:
 
 def sharded_rank(rank, device, problems, runs, checkpoint_path=None) -> list:
     """One rank of a sharded group on the card: each run of ``runs`` (name,
-    problem, mode, iters, config; optionally warmup, bytes, checkpoint)
+    problem, mode, iters, config; optionally warmup, bytes, checkpoint,
+    refused: the run must raise ValueError, whose message is its line)
     through ``sharded.minimize_sharded``, timed after an optional
     one-iteration warm-up, with this rank's chain-kernel launches and peak
     device memory and a digest of its final cameras and points (all ranks
@@ -697,6 +708,14 @@ def sharded_rank(rank, device, problems, runs, checkpoint_path=None) -> list:
         sp = shards[run["problem"]]
         shard_s = time.perf_counter() - t0
         cfg = lm.LMConfig(max_iter=run["iters"], **run.get("config", {}))
+        if run.get("refused"):  # a run that must raise ValueError
+            try:
+                sharded.minimize_sharded(sp, run["mode"], cfg)
+                message = None
+            except ValueError as e:
+                message = str(e)
+            out.append({"run": run["name"], "rank": rank, "refused": message})
+            continue
         if run.get("warmup"):
             sharded.minimize_sharded(sp, run["mode"], dataclasses.replace(cfg, max_iter=1))
         observe = (dict(checkpoint_path=checkpoint_path, checkpoint_every=2)
@@ -864,6 +883,8 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
            for mode in MODES]
     ck_run = dict(name="checkpoint", problem="p257", mode="cholesky", iters=4,
                   config=DF32, checkpoint=True)
+    refused = dict(name="jit_refused", problem="p16", mode="cholesky", iters=2,
+                   config={"drive": "jit"}, refused=True)
     lady_run = dict(name="ladybug", problem="ladybug", mode="cholesky", iters=2,
                     config=DF32, bytes=True)
     single = single_runs(lm, {**problems, "ladybug": lady},
@@ -873,10 +894,20 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
     groups = {}
     with tempfile.TemporaryDirectory() as tmp_name:
         ck = str(Path(tmp_name) / "d2.ckpt.npz")
-        for d, runs in ((2, [five] + modes + f64 + [ck_run, lady_run]), (4, [five])):
+        for d, runs in ((2, [refused, five] + modes + f64 + [ck_run, lady_run]),
+                        (4, [five])):
             t0 = time.perf_counter()
             lines = multihost.run_ranks(sharded_rank, ["cuda:0"] * d,
                                         args=(local, runs, ck), timeout=600)
+            refusals = [ln["refused"] for rank_lines in lines for ln in rank_lines
+                        if "refused" in ln]
+            if refusals:
+                emit({"phase": "jit_sharded_gloo_refused", "ranks": d,
+                      "messages": refusals, "nvidia_smi": smi})
+                check(len(refusals) == d and all(m and "NCCL" in m for m in refusals),
+                      f"jit_sharded_gloo_refused: {refusals}")
+            lines = [[ln for ln in rank_lines if "refused" not in ln]
+                     for rank_lines in lines]
             groups[d] = summarize(lines, single, e0)
             groups[d]["group_s"] = time.perf_counter() - t0
         state, meta = checkpoint.load_checkpoint(ck, device="cuda")
@@ -966,6 +997,8 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
     emit({"phase": "dryrun_multichip", **runs, "phase_s": time.perf_counter() - t_phase})
     check(runs["n1"]["backend"] == "nccl" and runs["n2"]["backend"] == "gloo",
           "dryrun_multichip: backends")
+    check(runs["n1"]["captured"] and not runs["n2"]["captured"],
+          "dryrun_multichip: NCCL did not replay a captured step, or gloo did")
     for name, run in runs.items():
         check(all(c > 0 for c in run["launches"].values()),
               f"dryrun_multichip {name}: the df32 configuration launched no kernel")
@@ -981,14 +1014,15 @@ JIT_RTOL = 1e-9
 JIT_TRIAL_RTOL = 2e-3
 
 
-def timed_minimize(lm, cuda_chain, prob, mode, cfg) -> dict:
-    """One lm.minimize, synchronized: result, wall, peak allocated bytes,
-    reserved bytes after, chain launches and (jit) the drive's counters."""
+def timed_minimize(lm, cuda_chain, prob, mode, cfg, minimize=None) -> dict:
+    """One lm.minimize (or ``minimize(prob, mode, cfg)``), synchronized:
+    result, wall, peak allocated bytes, reserved bytes after, chain launches
+    and (jit) the drive's counters."""
     torch.cuda.synchronize()
     cuda_chain.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = lm.minimize(prob, mode, cfg)
+    res = (minimize or lm.minimize)(prob, mode, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return {"res": res, "wall_s": wall, "it_per_s": res.iterations / wall,
@@ -1273,6 +1307,324 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
 
 
 
+# -- the capturable eigensolver and pair-less qrkit on the jit drive ------------
+
+#: eigh_capture: the block Jacobi eigensolver (``cuda_eigh.jacobi_eigh``)
+#: against ``torch.linalg.eigh`` on the grams that pair-less qrkit's prepare
+#: factors: eigenvalues within EIGH_RTOL of max|w| and ||C^T C - S|| / ||S||
+#: within EIGH_RTOL (C = sqrt(max(w, 0)) V^T, the gram square root), in
+#: float64; the float32 gram of the df32 drive to EIGH_RTOL_F32 (the
+#: kernels run in float64, the result is rounded to float32).
+EIGH_RTOL = 1e-12
+EIGH_RTOL_F32 = 1e-5
+
+
+@contextlib.contextmanager
+def recorded_grams(cuda_eigh, grams: list):
+    """Append every matrix ``cuda_eigh.eigh`` is given to ``grams``."""
+    eigh = cuda_eigh.eigh
+
+    def recording(S):
+        grams.append(S.clone())
+        return eigh(S)
+
+    cuda_eigh.eigh = recording
+    try:
+        yield
+    finally:
+        cuda_eigh.eigh = eigh
+
+
+def eigh_gaps(S, w, V) -> dict:
+    """Eigenvalue gap to ``torch.linalg.eigh`` relative to max|w|, and
+    ||C^T C - S|| / ||S|| of the gram square root, in float64."""
+    S64, w64, V64 = S.double(), w.double(), V.double()
+    ref = torch.linalg.eigh(S64)[0]
+    C = torch.sqrt(torch.clamp(w64, min=0.0))[:, None] * V64.T
+    return {"eigenvalue_gap": ((w64 - ref).abs().max() / ref.abs().max()).item(),
+            "gram_gap": ((C.T @ C - S64).norm() / S64.norm()).item()}
+
+
+def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
+                smi) -> None:
+    """``eigh_capture``: the block Jacobi eigensolver on the grams that
+    qrkit's prepare factors without pair tables (p16: n = 145, p257: n =
+    2,314, float64; p257's float32 gram of the df32 drive), against
+    ``torch.linalg.eigh``, both timed by CUDA events (median of 20, cold
+    L2), and replayed from a graph inside a conditional body (equal to the
+    eager call bit for bit). ``jit_qrkit_rows_p257``: qrkit on p257 without
+    its pair tables on the jit drive takes the host drive's path, df32 and
+    float64."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cases = []
+    for name, df32 in (("p16", False), ("p257", False), ("p257", True)):
+        prob = no_pairs(problems[name])
+        grams = []
+        with recorded_grams(cuda_eigh, grams):
+            if df32:
+                lm._prepare_fast(pm.to_fast(prob.state), prob, "qrkit", "float32",
+                                 kernels=True)
+            else:
+                lm._prepare(prob.state, prob, "qrkit")
+        (S,) = grams
+        w, V, info, sweeps = cuda_eigh.jacobi_eigh(S)
+        graph = cuda_graph.DeviceGraph(dev)
+        with torch.cuda.stream(graph.stream):
+            cuda_eigh.jacobi_eigh(S)
+        pred = torch.ones((), dtype=torch.bool, device=dev)
+        out = {}
+
+        def body():
+            out["w"], out["V"], out["info"], _ = cuda_eigh.jacobi_eigh(S)
+
+        graph.capture(lambda: cuda_graph.device_if(pred, body))
+        graph.replay()
+        torch.cuda.synchronize()
+        case = {"problem": name, "drive": "df32" if df32 else "f64", "n": S.shape[0],
+                "dtype": str(S.dtype), "info": int(info), "sweeps": int(sweeps),
+                "max_sweeps": cuda_eigh.MAX_SWEEPS, **eigh_gaps(S, w, V),
+                "plain": eigh_gaps(S, *torch.linalg.eigh(S)),
+                "replay_equal_eager": torch.equal(out["w"], w) and torch.equal(out["V"], V)
+                and int(out["info"]) == int(info),
+                "capture_s": graph.capture_s, "graph_node_types": graph.node_types}
+        graph.close()
+        reps = 20 if not df32 else 5
+        case["jacobi_ms"] = time_ms(lambda: cuda_eigh.jacobi_eigh(S), reps, int(2e7), flush)
+        case["plain_ms"] = time_ms(lambda: torch.linalg.eigh(S), reps, int(2e7), flush)
+        case["timing"] = f"median of {reps}, CUDA events, cold L2"
+        cases.append(case)
+        emit({"phase": "eigh_capture", **case, "nvidia_smi": smi})
+        tol = EIGH_RTOL_F32 if df32 else EIGH_RTOL
+        where = f"eigh_capture {name} {case['drive']}"
+        check(case["info"] == 0, f"{where}: no convergence in {case['sweeps']} sweeps")
+        check(case["eigenvalue_gap"] <= tol and case["gram_gap"] <= tol,
+              f"{where}: {case['eigenvalue_gap']}, {case['gram_gap']} above {tol}")
+        check(case["replay_equal_eager"], f"{where}: the replay differs from eager")
+    emit({"phase": "eigh_capture_done", "phase_s": time.perf_counter() - t_phase})
+
+    t_phase = time.perf_counter()
+    prob = no_pairs(problems["p257"])
+    for kw in (DF32, {}):
+        cfg = lm.LMConfig(max_iter=2, **kw)
+        lm.minimize(prob, "qrkit", dataclasses.replace(cfg, drive="jit", max_iter=1))
+        capture = dict(lm.LAST_JIT_RUN)
+        host = timed_minimize(lm, cuda_chain, prob, "qrkit", cfg)
+        jit = timed_minimize(lm, cuda_chain, prob, "qrkit",
+                             dataclasses.replace(cfg, drive="jit"))
+        h, j = host["res"], jit["res"]
+        gap = abs(j.energy - h.energy) / abs(h.energy)
+        reads, trials = chunks_and_trials(lm, j, cfg.chunk_size)
+        emit({"phase": "jit_qrkit_rows_p257", "drive": "df32" if kw else "f64",
+              "capture": capture, "host": summary(host), "jit": summary(jit),
+              "energy_rel_gap": gap, "tolerance": NCCL_RTOL, "nvidia_smi": smi})
+        where = f"jit_qrkit_rows_p257 {'df32' if kw else 'f64'}"
+        check((h.iterations, h.fun_evals, h.status) == (j.iterations, j.fun_evals, j.status)
+              and gap <= NCCL_RTOL, f"{where}: host {h}, jit {j}")
+        check((jit["jit"]["reads"], jit["jit"]["slots"]) == (reads, trials),
+              f"{where}: {jit['jit']}")
+        lm.clear_graphs()
+    emit({"phase": "jit_qrkit_rows_p257_done", "phase_s": time.perf_counter() - t_phase})
+
+
+# -- the sharded jit drive ---------------------------------------------------------
+
+
+def sharded_jit_rank(rank, device, problems, smi) -> dict:
+    """The sharded jit drive in a group of one over NCCL (in this process):
+    an eager all-reduce under sync debug "error", a conditional body
+    holding one all-reduce, by node type; p257 df32
+    cholesky, 20 iterations, sharded jit, sharded host and single-device
+    jit alternated three times (``jit_sharded_nccl_p257``); the chunk loop
+    under ``set_sync_debug_mode("error")`` (``jit_sharded_no_sync``); every
+    mode at p257 df32 (5 iterations) and p16 float64 (10) on the three
+    drives. Returns the lines to emit."""
+    import torch.distributed as dist
+
+    from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, cuda_graph
+    from bundleadjustment_benchmarks_tpu_torch.parallel import sharded
+    from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+
+    out = {"backend": dist.get_backend()}
+    t = torch.ones(8, device=device)
+    dist.all_reduce(t)
+    # An eager all-reduce's Work.wait() joins streams and does not block
+    # the host (it would break a capture): sync debug mode "error" raises
+    # on a synchronizing call.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dist.all_reduce(t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graph = cuda_graph.DeviceGraph(device)
+    with torch.cuda.stream(graph.stream):
+        dist.all_reduce(t)
+    torch.cuda.synchronize(device)
+    pred = torch.ones((), dtype=torch.bool, device=device)
+    graph.capture(lambda: cuda_graph.device_if(pred, lambda: dist.all_reduce(t)))
+    graph.replay()
+    torch.cuda.synchronize(device)
+    out["allreduce_body_node_types"] = graph.node_types
+    out["allreduce_body_value"] = t[0].item()
+    graph.close()
+
+    shards = {name: sharded.shard_problem(prob, 1, rank, device=device)
+              for name, prob in problems.items()}
+
+    def run(kind, name, mode, cfg):
+        if kind == "single_jit":
+            return timed_minimize(lm, cuda_chain, problems[name], mode,
+                                  dataclasses.replace(cfg, drive="jit"))
+        drive = "jit" if kind == "sharded_jit" else "host"
+        return timed_minimize(
+            lm, cuda_chain, shards[name], mode, dataclasses.replace(cfg, drive=drive),
+            minimize=lambda sp, m, c: sharded.minimize_sharded(sp, m, c))
+
+    def sharded_graph():
+        loops = [loop for key, (_, loop) in lm._GRAPHS.items() if key[-1] is not None]
+        return loops[0]
+
+    kinds = ("sharded_jit", "sharded_host", "single_jit")
+    cfg = lm.LMConfig(max_iter=20, **DF32)
+    # The sharded capture first, from an emptied cache: what it reserves is
+    # its graph's pool.
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(device)
+    warm = {k: run(k, "p257", "cholesky", dataclasses.replace(cfg, max_iter=2))
+            for k in kinds[:1]}
+    pool = torch.cuda.memory_reserved(device) - reserved0
+    warm.update({k: run(k, "p257", "cholesky", dataclasses.replace(cfg, max_iter=2))
+                 for k in kinds[1:]})
+    loop = sharded_graph()
+    capture = dict(warm["sharded_jit"]["jit"], node_types=loop.graph.node_types,
+                   reserved_by_capture=pool)
+    runs = {k: [] for k in kinds}
+    for _ in range(3):
+        for k in kinds:
+            runs[k].append(run(k, "p257", "cholesky", cfg))
+        kinds = kinds[::-1]
+    out["p257"] = {"capture": capture,
+                   **{k: [summary(r) for r in v] for k, v in runs.items()},
+                   **{f"{k}_it_per_s": [r["it_per_s"] for r in v]
+                      for k, v in runs.items()}}
+    x0 = pm.to_fast(shards["p257"].problem.state)
+    loop.reads = 0
+    _, status, it, fun_evals, energy, _ = loop.run(x0, sync_debug=True, config=cfg)
+    torch.cuda.synchronize(device)
+    out["no_sync"] = {"iterations": it, "fun_evals": fun_evals,
+                      "status": status.name, "energy": energy, "reads": loop.reads}
+    lm.clear_graphs()
+
+    out["modes"] = []
+    for name, iters, kw in (("p257", 5, DF32), ("p16", 10, {})):
+        for mode in MODES:
+            cfg = lm.LMConfig(max_iter=iters, **kw)
+            for k in ("sharded_jit", "single_jit"):
+                run(k, name, mode, dataclasses.replace(cfg, max_iter=1))
+            out["modes"].append({"problem": name, "mode": mode,
+                                 "drive": "df32" if kw else "f64",
+                                 **{k: summary(run(k, name, mode, cfg))
+                                    for k in ("sharded_jit", "sharded_host",
+                                              "single_jit")}})
+            lm.clear_graphs()
+    return out
+
+
+def jit_counts_ok(s: dict, chunk: int) -> bool:
+    """One read and one replay per chunk of the iterations a jit run (its
+    ``summary``) started, and a trial counted on the device for every
+    evaluation that was not a prepare."""
+    started = s["iterations"] - (s["status"] in ("MaxItersReached",
+                                                 "TooManyFunctionEvaluation"))
+    chunks = -(-started // chunk)
+    return (s["reads"], s["replays"], s["slots"]) == (
+        chunks, chunks, s["fun_evals"] - started)
+
+
+def same_path(runs: dict, tol: float) -> bool:
+    """The summaries' iterations, evaluations and status are equal and
+    their energies within ``tol`` of the first's."""
+    first = next(iter(runs.values()))
+    return all((r["iterations"], r["fun_evals"], r["status"])
+               == (first["iterations"], first["fun_evals"], first["status"])
+               and abs(r["energy"] - first["energy"]) <= tol * abs(first["energy"])
+               for r in runs.values())
+
+
+def sharded_jit_phases(lm, multihost, problems, smi) -> dict:
+    """The sharded jit drive on the card: NCCL at world size 1 in this
+    process (``jit_sharded_nccl_p257``, ``jit_sharded_no_sync``,
+    ``jit_sharded_modes``, see ``sharded_jit_rank``) and, where the machine
+    has two GPUs, two NCCL ranks (``jit_sharded_nccl_d2``). Returns per
+    kernel its launches in the sharded jit p257 run."""
+    t_phase = time.perf_counter()
+    chunk = lm.LMConfig().chunk_size
+    (out,) = multihost.run_ranks(sharded_jit_rank, ["cuda:0"], args=(problems, smi))
+    p257 = out["p257"]
+    emit({"phase": "jit_sharded_nccl_p257", "backend": out["backend"],
+          "allreduce_body_node_types": out["allreduce_body_node_types"], **p257,
+          "tolerance": NCCL_RTOL, "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
+    check(out["backend"] == "nccl", f"jit_sharded_nccl_p257: backend {out['backend']}")
+    check(out["allreduce_body_value"] == 1.0,
+          "jit_sharded_nccl_p257: the replayed all-reduce of a group of one changed its input")
+    for i in range(3):
+        trio = {k: p257[k][i] for k in ("sharded_jit", "sharded_host", "single_jit")}
+        check(same_path(trio, NCCL_RTOL),
+              f"jit_sharded_nccl_p257 run {i}: paths differ {trio}")
+        for k in ("sharded_jit", "single_jit"):
+            check(jit_counts_ok(trio[k], chunk), f"jit_sharded_nccl_p257 {k}: {trio[k]}")
+        per = trio["sharded_jit"]
+        check(per["allreduce_per_prepare"]["calls"] > 0
+              and per["allreduce_per_trial"]["calls"] > 0,
+              f"jit_sharded_nccl_p257: collectives {per}")
+        for which, count in per["launches"].items():
+            check(count > 0, f"jit_sharded_nccl_p257: {which} not launched in the graph")
+    no_sync = out["no_sync"]
+    emit({"phase": "jit_sharded_no_sync", **no_sync, "nvidia_smi": smi})
+    jit0 = p257["sharded_jit"][0]
+    check((no_sync["iterations"], no_sync["fun_evals"], no_sync["status"])
+          == (jit0["iterations"], jit0["fun_evals"], jit0["status"])
+          and no_sync["energy"] == jit0["energy"],
+          f"jit_sharded_no_sync: {no_sync} against {jit0}")
+    for line in out["modes"]:
+        emit({"phase": "jit_sharded_modes", **line, "tolerance": NCCL_RTOL,
+              "nvidia_smi": smi})
+        where = f"jit_sharded_modes {line['problem']} {line['mode']}"
+        trio = {k: line[k] for k in ("sharded_jit", "sharded_host", "single_jit")}
+        check(same_path(trio, NCCL_RTOL), f"{where}: paths differ {trio}")
+        check(jit_counts_ok(line["sharded_jit"], chunk), f"{where}: {line['sharded_jit']}")
+    emit({"phase": "jit_sharded_nccl_done", "phase_s": time.perf_counter() - t_phase})
+
+    t_phase = time.perf_counter()
+    gpus = torch.cuda.device_count()
+    if gpus < 2:
+        emit({"phase": "jit_sharded_nccl_d2", "ran": False,
+              "why": f"{gpus} GPU on this machine; NCCL refuses two ranks on one "
+                     "GPU, so two NCCL ranks need two GPUs"})
+    else:
+        local = {"p16": portable(problems["p16"]), "p257": portable(problems["p257"])}
+        runs = [dict(name=f"{drive}_{prob}", problem=prob, mode="cholesky", iters=iters,
+                     config={**kw, "drive": drive}, warmup=True)
+                for prob, iters, kw in (("p16", 10, {}), ("p257", 5, DF32))
+                for drive in ("jit", "host")]
+        lines = multihost.run_ranks(sharded_rank, ["cuda:0", "cuda:1"],
+                                    args=(local, runs), deadline=600)
+        group = summarize(lines, {}, {})
+        emit({"phase": "jit_sharded_nccl_d2", "ran": True, **group, "nvidia_smi": smi,
+              "phase_s": time.perf_counter() - t_phase})
+        for prob in ("p16", "p257"):
+            jit, host = group[f"jit_{prob}"], group[f"host_{prob}"]
+            check(jit["backend"] == "nccl" and jit["ranks_agree"] and host["ranks_agree"],
+                  f"jit_sharded_nccl_d2 {prob}: backend or rank agreement")
+            check(same_path({"jit": {**jit, "energy": jit["final_energy"]},
+                             "host": {**host, "energy": host["final_energy"]}},
+                            NCCL_RTOL), f"jit_sharded_nccl_d2 {prob}: {jit} {host}")
+    return {which: {"launches_jit_sharded_nccl_p257": count}
+            for which, count in p257["sharded_jit"][0]["launches"].items()}
+
+
 P16_ORACLE = HERE / "benchmarks" / "results" / "cpu_p16_flatline.json"
 
 
@@ -1412,8 +1764,9 @@ def main() -> None:
     from bundleadjustment_benchmarks_tpu_torch import cli
     from bundleadjustment_benchmarks_tpu_torch.io import bal
     from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-    from bundleadjustment_benchmarks_tpu_torch.ops import (cuda_chain, cuda_graph,
-                                                           jacobian, linalg)
+    from bundleadjustment_benchmarks_tpu_torch.ops import (cuda_chain, cuda_eigh,
+                                                           cuda_graph, jacobian,
+                                                           linalg)
     from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
     from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
     from bundleadjustment_benchmarks_tpu_torch.utils import balgen, checkpoint
@@ -1437,28 +1790,37 @@ def main() -> None:
 
     # -- build: one nvcc per library, started together ---------------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         for built in [pool.submit(cuda_chain.load_library),
-                      pool.submit(cuda_graph.load_library)]:
+                      pool.submit(cuda_graph.load_library),
+                      pool.submit(cuda_eigh.load_library)]:
             built.result()
-    ptxas = [ln.strip() for ln in cuda_chain.BUILD_INFO["ptxas"].splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+
+    def ptxas(info):
+        return [ln.strip() for ln in info["ptxas"].splitlines()
+                if "registers" in ln or "Compiling entry" in ln]
+
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_flags": " ".join(cuda_chain.NVCC_FLAGS), "ptxas": ptxas,
-          "graph_cond_build_s": cuda_graph.BUILD_INFO["seconds"]})
+          "nvcc_flags": " ".join(cuda_chain.NVCC_FLAGS),
+          "ptxas": ptxas(cuda_chain.BUILD_INFO),
+          "graph_cond_build_s": cuda_graph.BUILD_INFO["seconds"],
+          "eigh_build_s": cuda_eigh.BUILD_INFO["seconds"],
+          "eigh_ptxas": ptxas(cuda_eigh.BUILD_INFO)})
 
     # -- kernels against their plain versions --------------------------------
     t0 = t_phase = time.perf_counter()
     problems = {name: pm.load_bal_problem(str(path), device=dev)
                 for name, path in (("p16", P16), ("p257", P257))}
     load_s = time.perf_counter() - t0
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     if sys.argv[1:] == ["--jit-only"]:  # the device-resident drive's phases
         n, m, k_real = LADYBUG
         ladybug = (balgen.generate_bal_like(n, m, seed=n, mean_degree=k_real / m), 0.0)
         jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi)
+        eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush, smi)
+        sharded_jit_phases(lm, multihost, problems, smi)
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
         return
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rng = np.random.default_rng(0)
     kern = {"chain_blocks": {"max_abs_err": 0.0, "energy_abs_err": 0.0},
             "chain_energy": {"max_abs_err": 0.0}}
@@ -1654,6 +2016,11 @@ def main() -> None:
     # -- the device-resident drive ------------------------------------------------
     for which, more in jit_phases(pm, lm, cuda_chain, cuda_graph, problems,
                                   ladybug, smi).items():
+        kern[which].update(more)
+
+    # -- the eigensolver, pair-less qrkit and the sharded jit drive -------------
+    eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush, smi)
+    for which, more in sharded_jit_phases(lm, multihost, problems, smi).items():
         kern[which].update(more)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 

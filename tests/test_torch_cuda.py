@@ -407,3 +407,59 @@ def test_device_while_on_card():
     graph.close()
     with pytest.raises(RuntimeError, match="outside a DeviceGraph"):
         cuda_graph.device_while(lambda: x < bound, body)
+
+
+# -- the capturable eigensolver and the sharded jit drive ------------------------
+
+
+@pytest.mark.parametrize("n", [145, 2314])
+def test_jacobi_eigh_matches_plain(n):
+    """The block Jacobi eigensolver on a float64 SPD matrix of qrkit's
+    gram sizes (p16, p257) against torch.linalg.eigh: eigenvalues within
+    1e-12 of max|w|, V^T V = I and V diag(w) V^T = S within 1e-12; the
+    float32 form within 1e-5; converged (info 0)."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_eigh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    G = torch.randn((n, 2 * n), dtype=torch.float64, device="cuda", generator=gen)
+    S = G @ G.T / (2 * n)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        w, V, info = cuda_eigh.eigh(S.to(dtype))
+        ref = torch.linalg.eigh(S)[0]
+        w, V = w.double(), V.double()
+        assert int(info) == 0
+        assert ((w - ref).abs().max() / ref.abs().max()).item() <= tol
+        assert ((V * w) @ V.T - S).norm().item() <= tol * S.norm().item()
+        assert (V.T @ V - torch.eye(n, dtype=torch.float64, device="cuda")
+                ).abs().max().item() <= 10 * tol
+
+
+def test_sharded_jit_nccl_world_size_1_matches_single(p16_cuda):
+    """The sharded jit drive in an NCCL group of one on p16 df32: the
+    single-device jit drive's iterations, evaluations and status, energy
+    within 1e-12, one read per chunk, its collectives counted per prepare
+    and per trial; a second run replays the cached capture."""
+    from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
+
+    prob, _ = p16_cuda
+    cfg = lm.LMConfig(max_iter=6, matmul_dtype="float32", geometry="df32",
+                      drive="jit")
+    ref = lm.minimize(prob, config=cfg)
+
+    def run(rank, device):
+        sp = sharded.shard_problem(prob, 1, rank, device=device)
+        sharded.minimize_sharded(sp, config=cfg)
+        res = sharded.minimize_sharded(sp, config=cfg)
+        return res, dict(lm.LAST_JIT_RUN)
+
+    res, counts = multihost.run_ranks(run, ["cuda:0"])[0]
+    assert (res.iterations, res.fun_evals, res.status) == (
+        ref.iterations, ref.fun_evals, ref.status)
+    assert abs(res.energy - ref.energy) <= 1e-12 * ref.energy
+    assert not counts["captured"] and counts["reads"] == counts["replays"] == 1
+    assert counts["allreduce_per_prepare"]["calls"] > 0
+    assert counts["allreduce_per_trial"]["calls"] > 0
+    assert not [k for k in lm._GRAPHS if k[-1] is not None]  # freed with the group
+    lm.clear_graphs()

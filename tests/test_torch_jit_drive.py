@@ -40,7 +40,7 @@ from bundleadjustment_benchmarks_tpu.solvers import lm as jlm
 from bundleadjustment_benchmarks_tpu.utils.synthetic import make_synthetic_problem
 from bundleadjustment_benchmarks_tpu_torch import cli, convert
 from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph, jacobian
-from bundleadjustment_benchmarks_tpu_torch.parallel import sharded
+from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
 from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 from bundleadjustment_benchmarks_tpu_torch.utils import checkpoint
 from test_torch_cli import (KEPT, RHO_RESOLVED, RTOL_F, RTOL_LAMBDA, RTOL_RHO,
@@ -448,24 +448,92 @@ def test_graph_key_is_the_problem_object():
         cfg, max_iter=3, max_fun_ev=7, tol_fun=1e-3), x0, "cuda:0") == key
 
 
-def test_jit_refusals(tiny, tmp_path):
-    """drive='jit' has no sharded form: a sharded reduce raises, so does
-    minimize_sharded, and the CLI's --shards 2 --drive jit returns 1."""
+def _sharded_one_rank(rank, device, tp, cfg):
+    sp = sharded.shard_problem(tp, 1, rank, device=device)
+    return sharded.minimize_sharded(sp, "cholesky", cfg)
 
-    class Sharded(schur.Reduce):
-        sharded = True
 
+def test_jit_refusals(tiny, tmp_path, capsys):
+    """What drive='jit' refuses, and the sharded forms that now run: an
+    unknown drive raises; a gloo group's collectives on CUDA cannot be
+    captured (ValueError naming NCCL); minimize_sharded and lm.minimize
+    with the shard's reduce run the device loop in a group of one (gloo on
+    the CPU) and take the host drive's path; the CLI's --shards 1 --drive
+    jit runs and, like the JAX package's sharded jit drive, prints no
+    iteration table."""
     _, tp = _pair(0)
-    with pytest.raises(ValueError, match="sharded"):
-        lm.minimize(tp, device="cpu", reduce=Sharded(),
-                    config=lm.LMConfig(drive="jit"))
-    with pytest.raises(ValueError, match="drive='jit'"):
-        sharded.minimize_sharded(None, config=lm.LMConfig(drive="jit"))
     with pytest.raises(ValueError, match="drive"):
         lm.minimize(tp, device="cpu", config=lm.LMConfig(drive="bogus"))
-    rc = cli.main([tiny, "--shards", "2", "--drive", "jit", "--device", "cpu",
-                   "--log-file", str(tmp_path / "r.log")])
-    assert rc == cli.RETURN_WRONG_INPUT_PARAMS
+    with pytest.raises(ValueError, match="NCCL"):
+        sharded.check_graph_backend("gloo", torch.device("cuda", 0))
+    cfg = lm.LMConfig(drive="jit", max_iter=6)
+    (jit,) = multihost.run_ranks(_sharded_one_rank, ["cpu"], args=(tp, cfg))
+    assert lm.LAST_JIT_RUN["reads"] == 1
+    host = lm.minimize(tp, device="cpu", config=dataclasses.replace(cfg, drive="host"))
+    assert _counts(jit) == _counts(host) and jit.energy == host.energy
+    capsys.readouterr()
+    rc = cli.main([tiny, "--shards", "1", "--drive", "jit", "--device", "cpu",
+                   "--max-iters", "3", "--log-file", str(tmp_path / "r.log")])
+    out = capsys.readouterr().out
+    assert rc == cli.RETURN_SUCCESS
+    assert "LM finished with status: Maximum Iterations Reached" in out
+    assert not [ln for ln in out.splitlines() if ROW.match(ln)]
+    assert "Backtrack LevMarq" not in out
+
+
+@pytest.mark.parametrize("df32", [False, True], ids=["f64", "df32"])
+def test_qrkit_without_pairs_on_the_jit_drive(df32):
+    """qrkit on a problem without pair tables (the "rows" cache, whose
+    prepare factors the camera gram by cuda_eigh.eigh: its plain version on
+    the CPU) runs on the jit drive and takes the host drive's path bit for
+    bit."""
+    _, tp = _pair(1, n_cameras=5, n_points=30, obs_per_point=4,
+                  inlier_threshold=2.0)
+    tp = dataclasses.replace(tp, pairs=None)
+    kw = dict(matmul_dtype="float32", geometry="df32") if df32 else {}
+    jit, host = _drives(tp, "qrkit", max_iter=6, **kw)
+    assert _counts(jit) == _counts(host) and jit.energy == host.energy
+    assert torch.equal(jit.state.points, host.state.points)
+
+
+def test_eigh_failure_stops_the_loop(monkeypatch):
+    """A nonzero eigensolver info makes the gram factor NaN on the device:
+    every trial of the iteration is non-finite, both drives stop the same
+    way (ExceededLambdaMax after lambda grows past lambda_max), and
+    debug_nans raises at the jit drive's read."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_eigh
+
+    def failing(S):
+        w, V, info = cuda_eigh.eigh_plain(S)
+        return w, V, info + 1
+
+    _, tp = _pair(1, n_cameras=5, n_points=30, obs_per_point=4,
+                  inlier_threshold=2.0)
+    tp = dataclasses.replace(tp, pairs=None)
+    monkeypatch.setattr(cuda_eigh, "eigh", failing)
+    C = schur._gram_sqrt_factor(torch.eye(4, dtype=torch.float64))
+    assert bool(torch.isnan(C).all())
+    jit, host = _drives(tp, "qrkit", max_iter=5)
+    assert _counts(jit) == _counts(host)
+    assert jit.status == lm.LMStatus.ExceededLambdaMax and jit.iterations == 1
+    with pytest.raises(FloatingPointError, match="LM iteration 1"):
+        lm.minimize(tp, "qrkit", device="cpu", config=lm.LMConfig(
+            drive="jit", max_iter=5, debug_nans=True))
+
+
+def test_cuda_eigh_on_the_cpu_is_the_plain_version():
+    """On a CPU tensor cuda_eigh.eigh is torch.linalg.eigh with a zero
+    info; the Jacobi kernels take only CUDA tensors."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_eigh
+
+    rng = np.random.default_rng(3)
+    A = rng.normal(size=(9, 9))
+    S = torch.from_numpy(A + A.T)
+    w, V, info = cuda_eigh.eigh(S)
+    w0, V0 = torch.linalg.eigh(S)
+    assert torch.equal(w, w0) and torch.equal(V, V0) and int(info) == 0
+    with pytest.raises(ValueError, match="cpu"):
+        cuda_eigh.jacobi_eigh(S)
 
 
 def test_jit_polish_composes():

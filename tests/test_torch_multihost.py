@@ -13,11 +13,13 @@ import socket
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+from bundleadjustment_benchmarks_tpu import cli as jcli
 from bundleadjustment_benchmarks_tpu_torch import cli
 from bundleadjustment_benchmarks_tpu_torch.parallel import multihost
 
@@ -157,13 +159,15 @@ def tiny(tmp_path_factory):
     return write_synthetic_bal(str(tmp_path_factory.mktemp("bal") / "tiny.txt"))
 
 
-def run_port_shards(args, tmp_path, tag) -> Run:
+def run_port_shards(args, tmp_path, tag, metrics: bool = True) -> Run:
     """The port's command line with --shards in a subprocess (its ranks
-    print to the process's stdout), with a timeout."""
-    m = str(tmp_path / f"{tag}.jsonl")
+    print to the process's stdout), with a timeout; with --metrics unless
+    ``metrics`` is False."""
+    m = str(tmp_path / f"{tag}.jsonl") if metrics else None
     proc = subprocess.run(
         [sys.executable, "-m", "bundleadjustment_benchmarks_tpu_torch.cli", *args,
-         "--device", "cpu", "--metrics", m, "--log-file", str(tmp_path / f"{tag}.log")],
+         "--device", "cpu", *(["--metrics", m] if m else []),
+         "--log-file", str(tmp_path / f"{tag}.log")],
         cwd=ROOT, capture_output=True, text=True, timeout=TIMEOUT)
     assert proc.returncode == 0, proc.stderr
     return Run(proc.returncode, proc.stdout, m)
@@ -194,6 +198,26 @@ def test_cli_shards_matches_jax(tiny, sharded_run, tmp_path, capsys):
     assert_same(sharded_run, ref, "--shards 2 cholesky", rtol_f=SHARDED_RTOL_F)
     assert sharded_run.lines[0] == \
         "N(cameras) = 6, M(points) = 40, K(measurements) = 160"
+
+
+def test_cli_shards_jit_matches_jax(tiny, tmp_path, capsys):
+    """``--shards 2 --drive jit --device cpu`` against the JAX command
+    line's ``--shards 2 --drive jit`` (its lm_loop on the virtual mesh):
+    the same lines (header, statistics, status, post statistics) and, as
+    there, no iteration table."""
+    args = [tiny, "--solver", "cholesky", "--max-iters", "8", "--shards", "2",
+            "--drive", "jit"] + TAU
+    port = run_port_shards(args, tmp_path, "port", metrics=False)
+    capsys.readouterr()
+    try:
+        rc = jcli.main(args + ["--log-file", str(tmp_path / "jax.log")])
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    ref = Run(rc, capsys.readouterr().out)
+    assert port.rc == ref.rc == cli.RETURN_SUCCESS
+    assert port.lines == ref.lines
+    assert port.rows == ref.rows == []
+    assert port.lines[-4].startswith("LM finished with status")
 
 
 def test_cli_shards_checkpoint_resumes_on_one_device(tiny, sharded_run, tmp_path,

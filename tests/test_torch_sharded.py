@@ -187,7 +187,9 @@ def assert_ranks_identical(outs):
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     d = tmp_path_factory.mktemp("sharded")
-    return {"checkpoint": str(d / "d2.ckpt.npz"), "metrics": str(d / "d2.jsonl")}
+    return {"checkpoint": str(d / "d2.ckpt.npz"), "metrics": str(d / "d2.jsonl"),
+            "jit_checkpoint": str(d / "d2.jit.ckpt.npz"),
+            "jit_metrics": str(d / "d2.jit.jsonl")}
 
 
 @pytest.fixture(scope="module")
@@ -207,7 +209,26 @@ def ranks(files):
         dict(name="no-polish", kind="minimize", problem="syn7", mode="cholesky",
              config=dict(max_iter=10, **worker.DF32)),
         dict(name="refine", kind="refine", problem="syn3t"),
+        # The jit drive (lm.DeviceLoop, eager over gloo on the CPU).
+        dict(name="jit-df32", kind="minimize", problem="syn2t", mode="cholesky",
+             config=dict(max_iter=8, drive="jit", **worker.DF32)),
+        dict(name="host-df32", kind="minimize", problem="syn2t", mode="cholesky",
+             config=dict(max_iter=8, **worker.DF32)),
+        dict(name="jit-first-trial-df32", kind="jit_first_trial", problem="syn2t",
+             mode="cholesky", lam=1.0, config=worker.DF32),
+        dict(name="jit-polish", kind="minimize", problem="syn7", mode="cholesky",
+             config=dict(max_iter=10, polish_iters=4, drive="jit", **worker.DF32)),
+        dict(name="jit-checkpoint", kind="checkpoint", problem="syn3t",
+             max_iter=5, every=2, drive="jit", checkpoint=files["jit_checkpoint"],
+             metrics=files["jit_metrics"]),
+        dict(name="jit-counts", kind="jit_counts", problem="syn3t", mode="qrkit",
+             config=dict(max_iter=4)),
     ]
+    for mode in MODES:
+        for drive in ("jit", "host"):
+            case_list.append(dict(name=f"{drive}-{mode}", kind="minimize",
+                                  problem="syn3t", mode=mode,
+                                  config=dict(max_iter=8, drive=drive)))
     arrays = problem_arrays({c["problem"] for c in case_list})
     return multihost.run_ranks(worker.cases, ["cpu"] * D,
                                args=(case_list, arrays), timeout=TIMEOUT)
@@ -393,12 +414,12 @@ def test_every_rank_identical(ranks):
 
 def test_dryrun_multichip_cpu():
     """The dry run at 2 ranks on the CPU: one prepare and one trial per
-    configuration, finite and equal on both ranks (it raises otherwise);
-    no kernel launches off CUDA."""
+    configuration, finite and equal on both ranks (it raises otherwise),
+    eager (gloo: no capture); no kernel launches off CUDA."""
     out = sharded.dryrun_multichip(2, devices=["cpu", "cpu"], timeout=TIMEOUT)
-    assert out["backend"] == "gloo"
+    assert out["backend"] == "gloo" and out["captured"] is False
     assert set(out) == {name for name, _, _ in sharded.DRYRUN_CONFIGS} | {
-        "launches", "backend"}
+        "launches", "backend", "captured"}
     for name, _, _ in sharded.DRYRUN_CONFIGS:
         assert np.isfinite(out[name]).all()
     assert out["launches"] == {"chain_blocks": 0, "chain_energy": 0}
@@ -409,3 +430,121 @@ def test_sharded_needs_a_group():
     with pytest.raises(RuntimeError, match="needs a process group"):
         sharded.minimize_sharded(sp)
     assert not torch.distributed.is_initialized()
+
+
+# -- the sharded jit drive --------------------------------------------------------
+
+
+def jax_minimize_jit(name, d, mode, max_iter):
+    mesh = jsharded.make_mesh(d)
+    return jsharded.minimize_sharded(
+        jsharded.shard_problem(jax_problem(name), mesh), mesh, mode=mode,
+        config=jlm.LMConfig(drive="jit", max_iter=max_iter))
+
+
+def _same_run(a, b):
+    """Two runs' results equal bit for bit (counts, energy, lambda, state)."""
+    assert (a["iterations"], a["fun_evals"], a["status"]) == (
+        b["iterations"], b["fun_evals"], b["status"])
+    assert repr(a["energy"]) == repr(b["energy"]) and repr(a["lam"]) == repr(b["lam"])
+    assert np.array_equal(a["points"], b["points"]) and np.array_equal(a["T"], b["T"])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_jit_matches_host_and_jax(ranks, mode):
+    """float64, up to 8 iterations at D = 2: the port's sharded jit drive
+    equals its sharded host drive bit for bit, and takes JAX's sharded jit
+    drive's iterations, evaluations and status, energy within 1e-9. One
+    host read for the run (the CPU form: eager, predicates read)."""
+    jit, host = ranks[0][f"jit-{mode}"], ranks[0][f"host-{mode}"]
+    ref = jax_minimize_jit("syn3t", D, mode, 8)
+    gap = _rel(jit["energy"], ref.energy)
+    print(f"gap sharded jit {mode} D={D}: counts {jit['iterations']}, "
+          f"{jit['fun_evals']}, energy vs JAX jit {gap:.3g}, vs host "
+          f"{_rel(jit['energy'], host['energy']):.3g}")
+    _same_run(jit, host)
+    assert (jit["iterations"], jit["fun_evals"], jit["status"]) == (
+        ref.iterations, ref.fun_evals, int(ref.status))
+    assert gap <= 1e-9
+    assert jit["jit"]["reads"] == 1 and jit["jit"]["slots"] == \
+        jit["fun_evals"] - jit["jit"]["prepares"]
+    assert host["jit"] == {}
+
+
+def test_jit_df32_first_trial_and_descent(ranks):
+    """df32 cholesky at D = 2: one slot of the sharded device loop at
+    lambda 1 equals the eager sharded trial bit for bit and JAX's df32
+    sharded trial within 2e-3; the jit run descends and equals the host
+    drive's run bit for bit."""
+    e = ranks[0]["jit-first-trial-df32"]["e"]
+    ref = jax_step("syn2t", D, "cholesky", 1.0, df32=True)
+    print(f"gap sharded jit df32 first trial: vs JAX {_rel(e, ref['e']):.3g}")
+    assert e == ranks[0]["df32-cholesky"]["e"]
+    assert _rel(e, ref["e"]) <= 2e-3
+    jit = ranks[0]["jit-df32"]
+    assert jit["energy"] < ranks[0]["df32-cholesky"]["energy"]
+    _same_run(jit, ranks[0]["host-df32"])
+
+
+def test_jit_polish_composes(ranks):
+    """The two-phase drive with drive="jit" on the shards runs both phases
+    on the device loop, as JAX's recursion does: the host drive's result
+    bit for bit."""
+    _same_run(ranks[0]["jit-polish"], ranks[0]["polish"])
+    assert ranks[0]["jit-polish"]["dtype"] == "torch.float64"
+
+
+def test_jit_observed_run_takes_the_host_drive(ranks, files):
+    """A sharded jit run with a checkpoint and metrics goes through the
+    host drive, as JAX's minimize_sharded routes it: the host run's result,
+    checkpoint and JSONL records (one per trial, no compile_s record), and
+    no device loop ran."""
+    jit, host = ranks[0]["jit-checkpoint"], ranks[0]["checkpoint"]
+    _same_run(jit, host)
+    assert jit["jit"] == {}
+    recs = {k: [json.loads(ln) for ln in open(files[k])]
+            for k in ("metrics", "jit_metrics")}
+    key = ("iter", "status", "f", "rho", "lambda")
+    assert [[r[k] for k in key] for r in recs["jit_metrics"]] == \
+        [[r[k] for k in key] for r in recs["metrics"]]
+    assert not any("compile_s" in r for r in recs["jit_metrics"])
+    (_, meta), (_, jmeta) = (checkpoint.load_checkpoint(files[k], device="cpu")
+                             for k in ("checkpoint", "jit_checkpoint"))
+    assert (jmeta["iteration"], jmeta["fun_evals"]) == (
+        meta["iteration"], meta["fun_evals"])
+
+
+def test_jit_collective_counts(ranks):
+    """The jit drive's collective totals, from the calls and bytes of one
+    prepare and one trial times the prepares and trials the device counted,
+    equal the reduce's own count of the collectives the eager loop issued."""
+    out = ranks[0]["jit-counts"]
+    jit = out["jit"]
+    print(f"sharded jit qrkit collectives: per prepare "
+          f"{jit['allreduce_per_prepare']}, per trial {jit['allreduce_per_trial']}")
+    assert jit["allreduce_per_prepare"]["calls"] > 0
+    assert jit["allreduce_per_trial"]["calls"] > 0
+    assert (jit["allreduce_calls"], jit["allreduce_bytes"]) == (
+        out["calls"], out["bytes"])
+    assert jit["prepares"] + jit["slots"] == out["fun_evals"]
+
+
+def test_jit_on_cuda_needs_nccl():
+    """A gloo group cannot have its CUDA collectives captured: the check
+    raises naming NCCL, from a stub reduce too, before any capture; NCCL on
+    CUDA and gloo on the CPU pass."""
+    with pytest.raises(ValueError, match="NCCL"):
+        sharded.check_graph_backend("gloo", "cuda:0")
+    sharded.check_graph_backend("nccl", "cuda:0")
+    sharded.check_graph_backend("gloo", "cpu")
+
+    class GlooGroup(sharded.AllReduce):
+        def __init__(self):  # a stub of a gloo group's reduce: no process group
+            self.backend, self.calls, self.bytes = "gloo", 0, 0
+
+    tp = port_problem("syn2")
+    cfg = lm.LMConfig(drive="jit")
+    prepare, trial, to_loop, _ = lm.step_functions(tp, "cholesky", cfg, "cpu")
+    with pytest.raises(ValueError, match="NCCL"):
+        lm._device_loop(tp, "cholesky", cfg, to_loop(tp.state),
+                        torch.device("cuda", 0), prepare, trial, GlooGroup())

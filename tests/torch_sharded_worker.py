@@ -59,15 +59,38 @@ def run_case(rank: int, device, case: dict, problems: dict):
     if kind == "step":
         return _step(sp, case["mode"], case.get("config", {}), case["lam"])
     if kind == "minimize":
-        out = _result(sharded.minimize_sharded(
-            sp, case["mode"], lm.LMConfig(**case["config"])))
+        cfg = lm.LMConfig(**case["config"])
+        lm.LAST_JIT_RUN.clear()
+        out = _result(sharded.minimize_sharded(sp, case["mode"], cfg))
+        out["jit"] = dict(lm.LAST_JIT_RUN)
         return out
     if kind == "checkpoint":
         ck, mt = case["checkpoint"], case["metrics"]
+        lm.LAST_JIT_RUN.clear()
         res = sharded.minimize_sharded(
-            sp, "cholesky", lm.LMConfig(max_iter=case["max_iter"]),
+            sp, "cholesky", lm.LMConfig(max_iter=case["max_iter"],
+                                        drive=case.get("drive", "host")),
             checkpoint_path=ck, checkpoint_every=case["every"], metrics_path=mt)
-        return _result(res)
+        return {**_result(res), "jit": dict(lm.LAST_JIT_RUN)}
+    if kind == "jit_counts":
+        # The jit drive's collective totals against the Python count of
+        # the collectives the (eager, CPU) loop issued.
+        reduce = sharded.AllReduce(sp)
+        res = lm.minimize(sp.problem, case["mode"],
+                          lm.LMConfig(drive="jit", **case["config"]),
+                          device=device, reduce=reduce)
+        # (The result's points are this rank's slice: not returned.)
+        return {"fun_evals": res.fun_evals, "jit": dict(lm.LAST_JIT_RUN),
+                "calls": reduce.calls, "bytes": reduce.bytes}
+    if kind == "jit_first_trial":
+        # One slot of the sharded device loop: a prepare and one trial at lam.
+        cfg = lm.LMConfig(drive="jit", **case.get("config", {}))
+        reduce = sharded.AllReduce(sp)
+        prepare, trial, to_loop, _ = lm.step_functions(
+            sp.problem, case["mode"], cfg, device, reduce)
+        x0 = to_loop(sp.problem.state)
+        loop = lm.DeviceLoop(x0, prepare, trial, cfg, device, reduce)
+        return {"e": loop.first_trial(x0, case["lam"])}
     if kind == "resume":
         state, meta = checkpoint.load_checkpoint(case["checkpoint"], device="cpu")
         again = sharded.shard_problem(
@@ -88,8 +111,11 @@ def run_case(rank: int, device, case: dict, problems: dict):
 def cases(rank: int, device, case_list, problem_arrays) -> dict:
     """Every case of ``case_list`` on this rank: {name: result}. A case is
     a dict with ``name``, ``kind`` ("step": one prepare and one trial at
-    ``lam``; "minimize"; "checkpoint": a run that writes checkpoints and
-    metrics; "resume": a run from a checkpoint; "refine"), ``problem`` (a
+    ``lam``; "minimize" (with ``lm.LAST_JIT_RUN``); "checkpoint": a run
+    that writes checkpoints and metrics; "resume": a run from a
+    checkpoint; "refine"; "jit_counts": a jit-drive run's collective
+    totals beside the reduce's own count; "jit_first_trial": one slot of
+    the sharded device loop at ``lam``), ``problem`` (a
     key of ``problem_arrays``, dicts of ``convert.problem_to_numpy``) and
     the kind's fields. ``_rank`` and ``_backend`` tell who computed it."""
     problems = {k: convert.problem_from_numpy(v, device="cpu")
