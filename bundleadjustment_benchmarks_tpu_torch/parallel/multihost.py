@@ -4,8 +4,8 @@ torchrun's environment, and local ranks started by this process.
 One process per rank, as torchrun starts them (one per GPU):
 
     from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
-    multihost.initialize()            # MASTER_ADDR, MASTER_PORT, RANK, ...
-    mesh = multihost.global_mesh()    # the world group and this rank's device
+    multihost.initialize()            # MASTER_ADDR, MASTER_PORT, RANK, ...; NCCL
+    mesh = multihost.global_mesh()    # the world group and this rank's GPU
     sp = sharded.shard_problem(problem, mesh.size, mesh.rank, device=mesh.device)
     result = sharded.minimize_sharded(sp, mode="qrchol")
 
@@ -38,6 +38,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from bundleadjustment_benchmarks_tpu_torch import resolve_device
+
 #: Seconds a collective may wait for the other ranks before it fails.
 DEFAULT_TIMEOUT = 600.0
 
@@ -48,12 +50,19 @@ def initialize(init_method: Optional[str] = None,
                timeout: float = DEFAULT_TIMEOUT) -> bool:
     """``torch.distributed.init_process_group`` with torchrun's environment
     (``MASTER_ADDR``/``MASTER_PORT`` for ``env://``, ``RANK``,
-    ``WORLD_SIZE``, ``LOCAL_RANK``) as defaults. The backend is NCCL when
-    CUDA is available, else gloo; with NCCL and ``LOCAL_RANK`` set the
-    current device becomes ``cuda:LOCAL_RANK``. A no-op when a group is already up; with nothing
-    configured (no ``init_method`` and no ``MASTER_ADDR``) it starts no
-    group and the program runs as one process. Returns whether a group is
-    up. Every collective of the group fails after ``timeout`` seconds."""
+    ``WORLD_SIZE``, ``LOCAL_RANK``) as defaults. The backend is NCCL unless
+    the caller names another (``backend="gloo"`` for ranks on the CPU);
+    without CUDA and without a named backend it raises. With NCCL and
+    ``LOCAL_RANK`` set the current device becomes ``cuda:LOCAL_RANK``. A
+    no-op when a group is already up; with nothing configured (no
+    ``init_method`` and no ``MASTER_ADDR``) it starts no group and the
+    program runs as one process. Returns whether a group is up. Every
+    collective of the group fails after ``timeout`` seconds."""
+    if backend is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("multihost.initialize: no CUDA device for NCCL; "
+                               "pass backend='gloo' to run the ranks on the CPU")
+        backend = "nccl"
     if dist.is_initialized():
         return True
     env = os.environ
@@ -63,8 +72,6 @@ def initialize(init_method: Optional[str] = None,
         init_method = "env://"
     world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None else world_size
     rank = int(env.get("RANK", 0)) if rank is None else rank
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl" and "LOCAL_RANK" in env:
         torch.cuda.set_device(int(env["LOCAL_RANK"]))
     dist.init_process_group(backend, init_method=init_method,
@@ -83,16 +90,17 @@ class Mesh(NamedTuple):
     device: torch.device
 
 
-def global_mesh() -> Mesh:
-    """The world group and this rank's device: ``cuda:LOCAL_RANK`` where
-    CUDA is available, else the CPU."""
+def global_mesh(device=None) -> Mesh:
+    """The world group and this rank's device: ``device`` where the caller
+    names one (``"cpu"`` for ranks on the CPU), else ``cuda:LOCAL_RANK``;
+    without CUDA and without ``device`` it raises (``resolve_device``)."""
     if dist.is_initialized():
         group, rank, size = dist.group.WORLD, dist.get_rank(), dist.get_world_size()
     else:
         group, rank, size = None, 0, 1
-    device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-              if torch.cuda.is_available() else torch.device("cpu"))
-    return Mesh(group, rank, size, device)
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return Mesh(group, rank, size, resolve_device(device))
 
 
 def is_coordinator() -> bool:

@@ -43,7 +43,7 @@ import torch.distributed as dist
 
 from bundleadjustment_benchmarks_tpu_torch import resolve_device
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, cuda_graph
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, cuda_eigh, cuda_graph
 from bundleadjustment_benchmarks_tpu_torch.parallel import multihost
 from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 
@@ -277,6 +277,7 @@ def _captured_step(prepare, trial, x0, device, kernels: bool) -> list:
     with torch.cuda.stream(graph.stream):
         if kernels:
             cuda_chain.prepare_capture(device)
+        cuda_eigh.prepare_capture(device)
         ctx, _, lam0 = prepare(x0)
         trial(ctx, x0, lam0.to(f64))
         del ctx
@@ -322,6 +323,7 @@ def _dryrun_rank(rank: int, device, n_shards: int) -> dict:
                                      f"rho denominator {out[name]}")
     if capture:
         cuda_chain.collect_graph_launches()
+        cuda_eigh.collect_graph_launches()
     out["launches"] = {k: v - before[k] for k, v in cuda_chain.LAUNCHES.items()}
     out["captured"] = capture
     return out

@@ -63,7 +63,8 @@ import torch
 
 from bundleadjustment_benchmarks_tpu_torch import resolve_device
 from bundleadjustment_benchmarks_tpu_torch.models import problem as problem_mod
-from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, cuda_graph, jacobian, projection
+from bundleadjustment_benchmarks_tpu_torch.ops import (cuda_chain, cuda_eigh, cuda_graph, jacobian,
+                                                       projection)
 from bundleadjustment_benchmarks_tpu_torch.ops import twofloat as tf
 from bundleadjustment_benchmarks_tpu_torch.solvers import schur
 
@@ -736,13 +737,14 @@ class DeviceLoop:
         """Capture ``chunk`` into a CUDA graph after one eager prepare and
         trial on the capture stream (cuBLAS/cuSOLVER handles and
         workspaces, the chain kernels' workspace and launch counters, the
-        per-device index tables; on a shard the NCCL communicator and its
+        eigensolver's launch counter, the per-device index tables; on a shard the NCCL communicator and its
         stream, which must not start inside a capture). Returns the
         capture's seconds, warm-up excluded. A failed capture raises."""
         graph = cuda_graph.DeviceGraph(self.device)
         with torch.cuda.stream(graph.stream):
             if kernels:
                 cuda_chain.prepare_capture(self.device)
+            cuda_eigh.prepare_capture(self.device)
             ctx, _, lam0 = self.prepare(self.x)
             self.trial(ctx, self.x, lam0.to(torch.float64))
             del ctx
@@ -1054,8 +1056,10 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
             loop.reads = loop.replays = loop.slots = loop.prepares = 0
             x, status, it, fun_evals, energy, lam = loop.run(
                 x0, resume, run_log, checkpoint_every, config=config)
-            if loop.graph is not None and config.use_kernels(dev):
-                cuda_chain.collect_graph_launches()
+            if loop.graph is not None:
+                if config.use_kernels(dev):
+                    cuda_chain.collect_graph_launches()
+                cuda_eigh.collect_graph_launches()
             LAST_JIT_RUN.clear()
             LAST_JIT_RUN.update(
                 capture_s=capture_s, captured=capture_s > 0,

@@ -449,10 +449,10 @@ def _gram_sqrt_factor(S):
     Jacobi-scaled eigendecomposition with the eigenvalues clamped at 0 (the
     Schur subtraction leaves eps-level indefiniteness that a Cholesky would
     turn into NaN). Any such row set serves the row-QR that follows. The
-    eigendecomposition is ``cuda_eigh.eigh`` (cuSOLVER's Xsyevd on CUDA,
-    with no host read, so the jit drive captures it; ``torch.linalg.eigh``
-    on the CPU); where it reports failure C is NaN, which the LM loop's
-    non-finite guard stops on."""
+    eigendecomposition is ``cuda_eigh.eigh``: on CUDA the block Jacobi
+    kernels of ``ops/csrc/eigh.cu``, with no host read, so the jit drive
+    captures them; ``torch.linalg.eigh`` on the CPU. Where it reports
+    failure C is NaN, which the LM loop's non-finite guard stops on."""
     d = torch.diagonal(S)
     dinv = torch.where(d > 0, torch.rsqrt(d.abs() + torch.finfo(S.dtype).tiny),
                        torch.ones_like(d))

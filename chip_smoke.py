@@ -32,9 +32,12 @@ captured graph (``jit_kernels_replayed``), p257 df32 cholesky on both
 drives alternated (``jit_p257_df32``), the chunk loop with no
 synchronization between its reads (``jit_no_sync``), every mode
 (``jit_modes``) and the Ladybug stand-in (``jit_ladybug_df32``), then the
-block Jacobi eigensolver that pair-less qrkit's prepare runs, against
-``torch.linalg.eigh`` and replayed from a graph (``eigh_capture``), qrkit
-without pair tables on both drives (``jit_qrkit_rows_p257``), and the
+block Jacobi eigensolver that pair-less qrkit's prepare runs, on its p16
+and p257 grams and on rank-deficient and clustered matrices of 10 and
+1,000 rows, against ``torch.linalg.eigh`` and replayed from a graph, with
+each of its kernels' device time and its sweep counters
+(``eigh_capture``), qrkit without pair tables on both drives, one
+eigensolver call a prepare (``jit_qrkit_rows_p257``), and the
 sharded jit drive: NCCL at world size 1 against the sharded host drive and
 the single-device jit drive (``jit_sharded_nccl_p257``,
 ``jit_sharded_no_sync``, ``jit_sharded_modes``), two NCCL ranks where the
@@ -42,7 +45,9 @@ machine has two GPUs (``jit_sharded_nccl_d2``; on one GPU a line says it
 did not run), and the refusal of two gloo ranks on the card
 (``jit_sharded_gloo_refused``, in the sharded gloo group), and fails on any
 disagreement. ``--jit-only`` runs the build and the jit, eigensolver and
-sharded jit phases alone.
+sharded jit phases alone; ``--eigh-only`` runs the build and the
+eigensolver's phases (``eigh_phases``) alone, and, copied into a ``git
+archive`` of an older checkout, times that checkout's eigensolver there.
 Each phase prints JSON lines with its wall time; then come one line of
 per-kernel numbers (the kernel's and its entry point's device
 time, the host time to issue one call, the device operations one call
@@ -1317,6 +1322,15 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
 #: kernels run in float64, the result is rounded to float32).
 EIGH_RTOL = 1e-12
 EIGH_RTOL_F32 = 1e-5
+#: eigh_capture's matrices beside the grams: PSD, shaped like them, of sizes
+#: that are no multiple of the kernels' padding (n = 10 is below one block
+#: pair): a 7-dimensional null space under noise of 1e-16 of the norm, and a
+#: quarter of the eigenvalues within 1e-10 of 1 (``gram_like``).
+EIGH_SYNTHETIC = (("null7", 10), ("null7", 1000), ("cluster", 1000))
+#: The least time of an eigendecomposition of order n: ~10/3 n^3 flops
+#: (LAPACK's tridiagonal route) at the H100's FP64 tensor-core peak, or S
+#: read and V written once at the memory rate, whichever is larger.
+FP64_TENSOR_FLOP_PER_S = 67e12
 
 
 @contextlib.contextmanager
@@ -1345,19 +1359,90 @@ def eigh_gaps(S, w, V) -> dict:
             "gram_gap": ((C.T @ C - S64).norm() / S64.norm()).item()}
 
 
+def gram_like(case: str, n: int) -> torch.Tensor:
+    """A float64 PSD matrix shaped like qrkit's camera grams, from numpy's
+    seed n, on the card: "null7" has a 7-dimensional null space (bundle
+    adjustment's gauge) under symmetric noise of 1e-16 of its norm, so it
+    is indefinite at that level; "cluster" has a quarter of its eigenvalues
+    within 1e-10 of 1 among others spread over [1e-3, 10].
+    ``tests/test_torch_cuda.py`` takes its matrices from here."""
+    rng = np.random.default_rng(n)
+    if case == "null7":
+        G = rng.normal(size=(n, max(n - 7, 1)))
+        S = G @ G.T / n
+        E = rng.normal(size=(n, n))
+        S = S + 1e-16 * np.linalg.norm(S) * (E + E.T) / (2 * n)
+    else:
+        Q = np.linalg.qr(rng.normal(size=(n, n)))[0]
+        w = 10.0 ** rng.uniform(-3, 1, size=n)
+        k = max(n // 4, 2)
+        w[:k] = 1.0 + 1e-10 * np.arange(k)
+        S = (Q * w) @ Q.T
+    return torch.from_numpy((S + S.T) / 2).to("cuda")
+
+
+def device_kernels(fn, sweeps: Optional[int] = None) -> dict:
+    """Device ms and launches of each kernel one call of ``fn`` runs, by
+    short name, from ``torch.profiler`` (after a warm-up call). With the
+    eigensolver's ``sweeps``, "after_convergence" has the ms and launches
+    of its sweeps after the ``sweeps``-th (``sweep_end`` to ``sweep_end``),
+    whose launches return at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+             .split("(")[0].split("<")[0] for e in events]
+    split = {}
+    for name, e in zip(names, events):
+        ms, count = split.get(name, (0.0, 0))
+        split[name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    out = {k: {"ms": v[0], "launches": v[1]} for k, v in split.items()}
+    ends = [i for i, name in enumerate(names) if name == "sweep_end"]
+    if sweeps is not None and len(ends) > sweeps:
+        tail = events[ends[sweeps - 1] + 1:ends[-1] + 1]
+        out["after_convergence"] = {
+            "ms": sum(e.time_range.elapsed_us() for e in tail) / 1e3,
+            "launches": len(tail), "sweeps": len(ends) - sweeps}
+    return out
+
+
+def eigh_counts(cuda_eigh, S) -> dict:
+    """The kernels' counters of one call, per outer sweep: pair solves that
+    rotated, inner sweeps run and rotations."""
+    stats = torch.zeros((cuda_eigh.MAX_SWEEPS, 3), dtype=torch.int32, device=S.device)
+    sweeps = int(cuda_eigh.jacobi_eigh(S, stats=stats)[3])
+    rows = stats[:sweeps].tolist()
+    return {"pairs_rotated": [r[0] for r in rows], "inner_sweeps": [r[1] for r in rows],
+            "rotations": [r[2] for r in rows]}
+
+
 def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
                 smi) -> None:
     """``eigh_capture``: the block Jacobi eigensolver on the grams that
     qrkit's prepare factors without pair tables (p16: n = 145, p257: n =
-    2,314, float64; p257's float32 gram of the df32 drive), against
-    ``torch.linalg.eigh``, both timed by CUDA events (median of 20, cold
-    L2), and replayed from a graph inside a conditional body (equal to the
-    eager call bit for bit). ``jit_qrkit_rows_p257``: qrkit on p257 without
-    its pair tables on the jit drive takes the host drive's path, df32 and
-    float64."""
+    2,314, float64; p257's float32 gram of the df32 drive) and on the
+    ``EIGH_SYNTHETIC`` matrices, against ``torch.linalg.eigh``, both timed
+    by CUDA events (median of 20, cold L2; 5 for float32), and replayed from
+    a graph inside a conditional body (equal to the eager call bit for
+    bit); per case the device time of each kernel and of the sweeps after
+    convergence (``device_kernels``), the counters per outer sweep
+    (``eigh_counts``) and the bound. ``jit_qrkit_rows_p257``: qrkit on p257
+    without its pair tables on the jit drive takes the host drive's path,
+    df32 and float64, and calls the kernels once a prepare on both drives.
+    An older checkout's ``cuda_eigh``, from before its launch counter and
+    sweep statistics, is timed and checked without them."""
+    counted = hasattr(cuda_eigh, "LAUNCHES")
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
-    cases = []
+    bw = card_rates(torch.cuda.get_device_name(0))[0]
+    matrices = []
     for name, df32 in (("p16", False), ("p257", False), ("p257", True)):
         prob = no_pairs(problems[name])
         grams = []
@@ -1367,10 +1452,16 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
                                  kernels=True)
             else:
                 lm._prepare(prob.state, prob, "qrkit")
-        (S,) = grams
+        matrices.append((name, df32, grams[0]))
+    matrices += [(f"{case} n={n}", False, gram_like(case, n))
+                 for case, n in EIGH_SYNTHETIC]
+    cases = []
+    for name, df32, S in matrices:
         w, V, info, sweeps = cuda_eigh.jacobi_eigh(S)
         graph = cuda_graph.DeviceGraph(dev)
         with torch.cuda.stream(graph.stream):
+            if counted:
+                cuda_eigh.prepare_capture(dev)
             cuda_eigh.jacobi_eigh(S)
         pred = torch.ones((), dtype=torch.bool, device=dev)
         out = {}
@@ -1393,6 +1484,14 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
         case["jacobi_ms"] = time_ms(lambda: cuda_eigh.jacobi_eigh(S), reps, int(2e7), flush)
         case["plain_ms"] = time_ms(lambda: torch.linalg.eigh(S), reps, int(2e7), flush)
         case["timing"] = f"median of {reps}, CUDA events, cold L2"
+        n = S.shape[0]
+        ops_ms, bytes_ms = 10 / 3 * n ** 3 / FP64_TENSOR_FLOP_PER_S * 1e3, 2 * n * n * 8 / bw * 1e3
+        case.update(bound_ms=max(ops_ms, bytes_ms),
+                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                    kernels=device_kernels(lambda: cuda_eigh.jacobi_eigh(S),
+                                           case["sweeps"]))
+        if counted:
+            case["per_sweep"] = eigh_counts(cuda_eigh, S)
         cases.append(case)
         emit({"phase": "eigh_capture", **case, "nvidia_smi": smi})
         tol = EIGH_RTOL_F32 if df32 else EIGH_RTOL
@@ -1401,6 +1500,9 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
         check(case["eigenvalue_gap"] <= tol and case["gram_gap"] <= tol,
               f"{where}: {case['eigenvalue_gap']}, {case['gram_gap']} above {tol}")
         check(case["replay_equal_eager"], f"{where}: the replay differs from eager")
+        check(not counted or (case["per_sweep"]["rotations"][-1:] == [0]
+                              and len(case["per_sweep"]["rotations"]) == case["sweeps"]),
+              f"{where}: the counters {case.get('per_sweep')} disagree with the sweeps")
     emit({"phase": "eigh_capture_done", "phase_s": time.perf_counter() - t_phase})
 
     t_phase = time.perf_counter()
@@ -1409,16 +1511,28 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
         cfg = lm.LMConfig(max_iter=2, **kw)
         lm.minimize(prob, "qrkit", dataclasses.replace(cfg, drive="jit", max_iter=1))
         capture = dict(lm.LAST_JIT_RUN)
-        host = timed_minimize(lm, cuda_chain, prob, "qrkit", cfg)
-        jit = timed_minimize(lm, cuda_chain, prob, "qrkit",
-                             dataclasses.replace(cfg, drive="jit"))
+        runs, eigh_calls = {}, {}
+        for drive in ("host", "jit"):
+            if counted:
+                cuda_eigh.reset_launches()
+            runs[drive] = timed_minimize(lm, cuda_chain, prob, "qrkit",
+                                         dataclasses.replace(cfg, drive=drive))
+            if counted:
+                eigh_calls[drive] = cuda_eigh.LAUNCHES["jacobi_eigh"]
+        host, jit = runs["host"], runs["jit"]
         h, j = host["res"], jit["res"]
         gap = abs(j.energy - h.energy) / abs(h.energy)
         reads, trials = chunks_and_trials(lm, j, cfg.chunk_size)
+        prepares = jit["jit"]["prepares"]
         emit({"phase": "jit_qrkit_rows_p257", "drive": "df32" if kw else "f64",
               "capture": capture, "host": summary(host), "jit": summary(jit),
-              "energy_rel_gap": gap, "tolerance": NCCL_RTOL, "nvidia_smi": smi})
+              "energy_rel_gap": gap, "tolerance": NCCL_RTOL,
+              "jacobi_eigh_launches": eigh_calls, "prepares": prepares,
+              "nvidia_smi": smi})
         where = f"jit_qrkit_rows_p257 {'df32' if kw else 'f64'}"
+        check(not counted or eigh_calls == {"host": prepares, "jit": prepares},
+              f"{where}: {eigh_calls} eigensolver calls, not one for each of "
+              f"{prepares} prepares")
         check((h.iterations, h.fun_evals, h.status) == (j.iterations, j.fun_evals, j.status)
               and gap <= NCCL_RTOL, f"{where}: host {h}, jit {j}")
         check((jit["jit"]["reads"], jit["jit"]["slots"]) == (reads, trials),
@@ -1813,6 +1927,10 @@ def main() -> None:
                 for name, path in (("p16", P16), ("p257", P257))}
     load_s = time.perf_counter() - t0
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    if sys.argv[1:] == ["--eigh-only"]:  # the eigensolver's phases
+        eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush, smi)
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        return
     if sys.argv[1:] == ["--jit-only"]:  # the device-resident drive's phases
         n, m, k_real = LADYBUG
         ladybug = (balgen.generate_bal_like(n, m, seed=n, mean_degree=k_real / m), 0.0)

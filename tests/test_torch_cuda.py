@@ -9,6 +9,7 @@ nothing of JAX, so it runs where only the port is installed.
 
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -21,8 +22,8 @@ from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 
 pytestmark = pytest.mark.cuda
 
-P16 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "data", "problem-16-22106-pre.txt.gz")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+P16 = os.path.join(ROOT, "data", "problem-16-22106-pre.txt.gz")
 
 
 @pytest.fixture(scope="module")
@@ -434,6 +435,110 @@ def test_jacobi_eigh_matches_plain(n):
         assert ((V * w) @ V.T - S).norm().item() <= tol * S.norm().item()
         assert (V.T @ V - torch.eye(n, dtype=torch.float64, device="cuda")
                 ).abs().max().item() <= 10 * tol
+
+
+def gram_like(case: str, n: int) -> torch.Tensor:
+    """chip_smoke.py's PSD matrix shaped like qrkit's camera grams: "null7"
+    (a 7-dimensional null space under 1e-16 noise) or "cluster" (a quarter
+    of the eigenvalues within 1e-10 of 1), from numpy's seed n."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    return chip_smoke.gram_like(case, n)
+
+
+@pytest.mark.parametrize("n", [10, 145, 1000, 2314])
+@pytest.mark.parametrize("case", ["null7", "cluster"])
+def test_jacobi_eigh_gram_like(case, n):
+    """The block Jacobi eigensolver on rank-deficient and clustered PSD
+    matrices of sizes that are no multiple of its padding (n = 10 is below
+    one block pair): the gates of test_jacobi_eigh_matches_plain, and the
+    clamped gram square root of schur._gram_sqrt_factor (Jacobi-scaled,
+    eigenvalues clamped at 0) gives C^T C within 1e-12 ||S|| of the same
+    clamped factor by torch.linalg.eigh."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_eigh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    S = gram_like(case, n)
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    ref = torch.linalg.eigh(S)[0]
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        w, V, info = cuda_eigh.eigh(S.to(dtype))
+        w, V = w.double(), V.double()
+        assert int(info) == 0
+        assert ((w - ref).abs().max() / ref.abs().max()).item() <= tol
+        assert ((V * w) @ V.T - S).norm().item() <= tol * S.norm().item()
+        assert (V.T @ V - eye).abs().max().item() <= 10 * tol
+    C = schur._gram_sqrt_factor(S)
+    d = torch.diagonal(S)
+    dinv = torch.where(d > 0, torch.rsqrt(d.abs() + torch.finfo(S.dtype).tiny),
+                       torch.ones_like(d))
+    Ss = S * dinv[:, None] * dinv[None, :]
+    wr, Vr = torch.linalg.eigh((Ss + Ss.T) / 2)
+    Cr = torch.sqrt(torch.clamp(wr, min=0.0))[:, None] * Vr.T / dinv[None, :]
+    assert (C.T @ C - Cr.T @ Cr).norm().item() <= 1e-12 * S.norm().item()
+
+
+@pytest.mark.parametrize("n", [145, 1000])
+def test_jacobi_eigh_replay_equals_eager(n):
+    """jacobi_eigh captured in a DeviceGraph (inside a conditional body, as
+    the jit drive holds it) and replayed gives the eager call's w, V and
+    info bit for bit. An eager call counts one launch; a captured call
+    counts one each time a replay runs it, none where the body is not
+    taken."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_eigh, cuda_graph
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    S = gram_like("null7", n)
+    cuda_eigh.reset_launches()
+    w, V, info, _ = cuda_eigh.jacobi_eigh(S)
+    assert cuda_eigh.LAUNCHES["jacobi_eigh"] == 1
+    graph = cuda_graph.DeviceGraph("cuda")
+    with torch.cuda.stream(graph.stream):
+        cuda_eigh.prepare_capture(torch.device("cuda"))
+        cuda_eigh.jacobi_eigh(S)
+    pred = torch.ones((), dtype=torch.bool, device="cuda")
+    out = {}
+
+    def body():
+        out["w"], out["V"], out["info"], _ = cuda_eigh.jacobi_eigh(S)
+
+    graph.capture(lambda: cuda_graph.device_if(pred, body))
+    cuda_eigh.reset_launches()
+    graph.replay()
+    graph.replay()
+    pred.fill_(False)
+    graph.replay()
+    torch.cuda.synchronize()
+    cuda_eigh.collect_graph_launches()
+    assert cuda_eigh.LAUNCHES["jacobi_eigh"] == 2
+    assert torch.equal(out["w"], w) and torch.equal(out["V"], V)
+    assert int(out["info"]) == int(info) == 0
+    graph.close()
+
+
+def test_jacobi_eigh_counters():
+    """The kernels' counters on a p16-sized matrix: every pair solve runs
+    one inner sweep (eigh.cu's INNER_SWEEPS), pairs rotate in every sweep
+    but the last, which rotates none and ends the solve."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_eigh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    S = gram_like("cluster", 145)
+    solves = (160 // 32) * (160 // 16 - 1)  # pairs x rounds a sweep, n_pad = 160
+    stats = torch.zeros((cuda_eigh.MAX_SWEEPS, 3), dtype=torch.int32, device="cuda")
+    w, V, info, sweeps = cuda_eigh.jacobi_eigh(S, stats=stats)
+    rows = stats[:int(sweeps)].tolist()
+    assert int(info) == 0 and 2 <= len(rows) < cuda_eigh.MAX_SWEEPS
+    assert rows[-1][0] == rows[-1][2] == 0
+    assert all(r[0] > 0 and r[2] > 0 for r in rows[:-1])
+    assert all(r[1] == solves for r in rows)
+    assert not stats[int(sweeps):].any()
 
 
 def test_sharded_jit_nccl_world_size_1_matches_single(p16_cuda):

@@ -79,8 +79,9 @@ def _free_port() -> int:
 
 def test_initialize_from_torchrun_environment():
     """Two processes started as torchrun starts them (RANK, WORLD_SIZE,
-    MASTER_ADDR, MASTER_PORT): ``multihost.initialize()`` with no
-    arguments forms the group; the all-reduce agrees; one coordinator."""
+    MASTER_ADDR, MASTER_PORT): ``multihost.initialize(backend="gloo")``
+    forms the group from the environment; the all-reduce agrees; one
+    coordinator."""
     port = _free_port()
     procs = []
     for rank in range(2):
@@ -108,11 +109,30 @@ def test_initialize_from_torchrun_environment():
 def test_initialize_without_configuration_runs_alone(monkeypatch):
     for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
-    assert multihost.initialize() is False
+    assert multihost.initialize(backend="gloo") is False
     assert not dist.is_initialized()
-    mesh = multihost.global_mesh()
-    assert (mesh.group, mesh.rank, mesh.size) == (None, 0, 1)
+    mesh = multihost.global_mesh(device="cpu")
+    assert (mesh.group, mesh.rank, mesh.size, mesh.device) == (None, 0, 1,
+                                                               torch.device("cpu"))
     assert multihost.is_coordinator()
+
+
+@pytest.mark.parametrize("call", ["initialize", "global_mesh"])
+def test_no_cuda_and_no_explicit_cpu_choice_raises(monkeypatch, call):
+    """Without CUDA, ``initialize()`` with no backend and ``global_mesh()``
+    with no device raise, naming the CPU choice, and start nothing; the
+    explicit choice runs."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = getattr(multihost, call)
+    with pytest.raises(RuntimeError, match="gloo" if call == "initialize" else "cpu"):
+        fn()
+    assert not dist.is_initialized()
+    if call == "initialize":
+        assert fn(backend="gloo") is False
+    else:
+        assert fn(device="cpu").device == torch.device("cpu")
 
 
 def test_failed_rank_fails_the_group():

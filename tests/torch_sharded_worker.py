@@ -130,7 +130,7 @@ def group_all_reduce(rank: int, device) -> dict:
     """An all-reduce of rank + 1 and the multihost view of the group."""
     t = torch.tensor([float(rank + 1)], device=device)
     dist.all_reduce(t)
-    mesh = multihost.global_mesh()
+    mesh = multihost.global_mesh(device=device)
     return {"sum": float(t.item()), "coordinator": multihost.is_coordinator(),
             "rank": mesh.rank, "size": mesh.size, "pid": os.getpid()}
 
@@ -164,8 +164,8 @@ def all_reduce_for(rank: int, device, rounds: int, pause: float) -> dict:
 
 def env_worker_main() -> None:
     """A torchrun-style rank (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT in
-    the environment): ``multihost.initialize()`` with no arguments, one
-    all-reduce, one JSON line."""
+    the environment): ``multihost.initialize(backend="gloo")``, the rest
+    from the environment, one all-reduce, one JSON line."""
     assert multihost.initialize(backend="gloo", timeout=60.0)
     out = group_all_reduce(dist.get_rank(), torch.device("cpu"))
     dist.destroy_process_group()
