@@ -18,9 +18,13 @@ Entry point::
     res = lm.minimize(prob, mode="cholesky",
                       config=lm.LMConfig(matmul_dtype="float32", geometry="df32"))
 
-``minimize`` runs on the CUDA device unless ``device="cpu"`` is passed.
-The command line (``cli.py``) runs the same: ``python -m
-bundleadjustment_benchmarks_tpu_torch.cli <BAL file> [--device cpu]``.
+``minimize`` runs on the CUDA device unless ``device="cpu"`` is passed,
+on the device-resident LM drive (``LMConfig.drive="jit"``, the JAX
+package's default: one captured CUDA graph per problem, replayed) unless
+the config names ``drive="host"``. The command line (``cli.py``) runs the
+same, on the host drive unless ``--drive jit`` is given, as the JAX
+command line does: ``python -m bundleadjustment_benchmarks_tpu_torch.cli
+<BAL file> [--device cpu]``.
 """
 
 import torch

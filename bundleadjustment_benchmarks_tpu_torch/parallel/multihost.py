@@ -17,7 +17,9 @@ are replicated, so no per-observation data crosses ranks.
 ``run_ranks`` starts the ranks of one machine from a single process (the
 command line's ``--shards``, the dry run, the tests): NCCL between distinct
 GPUs, gloo on the CPU or where ranks share one GPU (NCCL refuses two ranks
-on one device).
+on one device). A gloo group on CUDA cannot run the jit drive, which is
+``lm.LMConfig``'s default: ranks that share a GPU pass
+``LMConfig(drive="host")`` to ``minimize_sharded``.
 """
 
 from __future__ import annotations

@@ -206,8 +206,10 @@ class AllReduce(schur.Reduce):
 
 def make_sharded_kernels(sp: ShardedProblem, mode: str = "cholesky",
                          config: Optional[lm.LMConfig] = None):
-    """``lm.lm_loop``'s (prepare, trial) on this rank's shard for
-    ``config``'s drive; the loop state is ``sp.problem.state`` (through
+    """The (prepare, trial) step functions on this rank's shard for
+    ``config``'s geometry and mode (default ``lm.LMConfig()``), which
+    ``lm.lm_loop`` and ``lm.DeviceLoop`` drive alike; the loop state is
+    ``sp.problem.state`` (through
     ``models.problem.to_fast`` on the df32 drive). Every rank of the group
     must call them in step."""
     prepare, trial, _, _ = lm.step_functions(
@@ -238,11 +240,13 @@ def minimize_sharded(sp: ShardedProblem, mode: str = "cholesky",
     state and pass its meta as ``resume``). ``config.refine_steps`` raises:
     the JAX package's sharded solve has no refinement either.
 
-    ``config.drive == "jit"`` routes as the JAX package does (its
-    sharded.py:902-929): with ``checkpoint_path``, ``metrics_path`` or
-    ``resume`` the host drive, otherwise ``lm.DeviceLoop`` on this rank's
-    shard, its collectives captured into the CUDA graph (an NCCL group; a
-    gloo group on CUDA raises, see ``check_graph_backend``) and no
+    ``config.drive == "jit"``, the default (``lm.LMConfig()``), routes as
+    the JAX package does (its sharded.py:902-929): with ``checkpoint_path``,
+    ``metrics_path`` or ``resume`` the host drive, otherwise
+    ``lm.DeviceLoop`` on this rank's shard, its collectives captured into
+    the CUDA graph (an NCCL group; a gloo group on CUDA, as ranks that
+    share one card get, raises, see ``check_graph_backend``: such ranks
+    pass ``LMConfig(drive="host")``) and no
     iteration table, as JAX's ``lm_loop`` writes none; on the CPU the loop
     runs eagerly. A collective in a replay is not watched by torch's NCCL
     timeout: a rank that hangs holds the others at their next chunk read,

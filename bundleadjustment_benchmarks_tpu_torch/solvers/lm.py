@@ -20,20 +20,21 @@ drive) and then damping ``trial``s (the reduced solve, the manifold step and
 the trial energy, ``cuda_chain.fused_energy`` on the df32 drive). Two drives
 run that control flow (``LMConfig.drive``):
 
-  * "host" (``lm_loop``, the default): plain Python over device-resident
-    tensors. The host reads the trial energy and rho's denominator once per
-    trial (with the outer energy on the first trial) for the accept test,
-    and a float32 Cholesky camera solve reads its breakdown flag once. LM
-    scalars are Python floats (float64).
-  * "jit" (``DeviceLoop``, the JAX package's default and bench.py's drive,
-    JAX lm.py:286-786): the LM scalars are float64 device tensors and every
-    decision is taken on the device; on CUDA one chunk of ``chunk_size``
-    iterations (a loop of damping trials with their control flow) is
-    captured once into a CUDA graph with conditional nodes
+  * "jit" (``DeviceLoop``, the default, as in the JAX package, and
+    bench.py's drive, JAX lm.py:286-786): the LM scalars are float64 device
+    tensors and every decision is taken on the device; on CUDA one chunk of
+    ``chunk_size`` iterations (a loop of damping trials with their control
+    flow) is captured once into a CUDA graph with conditional nodes
     (``ops/cuda_graph.py``) and replayed, and the host reads the state once
-    per chunk. Its table, JSONL records and
-    checkpoints follow JAX's chunked drive. Same arithmetic as the host
-    drive: on one device the two give the same LM path.
+    per chunk. Its table, JSONL records and checkpoints follow JAX's
+    chunked drive. The graph is cached for the problem (``_device_loop``).
+  * "host" (``lm_loop``; the command line's default, as JAX's): plain
+    Python over device-resident tensors. The host reads the trial energy
+    and rho's denominator once per trial (with the outer energy on the
+    first trial) for the accept test, and a float32 Cholesky camera solve
+    reads its breakdown flag once. LM scalars are Python floats (float64).
+    Same arithmetic as the jit drive: on one device the two give the same
+    LM path.
 
 The loop also carries the host drive's observability (JAX lm.py:792-939):
 the reference's per-trial iteration table (``LMConfig.verbose``), one JSONL
@@ -54,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import gc
 import json
 import math
 import time
@@ -128,12 +130,12 @@ class LMConfig:
     #: Raise FloatingPointError at the first non-finite energy or rho
     #: denominator the loop reads (the counterpart of jax_debug_nans).
     debug_nans: bool = False
-    #: "host": the Python loop, one host read per trial (``lm_loop``);
-    #: "jit": the device-resident drive, JAX's default and bench.py's drive
-    #: (``DeviceLoop``): on CUDA every prepare and trial runs from one
-    #: captured CUDA graph with conditional nodes, and the host reads the LM
-    #: scalars once per chunk.
-    drive: str = "host"
+    #: "jit", the default as in JAX (JAX lm.py:92), and bench.py's drive:
+    #: the device-resident drive (``DeviceLoop``); on CUDA every prepare and
+    #: trial runs from one captured CUDA graph with conditional nodes, and
+    #: the host reads the LM scalars once per chunk. "host": the Python
+    #: loop, one host read per trial (``lm_loop``).
+    drive: str = "jit"
     #: Outer iterations per host read of the jit drive (JAX lm.py:139-143).
     chunk_size: int = 16
 
@@ -903,7 +905,9 @@ class DeviceLoop:
 #: Captured drives by (device, the caller's problem object, mode, config
 #: without its limits, the reduce's capture key), so that warm-up, timed
 #: and polish runs reuse one capture. Each entry keeps its problem alive,
-#: so its id is not reused.
+#: so its id is not reused. The cache holds the captures of one problem per
+#: device and group: capturing another problem's frees the older problem's
+#: entries (``_device_loop``).
 _GRAPHS: dict = {}
 #: What the last jit-drive run did: capture_s (0 where the capture was
 #: cached or on the CPU), captured (this run captured), replays (chunks run:
@@ -919,9 +923,24 @@ def clear_graphs(sharded_only: bool = False) -> None:
     """Free the cached jit-drive graphs and their memory pools: all, or
     those that hold collectives. Free the latter before their process group
     is destroyed (``multihost.run_ranks`` does)."""
-    for key in list(_GRAPHS):
-        if key[-1] is not None or not sharded_only:
-            _GRAPHS.pop(key)[1].close()
+    _free([key for key in _GRAPHS if key[-1] is not None or not sharded_only])
+
+
+def _free(keys) -> None:
+    """Close the graphs of ``keys`` and hand their pools back to the device."""
+    if not keys:
+        return
+    for key in keys:
+        _GRAPHS.pop(key)[1].close()
+    gc.collect()  # a loop's tensors in reference cycles hold pool blocks
+    torch.cuda.empty_cache()
+
+
+def _free_other_problems(key, problem) -> None:
+    """Free the cached captures of every problem but ``problem`` on the
+    device and group of ``key`` (a ``_graph_key``)."""
+    _free([k for k, (p, _) in _GRAPHS.items()
+           if k[0] == key[0] and k[-1] == key[-1] and p is not problem])
 
 
 def _graph_key(problem, mode, config, x0, dev, reduce=schur.LOCAL):
@@ -936,7 +955,16 @@ def _device_loop(problem, mode, config, x0, dev, prepare, trial,
                  reduce: schur.Reduce = schur.LOCAL):
     """(DeviceLoop, capture seconds or 0.0 where cached). ``problem`` is the
     caller's object (the cache key), ``prepare`` and ``trial`` are its step
-    functions on ``dev`` with ``reduce``."""
+    functions on ``dev`` with ``reduce``.
+
+    A capture for one problem frees the cached captures of every other
+    problem on the same device and group (the Ladybug stand-in's pool holds
+    11.62 GB on an H100), so a process that minimizes problems in turn
+    holds one problem's pools, one for each mode and config it runs on
+    that problem. The entries are not freed when their problem is
+    collected instead: the cached loop's step functions hold the problem,
+    so a weak reference to it would never die while the cache holds the
+    loop."""
     if dev.type != "cuda":
         return DeviceLoop(x0, prepare, trial, config, dev, reduce), 0.0
     reduce.check_capture(dev)
@@ -944,6 +972,7 @@ def _device_loop(problem, mode, config, x0, dev, prepare, trial,
     hit = _GRAPHS.get(key)
     if hit is not None:
         return hit[1], 0.0
+    _free_other_problems(key, problem)
     loop = DeviceLoop(x0, prepare, trial, config, dev, reduce)
     capture_s = loop.capture(config.use_kernels(dev))
     _GRAPHS[key] = (problem, loop)
@@ -986,10 +1015,11 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     problem is the rank's slice and the result's state too; checkpoints
     hold every rank's points and only rank 0 prints and writes.
 
-    ``config.drive == "jit"`` runs the device-resident drive
+    ``config.drive == "jit"`` (the default) runs the device-resident drive
     (``DeviceLoop``): on CUDA its graph is captured at the first call for
     (problem, mode, config without limits, the reduce's group) and replayed
-    by later ones (``clear_graphs`` frees them); checkpoints fall at the
+    by later ones, until a capture for another problem on the device frees
+    it (``_device_loop``; ``clear_graphs`` frees all); checkpoints fall at the
     first chunk end at or past each multiple of ``checkpoint_every`` (25
     where 0 is given with a path), as in JAX's chunked drive. On a shard it
     routes as the JAX package's ``minimize_sharded``: a run with

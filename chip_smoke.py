@@ -6,8 +6,13 @@ Builds the chain kernels from ``bundleadjustment_benchmarks_tpu_torch/ops/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
 in-repo BAL stand-ins, drives ``lm.minimize(mode="cholesky")`` on the df32
 drive (kernels on, p257 stand-in) and on the float64 drive (p16 stand-in),
-then the other four solver modes (``modes_df32_p257``, ``modes_f64_p16``),
-every solve realization against cholesky's step (``modes_agree_p16``),
+both on the host LM drive, then ``lm.minimize`` with ``LMConfig()``'s
+defaults, whose LM drive is the device-resident one, against explicit jit
+and host runs on p257, float64 and df32, and the graph cache's bound over
+p16, p126 and p257 (``default_drive``), float64 cholesky on p126 and p257
+against the scipy oracle's logged prefix on both LM drives
+(``oracle_prefix``), then the other four solver modes
+(``modes_df32_p257``, ``modes_f64_p16``), every solve realization against cholesky's step (``modes_agree_p16``),
 qrkit's "rows" and "pair" forms (``qrkit_forms_p257``) and spqr's "gram"
 and "tsqr" forms (``spqr_forms_p257``), then the command line in-process
 (``cli.main``): p257 with ``--precision mixed``, a checkpoint and its resume
@@ -51,7 +56,10 @@ archive`` of an older checkout, times that checkout's eigensolver there.
 Each phase prints JSON lines with its wall time; then come one line of
 per-kernel numbers (the kernel's and its entry point's device
 time, the host time to issue one call, the device operations one call
-issues, which must be 1, and the launch shape), and last
+issues, which must be 1 in a CUDA graph of one call and in every profile
+of 10 that records any, the launch shape, and the
+launches of the default drive's df32 run; the eigensolver's entry beside
+them), and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
 or without the package beside it, it exits non-zero before printing any
 result. Imports nothing of JAX.
@@ -61,6 +69,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import gzip
 import hashlib
@@ -165,15 +174,23 @@ def host_us(fn, calls: int = 100) -> float:
     return statistics.median(times) * 1e6
 
 
-def device_ops_per_call(fn, profiles: int = 3) -> dict:
+#: Host time kept inside each profile before the call and after its
+#: synchronize (``device_ops_per_call``).
+PROFILE_PAD_S = 2e-3
+#: Profiles per entry point of the one-operation gate.
+PROFILES = 10
+
+
+def device_ops_per_call(fn, profiles: int = PROFILES) -> dict:
     """Device kernels and memory operations one call of ``fn`` issues, as
     ``torch.profiler`` records them in each of ``profiles`` profiles (after
     a warm-up call): ``kernels_per_call``, the count the profiles that
     recorded any device activity agree on (None where they disagree or
-    none did), and ``empty_profiles``, how many recorded none. On the H100
-    one profile of ``fused_energy`` came back empty in one full run of this
-    script, though the call's kernel ran (its energy was checked), and the
-    cause is not known; the gate allows one empty profile in three."""
+    none did), ``empty_profiles``, how many recorded none, and ``counts``.
+    Each profile holds the host ``PROFILE_PAD_S`` seconds before the call
+    and after its synchronize. A profile of one call still comes back empty
+    now and then, padded or not (PERF.md, PR 11), so the gate counts the
+    call's operations in a CUDA graph too (``graph_ops_per_call``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -183,13 +200,90 @@ def device_ops_per_call(fn, profiles: int = 3) -> dict:
     for _ in range(profiles):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         counts.append(sum(e.device_type == DeviceType.CUDA
                           for e in prof.events()))
     seen = {c for c in counts if c}
     return {"kernels_per_call": seen.pop() if len(seen) == 1 else None,
-            "empty_profiles": counts.count(0)}
+            "empty_profiles": counts.count(0), "profiles": profiles,
+            "counts": counts}
+
+
+#: cuGraphNodeGetType's value of a kernel node (cuda.h).
+CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h, CUDA 12)."""
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("gridDimX", "gridDimY", "gridDimZ",
+                                     "blockDimX", "blockDimY", "blockDimZ",
+                                     "sharedMemBytes")] + [
+        ("kernelParams", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernel_names(raw_graph) -> list:
+    """The function names of the kernel nodes of a ``cudaGraph_t`` (an
+    int), read through the CUDA driver API, which knows every module's kernels
+    whichever runtime launched them."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        err = getattr(cu, name)(*args)
+        if err:
+            raise RuntimeError(f"{name} failed: CUresult {err}")
+
+    graph, n = ctypes.c_void_p(raw_graph), ctypes.c_size_t()
+    call("cuGraphGetNodes", graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        params, name = _KernelNodeParams(), ctypes.c_char_p()
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+             ctypes.byref(params))
+        if params.func:
+            call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params.func))
+        else:
+            call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params.kern))
+        names.append(name.value.decode())
+    return names
+
+
+def graph_ops_per_call(fn, which: str) -> dict:
+    """One call of ``fn`` (an entry point of the chain kernel ``which``)
+    captured into a CUDA graph on the port's capture stream, after a warm-up
+    call there: ``graph_node_types``, its nodes by type
+    (``cuda_graph.node_types``), ``graph_kernels``, the names of its kernel
+    nodes, and ``graph_ops_per_call``, how many of them run ``which``'s
+    kernel. While it captures, the wrapper adds one more kernel node of its
+    own, the graph launch counter's increment (``cuda_chain.launch``), so
+    one call that issues one device operation gives {"kernel": 2}."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, cuda_graph
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with torch.cuda.stream(cuda_graph.capture_stream(dev)):
+        cuda_chain.prepare_capture(dev)
+        fn()
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.capture_begin()
+        fn()
+        graph.capture_end()
+    raw = graph.raw_cuda_graph()
+    _, by_type = cuda_graph.node_types(raw)
+    names = graph_kernel_names(raw)
+    del graph
+    return {"graph_node_types": by_type, "graph_kernels": names,
+            "graph_ops_per_call": sum(f"{which}_kernel" in n for n in names)}
 
 
 def time_entry_points(cuda_chain, fast, obs, tau2, flush) -> dict:
@@ -198,7 +292,8 @@ def time_entry_points(cuda_chain, fast, obs, tau2, flush) -> dict:
     (``fused_blocks_energy`` / ``fused_energy`` on a FastBAState), both by
     ``time_ms``; ``host_us`` of the entry point; ``kernels_per_call``, the
     device operations one entry-point call issues, and ``empty_profiles``
-    (``device_ops_per_call``)."""
+    (``device_ops_per_call``); the call in a CUDA graph
+    (``graph_ops_per_call``)."""
     sleep = int(2e7)  # ~10 ms: longer than the host's enqueue
     ops = cuda_chain.chain_operands(fast, obs)
     entry = {"chain_blocks": lambda: cuda_chain.fused_blocks_energy(fast, obs, tau2),
@@ -211,6 +306,7 @@ def time_entry_points(cuda_chain, fast, obs, tau2, flush) -> dict:
             "entry_ms": time_ms(fn, 20, sleep, flush),
             "host_us": host_us(fn),
             **device_ops_per_call(fn),
+            **graph_ops_per_call(fn, which),
         }
     return out
 
@@ -243,7 +339,7 @@ def drive_mode(pm, lm, cuda_chain, prob, mode: str, max_iter: int,
     """``lm.minimize(mode)`` after a one-iteration warm-up, timed, with the
     chain kernels' launches and the peak device memory of the run, then the
     stage medians at its final state and lambda. Returns (line, result)."""
-    kw = dict(matmul_dtype="float32", geometry="df32") if df32 else {}
+    kw = dict(drive="host", **(DF32 if df32 else {}))
     lm.minimize(prob, mode=mode, config=lm.LMConfig(max_iter=1, **kw))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -712,7 +808,8 @@ def sharded_rank(rank, device, problems, runs, checkpoint_path=None) -> list:
                 problems[run["problem"]], n, rank, device=device)
         sp = shards[run["problem"]]
         shard_s = time.perf_counter() - t0
-        cfg = lm.LMConfig(max_iter=run["iters"], **run.get("config", {}))
+        cfg = lm.LMConfig(max_iter=run["iters"],
+                          **{"drive": "host", **run.get("config", {})})
         if run.get("refused"):  # a run that must raise ValueError
             try:
                 sharded.minimize_sharded(sp, run["mode"], cfg)
@@ -773,7 +870,8 @@ def single_runs(lm, problems, runs) -> dict:
     out = {}
     for run in runs:
         prob = problems[run["problem"]]
-        cfg = lm.LMConfig(max_iter=run["iters"], **run.get("config", {}))
+        cfg = lm.LMConfig(max_iter=run["iters"],
+                          **{"drive": "host", **run.get("config", {})})
         res = lm.minimize(prob, run["mode"], cfg)
         first = None
         if run.get("bytes"):
@@ -916,7 +1014,8 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
             groups[d] = summarize(lines, single, e0)
             groups[d]["group_s"] = time.perf_counter() - t0
         state, meta = checkpoint.load_checkpoint(ck, device="cuda")
-    resumed = lm.minimize(p257, "cholesky", lm.LMConfig(max_iter=6, **DF32),
+    resumed = lm.minimize(p257, "cholesky",
+                          lm.LMConfig(drive="host", max_iter=6, **DF32),
                           state=state, resume=meta)
     for d, group in groups.items():
         for name, run in group.items():
@@ -1257,7 +1356,7 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
     for name, iters, kw_mode in (("p257", 5, kw), ("p16", 10, {})):
         prob = problems[name]
         for mode in MODES:
-            cfg = lm.LMConfig(max_iter=iters, **kw_mode)
+            cfg = lm.LMConfig(drive="host", max_iter=iters, **kw_mode)
             if kw_mode:
                 e0_m = cuda_chain.fused_energy(pm.to_fast(prob.state), prob.obs,
                                                prob.tau2).item()
@@ -1296,7 +1395,7 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
     lm.minimize(lady, "cholesky", lm.LMConfig(drive="jit", max_iter=1, **kw))
     capture = dict(lm.LAST_JIT_RUN,
                    reserved_by_capture=torch.cuda.memory_reserved() - reserved0)
-    cfg = lm.LMConfig(max_iter=3, **kw)
+    cfg = lm.LMConfig(drive="host", max_iter=3, **kw)
     host = timed_minimize(lm, cuda_chain, lady, "cholesky", cfg)
     jit = timed_minimize(lm, cuda_chain, lady, "cholesky",
                          dataclasses.replace(cfg, drive="jit"))
@@ -1355,7 +1454,9 @@ def eigh_gaps(S, w, V) -> dict:
     S64, w64, V64 = S.double(), w.double(), V.double()
     ref = torch.linalg.eigh(S64)[0]
     C = torch.sqrt(torch.clamp(w64, min=0.0))[:, None] * V64.T
-    return {"eigenvalue_gap": ((w64 - ref).abs().max() / ref.abs().max()).item(),
+    err = (w64 - ref).abs().max()
+    return {"eigenvalue_gap": (err / ref.abs().max()).item(),
+            "eigenvalue_abs_err": err.item(),
             "gram_gap": ((C.T @ C - S64).norm() / S64.norm()).item()}
 
 
@@ -1424,7 +1525,7 @@ def eigh_counts(cuda_eigh, S) -> dict:
 
 
 def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
-                smi) -> None:
+                smi) -> dict:
     """``eigh_capture``: the block Jacobi eigensolver on the grams that
     qrkit's prepare factors without pair tables (p16: n = 145, p257: n =
     2,314, float64; p257's float32 gram of the df32 drive) and on the
@@ -1437,7 +1538,10 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
     without its pair tables on the jit drive takes the host drive's path,
     df32 and float64, and calls the kernels once a prepare on both drives.
     An older checkout's ``cuda_eigh``, from before its launch counter and
-    sweep statistics, is timed and checked without them."""
+    sweep statistics, is timed and checked without them. Returns the
+    eigensolver's entry of the ``kernels`` line: the p257 float64 gram's
+    numbers, and the calls the jit drive made in ``jit_qrkit_rows_p257``
+    at float64."""
     counted = hasattr(cuda_eigh, "LAUNCHES")
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1539,6 +1643,15 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
               f"{where}: {jit['jit']}")
         lm.clear_graphs()
     emit({"phase": "jit_qrkit_rows_p257_done", "phase_s": time.perf_counter() - t_phase})
+    gram = next(c for c in cases if c["problem"] == "p257" and c["drive"] == "f64")
+    return {"name": "jacobi_eigh", "route": "cuda",
+            "source": "bundleadjustment_benchmarks_tpu_torch/ops/csrc/eigh.cu",
+            "replaces": "bundleadjustment_benchmarks_tpu/solvers/schur.py:938",
+            "launches": eigh_calls.get("jit"),
+            "max_abs_err": gram["eigenvalue_abs_err"], "ms": gram["jacobi_ms"],
+            "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
+            "bound_by": gram["bound_by"], "library_ms": gram["plain_ms"],
+            "n": gram["n"], "gram_gap": gram["gram_gap"]}
 
 
 # -- the sharded jit drive ---------------------------------------------------------
@@ -1772,6 +1885,129 @@ def flatline_phase(campaign, cuda_chain, smi) -> None:
     emit({"phase": "flatline_p16_f64_done", "phase_s": time.perf_counter() - t_phase})
 
 
+def same_state(a, b) -> bool:
+    """Two BAStates equal bit for bit."""
+    return all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("K", "R", "T", "k1", "k2", "points"))
+
+
+def default_drive_phase(pm, lm, cuda_chain, problems, p126, smi) -> dict:
+    """``default_drive``: p257 cholesky with ``LMConfig()``'s defaults (20
+    iterations), float64 and df32: the default takes the jit drive (a
+    warm-up captures, every later run replays), equals an explicit
+    ``drive="jit"`` run bit for bit and an explicit ``drive="host"`` run
+    (float64: the same counts and energy, gap 0.0; df32: ``hold_jit``'s
+    gate); LM it/s of the default and of the host drive, alternated (D, H,
+    H, D, D, H). Then the graph cache's bound: the default float64 config
+    (2 iterations) on p16, p126, p257 and p16 again, the cached entries and
+    ``torch.cuda.memory_reserved()`` after each. Returns the df32 default
+    run's chain-kernel launches: the main path's."""
+    t_phase = time.perf_counter()
+    p257 = problems["p257"]
+    launches = None
+    for name, kw in (("f64", {}), ("df32", DF32)):
+        default = lm.LMConfig(max_iter=20, **kw)
+        check(default.drive == "jit", f"default_drive: LMConfig().drive is "
+              f"{default.drive!r}")
+        host_cfg = dataclasses.replace(default, drive="host")
+        lm.clear_graphs()
+        lm.minimize(p257, "cholesky", dataclasses.replace(default, max_iter=2))
+        capture = dict(lm.LAST_JIT_RUN)
+        lm.minimize(p257, "cholesky", dataclasses.replace(host_cfg, max_iter=2))
+        runs = {"default": [], "host": []}
+        for d in ("default", "host", "host", "default", "default", "host"):
+            runs[d].append(timed_minimize(lm, cuda_chain, p257, "cholesky",
+                                          default if d == "default" else host_cfg))
+        explicit = timed_minimize(lm, cuda_chain, p257, "cholesky",
+                                  dataclasses.replace(default, drive="jit"))
+        d0, h0, j = runs["default"][0]["res"], runs["host"][0]["res"], explicit["res"]
+        line = {"phase": "default_drive", "problem": "p257", "mode": "cholesky",
+                "drive": name, "capture": capture,
+                "default_it_per_s": [r["it_per_s"] for r in runs["default"]],
+                "host_it_per_s": [r["it_per_s"] for r in runs["host"]],
+                "default": [summary(r) for r in runs["default"]],
+                "host": [summary(r) for r in runs["host"]],
+                "default_equals_explicit_jit": all(
+                    same_state(r["res"].state, j.state) and r["res"].energy == j.energy
+                    for r in runs["default"]),
+                "host_rel_gap": abs(d0.energy - h0.energy) / abs(h0.energy),
+                "host_state_equal": same_state(d0.state, h0.state),
+                "nvidia_smi": smi}
+        if kw:
+            e0 = cuda_chain.fused_energy(pm.to_fast(p257.state), p257.obs,
+                                         p257.tau2).item()
+            line["gate"] = hold_jit(lm, p257, "cholesky", host_cfg, runs["host"][0],
+                                    runs["default"][0], e0, "default_drive df32")
+            launches = runs["default"][0]["launches"]
+            line["launches"] = launches
+        emit(line)
+        where = f"default_drive {name}"
+        check(capture["captured"] and capture["replays"] > 0,
+              f"{where}: the default config did not capture and replay ({capture})")
+        check(all(r["jit"]["replays"] > 0 and not r["jit"]["captured"]
+                  for r in runs["default"]),
+              f"{where}: a default run did not replay the cached graph")
+        check(line["default_equals_explicit_jit"],
+              f"{where}: the default differs from an explicit jit run")
+        check((d0.iterations, d0.fun_evals, d0.status)
+              == (h0.iterations, h0.fun_evals, h0.status),
+              f"{where}: default {d0}, host {h0}")
+        if not kw:
+            check(line["host_rel_gap"] == 0.0,
+                  f"{where}: default and host {line['host_rel_gap']} apart")
+    for which, count in launches.items():
+        check(count > 0, f"default_drive df32: {which} was not launched")
+    lm.clear_graphs()
+
+    cache = []
+    small = dataclasses.replace(lm.LMConfig(), max_iter=2)
+    for name, prob in (("p16", problems["p16"]), ("p126", p126),
+                       ("p257", p257), ("p16", problems["p16"])):
+        lm.minimize(prob, "cholesky", small)
+        torch.cuda.synchronize()
+        cache.append({"problem": name, "captured": lm.LAST_JIT_RUN["captured"],
+                      "graphs_cached": lm.LAST_JIT_RUN["graphs_cached"],
+                      "entries": len(lm._GRAPHS),
+                      "memory_reserved": torch.cuda.memory_reserved(),
+                      "memory_allocated": torch.cuda.memory_allocated()})
+    lm.clear_graphs()
+    emit({"phase": "default_drive_graph_cache", "runs": cache, "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
+    check(all(c["captured"] and c["graphs_cached"] == c["entries"] == 1
+              for c in cache),
+          f"default_drive: the graph cache holds more than one problem: {cache}")
+    check(cache[3]["memory_reserved"] <= cache[0]["memory_reserved"] * 1.1,
+          "default_drive: reserved memory grew from p16 to p16 again: "
+          f"{cache[0]['memory_reserved']} -> {cache[3]['memory_reserved']}")
+    return launches
+
+
+def oracle_prefix_phase(oracle_prefix, loaded, smi) -> None:
+    """``oracle_prefix``: float64 cholesky on p126 and p257 to the scipy
+    oracle's logged iterations, on both LM drives
+    (``oracle_prefix.run_row``; ``loaded``: ``oracle_prefix.load`` of each),
+    each row within ``oracle_prefix.CHOLESKY`` and the host drive's path
+    equal to the jit drive's."""
+    t_phase = time.perf_counter()
+    rows = [oracle_prefix.run_row(key, "cholesky", drive, "cuda", loaded[key])
+            for key in ("p126", "p257") for drive in oracle_prefix.LM_DRIVES]
+    for row in rows:
+        emit({"phase": "oracle_prefix", **{k: row[k] for k in (
+            "key", "mode", "lm_drive", "iterations", "fun_evals", "energy",
+            "wall_s", "jit", "gaps", "budget", "within", "matched")},
+            "nvidia_smi": smi})
+        check(row["within"], f"oracle_prefix {row['key']} {row['lm_drive']}: "
+              f"{row['gaps']} outside {row['budget']}")
+    by = {(r["key"], r["lm_drive"]): r for r in rows}
+    for key in ("p126", "p257"):
+        host, jit = by[(key, "host")], by[(key, "jit")]
+        check([p["port_energy"] for p in host["pairs"]]
+              == [p["port_energy"] for p in jit["pairs"]]
+              and host["matched"]["port"] == jit["matched"]["port"],
+              f"oracle_prefix {key}: the host and jit drives part")
+    emit({"phase": "oracle_prefix_done", "phase_s": time.perf_counter() - t_phase})
+
+
 def ellipse_phase(lm, smi) -> None:
     """``ellipse``: ``examples/ellipse_fitting_torch.py`` on the card, held
     to tests/test_examples.py's assertions, and its gap to the same fit on
@@ -1875,6 +2111,7 @@ def main() -> None:
                  f"(missing {PACKAGE.name}/ or data/ beside {Path(__file__).name})")
     sys.path.insert(0, str(HERE))
     import flatline_campaign
+    import oracle_prefix
     from bundleadjustment_benchmarks_tpu_torch import cli
     from bundleadjustment_benchmarks_tpu_torch.io import bal
     from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
@@ -2019,19 +2256,24 @@ def main() -> None:
         check(c["energy_repeats_identical"] and c["blocks_energy_repeats_identical"],
               f"{where}: repeat launches gave different energies")
     for which, k in kern.items():
-        check(k["kernels_per_call"] == 1 and k["empty_profiles"] <= 1,
+        check(k["graph_ops_per_call"] == 1
+              and k["graph_node_types"] == {"kernel": 2},
+              f"{which}: a CUDA graph of one entry-point call holds "
+              f"{k['graph_node_types']} with kernels {k['graph_kernels']}, not "
+              f"one {which} kernel and the launch counter's")
+        check(k["kernels_per_call"] == 1,
               f"{which}: one entry-point call issued {k['kernels_per_call']} "
-              f"device operations, not 1 ({k['empty_profiles']} of 3 "
-              "profiles empty)")
+              f"device operations, not 1, in the profiles that recorded any "
+              f"({k['counts']})")
 
     # -- main path, df32 drive with the kernels, p257 ---------------------------
     t_phase = time.perf_counter()
     p257 = problems["p257"]
-    cfg = lm.LMConfig(max_iter=20, matmul_dtype="float32", geometry="df32")
+    cfg = lm.LMConfig(drive="host", max_iter=20, **DF32)
     check(cfg.use_kernels(dev), "the df32 drive does not select the kernels")
     e0 = cuda_chain.fused_energy(pm.to_fast(p257.state), p257.obs, p257.tau2).item()
-    lm.minimize(p257, mode="cholesky", config=lm.LMConfig(
-        max_iter=2, matmul_dtype="float32", geometry="df32"))  # warm-up
+    lm.minimize(p257, mode="cholesky",
+                config=dataclasses.replace(cfg, max_iter=2))  # warm-up
     torch.cuda.synchronize()
     cuda_chain.reset_launches()
     t0 = time.perf_counter()
@@ -2069,16 +2311,15 @@ def main() -> None:
           "df32 p257: final points not finite of shape (M, 3)")
     for which, count in launches.items():
         check(count > 0, f"{which} was not launched on the main path")
-    kern["chain_blocks"]["launches"] = launches["chain_blocks"]
-    kern["chain_energy"]["launches"] = launches["chain_energy"]
+    for which in kern:
+        kern[which]["launches_main_df32_host"] = launches[which]
 
     # The same drive on p16 with the kernels and with the plain chain.
     t_phase = time.perf_counter()
     p16 = problems["p16"]
     runs = {}
     for kernels in (True, False):
-        c = lm.LMConfig(max_iter=10, matmul_dtype="float32", geometry="df32",
-                        kernels=kernels)
+        c = lm.LMConfig(drive="host", max_iter=10, kernels=kernels, **DF32)
         runs[kernels] = lm.minimize(p16, mode="cholesky", config=c)
     gap = abs(runs[True].energy - runs[False].energy) / runs[False].energy
     emit({"phase": "main_df32_p16_kernels_vs_plain",
@@ -2091,9 +2332,10 @@ def main() -> None:
 
     # -- main path, float64 drive, p16 ------------------------------------------
     t_phase = time.perf_counter()
-    cfg64 = lm.LMConfig(max_iter=10)
+    cfg64 = lm.LMConfig(drive="host", max_iter=10)
     e0 = float(lm._prepare(p16.state, p16, "cholesky")[1])
-    lm.minimize(p16, mode="cholesky", config=lm.LMConfig(max_iter=2))  # warm-up
+    lm.minimize(p16, mode="cholesky",
+                config=dataclasses.replace(cfg64, max_iter=2))  # warm-up
     torch.cuda.synchronize()
     cuda_chain.reset_launches()
     t0 = time.perf_counter()
@@ -2108,6 +2350,16 @@ def main() -> None:
           "phase_s": time.perf_counter() - t_phase})
     check(np.isfinite(res.energy) and res.energy < e0,
           f"f64 p16: energy {res.energy} not finite and below {e0}")
+
+    # -- the default LM drive (the main path) and the scipy oracle's prefix -----
+    oracle = {"p126": oracle_prefix.load("p126", dev),
+              "p257": oracle_prefix.load("p257", dev, problems["p257"])}
+    default_launches = default_drive_phase(pm, lm, cuda_chain, problems,
+                                           oracle["p126"][0], smi)
+    for which in kern:
+        kern[which]["launches"] = default_launches[which]
+    oracle_prefix_phase(oracle_prefix, oracle, smi)
+    del oracle
 
     # -- the other solver modes ---------------------------------------------------
     modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi)
@@ -2137,7 +2389,8 @@ def main() -> None:
         kern[which].update(more)
 
     # -- the eigensolver, pair-less qrkit and the sharded jit drive -------------
-    eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush, smi)
+    eigh = eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
+                       smi)
     for which, more in sharded_jit_phases(lm, multihost, problems, smi).items():
         kern[which].update(more)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
@@ -2152,7 +2405,7 @@ def main() -> None:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src,
          "replaces": replaces[name], "library_ms": None, **k}
-        for name, k in kern.items()]})
+        for name, k in kern.items()] + [eigh]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

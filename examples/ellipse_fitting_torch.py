@@ -69,8 +69,9 @@ def fit_ellipse(samples, x0=None, config=None, device=None) -> lm.LMResult:
     """Fit an ellipse to (n, 2) samples with the shared LM loop, in float64
     on ``device`` (CUDA unless the caller names one, e.g. ``"cpu"``).
     ``x0`` defaults to the samples' mean and sqrt(2) x their standard
-    deviation, phi 0; ``config`` to ``LMConfig(max_iter=100)``, whose
-    ``verbose`` prints the reference's iteration table."""
+    deviation, phi 0; ``config`` to ``LMConfig(drive="host", max_iter=100)``
+    (the fit runs the host loop, ``lm.lm_loop``), whose ``verbose`` prints
+    the reference's iteration table."""
     dev = resolve_device(device)
     samples = torch.as_tensor(np.asarray(samples), dtype=torch.float64, device=dev)
     if x0 is None:
@@ -79,7 +80,7 @@ def fit_ellipse(samples, x0=None, config=None, device=None) -> lm.LMResult:
         x0 = torch.cat([c, r, samples.new_zeros(1)])
     else:
         x0 = torch.as_tensor(np.asarray(x0), dtype=torch.float64, device=dev)
-    config = config or lm.LMConfig(max_iter=100)
+    config = config or lm.LMConfig(drive="host", max_iter=100)
     prepare, trial = make_kernels(samples)
     with lm.RunLog(config.verbose) as run_log:
         x, status, it, fun_evals, energy, lam = lm.lm_loop(

@@ -2,6 +2,7 @@
 
     python3 stage_profile.py [BAL file] [--mode M] [--drive df32|f64|both]
                              [--lm-drive host|jit|both] [--iters N] [--chain]
+                             [--one-op N]
 
 Loads the problem (default: the in-repo p257 stand-in) onto CUDA. For the
 df32 drive (kernels on) and then the float64 drive (or the one named) it
@@ -25,7 +26,12 @@ kernel: its time against the observations it visits (the energy kernel by
 cold and a warm L2, the CUDA-event time of an empty kernel, and each
 kernel's own duration as ``torch.profiler`` records it; and each kernel with
 its cameras staged in shared memory against the same work unstaged (the
-cameras padded to 2,500, which do not fit), in turns. To compare two
+cameras padded to 2,500, which do not fit), in turns.
+
+``--one-op N`` instead profiles each chain entry point N times, one call a
+profile, with ``chip_smoke.py``'s one-operation gate
+(``device_ops_per_call``), and prints the device operations counted per
+profile and the empty profiles. To compare two
 checkouts, copy this script and ``chip_smoke.py`` into the older one
 (unpacked with ``git archive`` into an ignored directory), run both in one
 call, in turns (A, B, B, A).
@@ -47,7 +53,8 @@ from torch.profiler import ProfilerActivity, profile
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
 from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
 from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
-from chip_smoke import P257 as DEFAULT, nvidia_smi, time_entry_points, time_ms
+from chip_smoke import (P257 as DEFAULT, device_ops_per_call, nvidia_smi,
+                        time_entry_points, time_ms)
 
 SLEEP = int(2e7)  # ~10 ms: longer than the host's enqueue
 UNSTAGED_CAMERAS = 2500  # 2,500 x 27 floats exceed a block's shared memory
@@ -176,6 +183,22 @@ def staging(fast, obs, tau2, flush) -> dict:
     return out
 
 
+def one_op_line(prob, card: str, profiles: int) -> None:
+    """``device_ops_per_call`` of each entry point over ``profiles``
+    profiles."""
+    cuda_chain.load_library()
+    fast, obs, tau2 = pm.to_fast(prob.state), prob.obs, prob.tau2
+    entry = {"chain_blocks": lambda: cuda_chain.fused_blocks_energy(fast, obs, tau2),
+             "chain_energy": lambda: cuda_chain.fused_energy(fast, obs, tau2)}
+    out = {}
+    for which, fn in entry.items():
+        c = device_ops_per_call(fn, profiles)["counts"]
+        out[which] = {"profiles": len(c), "empty_profiles": c.count(0),
+                      "ops_per_profile": {str(k): c.count(k) for k in sorted(set(c))}}
+    print(json.dumps({"card": card, "K": prob.n_observations, "one_op": out}),
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default=str(DEFAULT), help="BAL file")
@@ -191,12 +214,17 @@ def main() -> None:
                     help="LM iterations traced (default 6)")
     ap.add_argument("--chain", action="store_true",
                     help="time the chain kernels instead of tracing the LM")
+    ap.add_argument("--one-op", type=int, default=0, metavar="N",
+                    help="profile each chain entry point N times instead "
+                    "of tracing the LM")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("stage_profile: needs a CUDA device")
     card = nvidia_smi()
     prob = pm.load_bal_problem(args.path, device="cuda")
-    if args.chain:
+    if args.one_op:
+        one_op_line(prob, card, args.one_op)
+    elif args.chain:
         chain_line(prob, card, args.path)
     else:
         profile_drives(prob, card, args.path, args.mode, args.drive,

@@ -207,9 +207,9 @@ def test_checkpoint_resume_equals_uninterrupted(tiny, tmp_path, capsys):
                                             obs_per_point=4, seed=1,
                                             inlier_threshold=2.0, device="cpu")
     ck2 = str(tmp_path / "ck2.npz")
-    cfg = lm.LMConfig(max_iter=8)
+    cfg = lm.LMConfig(drive="host", max_iter=8)
     ref = lm.minimize(prob, config=cfg, device="cpu")
-    lm.minimize(prob, config=lm.LMConfig(max_iter=5), device="cpu",
+    lm.minimize(prob, config=lm.LMConfig(drive="host", max_iter=5), device="cpu",
                 checkpoint_path=ck2, checkpoint_every=3)
     state, meta = checkpoint.load_checkpoint(ck2, device="cpu")
     res = lm.minimize(prob, config=cfg, state=state, resume=meta, device="cpu")
@@ -341,8 +341,8 @@ def test_f32_state_stays_float32():
     prob = synthetic.make_synthetic_problem(n_cameras=5, n_points=30, seed=2,
                                             dtype=torch.float32, device="cpu")
     for mode in SOLVERS:
-        res = lm.minimize(prob, mode=mode, config=lm.LMConfig(max_iter=3),
-                          device="cpu")
+        res = lm.minimize(prob, mode=mode, device="cpu",
+                          config=lm.LMConfig(drive="host", max_iter=3))
         dtypes = {getattr(res.state, k).dtype
                   for k in ("K", "R", "T", "k1", "k2", "points")}
         assert dtypes == {torch.float32}, (mode, dtypes)
@@ -378,13 +378,13 @@ def test_polish(tiny, tmp_path, capsys):
     prob = synthetic.make_synthetic_problem(n_cameras=6, n_points=40,
                                             obs_per_point=4, seed=1,
                                             inlier_threshold=2.0, device="cpu")
-    cfg = lm.LMConfig(max_iter=20, matmul_dtype="float32", geometry="df32",
-                      polish_iters=3)
+    cfg = lm.LMConfig(drive="host", max_iter=20, matmul_dtype="float32",
+                      geometry="df32", polish_iters=3)
     both = lm.minimize(prob, config=cfg, device="cpu")
-    fast = lm.minimize(prob, device="cpu", config=lm.LMConfig(
+    fast = lm.minimize(prob, device="cpu", config=lm.LMConfig(drive="host",
         max_iter=20, matmul_dtype="float32", geometry="df32", tol_fun=1e-6))
     polish = lm.minimize(prob, state=fast.state, device="cpu",
-                         config=lm.LMConfig(max_iter=3))
+                         config=lm.LMConfig(drive="host", max_iter=3))
     assert both.iterations == fast.iterations + polish.iterations
     assert both.fun_evals == fast.fun_evals + polish.fun_evals
     assert both.energy == polish.energy
@@ -427,11 +427,12 @@ def test_debug_nans_raises():
     ExceededLambdaMax, or with debug_nans raises at the first read."""
     prob = synthetic.make_synthetic_problem(seed=1, device="cpu")
     prob.state.points[0, 0] = float("nan")
-    res = lm.minimize(prob, config=lm.LMConfig(max_iter=3), device="cpu")
+    res = lm.minimize(prob, config=lm.LMConfig(drive="host", max_iter=3),
+                      device="cpu")
     assert res.status == lm.LMStatus.ExceededLambdaMax
     with pytest.raises(FloatingPointError, match="LM iteration 1"):
-        lm.minimize(prob, config=lm.LMConfig(max_iter=3, debug_nans=True),
-                    device="cpu")
+        lm.minimize(prob, device="cpu", config=lm.LMConfig(
+            drive="host", max_iter=3, debug_nans=True))
 
 
 @pytest.mark.parametrize("case,rc", [

@@ -236,7 +236,7 @@ def test_minimize_goes_through_the_kernels(p16_cuda):
     prob, _ = p16_cuda
     cuda_chain.reset_launches()
     res = lm.minimize(prob, config=lm.LMConfig(
-        max_iter=3, matmul_dtype="float32", geometry="df32"))
+        drive="host", max_iter=3, matmul_dtype="float32", geometry="df32"))
     prepares = res.iterations - 1  # the last iteration found the limit
     assert cuda_chain.LAUNCHES["chain_blocks"] == prepares
     assert cuda_chain.LAUNCHES["chain_energy"] == res.fun_evals - prepares
@@ -249,7 +249,8 @@ def test_sharded_nccl_world_size_1_matches_single(p16_cuda):
     from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
 
     prob, _ = p16_cuda
-    cfg = lm.LMConfig(max_iter=4, matmul_dtype="float32", geometry="df32")
+    cfg = lm.LMConfig(drive="host", max_iter=4, matmul_dtype="float32",
+                      geometry="df32")
     ref = lm.minimize(prob, config=cfg)
 
     def run(rank, device):
@@ -331,7 +332,8 @@ def test_jit_drive_matches_host_on_card(p16_cuda, mode):
     chain kernels counted as the graph ran them, a cached capture on the
     second call, and one host read for 5 iterations."""
     prob, _ = p16_cuda
-    cfg = lm.LMConfig(max_iter=5, matmul_dtype="float32", geometry="df32")
+    cfg = lm.LMConfig(drive="host", max_iter=5, matmul_dtype="float32",
+                      geometry="df32")
     host = lm.minimize(prob, mode, cfg)
     cfg = dataclasses.replace(cfg, drive="jit")
     lm.minimize(prob, mode, dataclasses.replace(cfg, max_iter=1))

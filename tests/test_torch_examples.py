@@ -61,7 +61,8 @@ def test_given_start_and_config():
     """An explicit x0 and config run as given: 3 iterations, then the limit."""
     samples = example.sample_ellipse()
     res = example.fit_ellipse(samples, x0=[0.5, -1.5, 2.0, 1.0, 0.3],
-                              config=lm.LMConfig(max_iter=3), device="cpu")
+                              config=lm.LMConfig(drive="host", max_iter=3),
+                              device="cpu")
     ref = jax_example.fit_ellipse(
         samples, x0=np.array([0.5, -1.5, 2.0, 1.0, 0.3]),
         config=jax_example.lm.LMConfig(drive="host", max_iter=3))

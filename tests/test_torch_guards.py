@@ -19,6 +19,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
 CAMPAIGN = os.path.join(ROOT, "flatline_campaign.py")
 ELLIPSE = os.path.join(ROOT, "examples", "ellipse_fitting_torch.py")
+ORACLE = os.path.join(ROOT, "oracle_prefix.py")
 P16 = os.path.join(ROOT, "data", "problem-16-22106-pre.txt.gz")
 
 
@@ -48,9 +49,9 @@ def test_port_modules_import_no_jax():
 
 
 def test_every_mode_runs_without_jax():
-    """Each solver mode on both drives, with and without the pair tables,
-    in a fresh process on a small problem made with numpy: no JAX module
-    is loaded."""
+    """Each solver mode on both geometry drives (float64, df32) and both
+    LM drives (host, jit), with and without the pair tables, in a fresh
+    process on a small problem made with numpy: no JAX module is loaded."""
     code = (
         "import dataclasses, sys\n"
         "import numpy as np\n"
@@ -71,9 +72,10 @@ def test_every_mode_runs_without_jax():
         "for mode in schur.MODES:\n"
         "    for kw in ({}, dict(matmul_dtype='float32', geometry='df32')):\n"
         "        for p in (prob, dataclasses.replace(prob, pairs=None)):\n"
-        "            res = lm.minimize(p, mode=mode, device='cpu',\n"
-        "                              config=lm.LMConfig(max_iter=2, **kw))\n"
-        "            assert np.isfinite(res.energy), (mode, kw, p.pairs)\n"
+        "            for drive in ('host', 'jit'):\n"
+        "                res = lm.minimize(p, mode=mode, device='cpu', config=\n"
+        "                    lm.LMConfig(drive=drive, max_iter=2, **kw))\n"
+        "                assert np.isfinite(res.energy), (mode, kw, p.pairs)\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -104,10 +106,11 @@ def _imported_names(path):
     return names
 
 
-@pytest.mark.parametrize("path", [CAMPAIGN, ELLIPSE], ids=os.path.basename)
+@pytest.mark.parametrize("path", [CAMPAIGN, ELLIPSE, ORACLE], ids=os.path.basename)
 def test_campaign_and_example_import_no_jax(path):
-    """The flatline campaign and the ellipse example name no JAX module,
-    and importing them (and the package modules they reach) loads none."""
+    """The flatline campaign, the ellipse example and the oracle-prefix
+    script name no JAX module, and importing them (and the package modules
+    they reach) loads none."""
     names = _imported_names(path)
     assert "bundleadjustment_benchmarks_tpu_torch.solvers" in names
     assert [n for n in names if _is_jax_side(n)] == []
@@ -137,6 +140,25 @@ def test_campaign_needs_cuda_unless_told(tmp_path):
                           cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2
     assert "no CUDA device" in proc.stderr
+    assert proc.stdout == "" and not out.exists()
+
+
+def test_oracle_prefix_needs_cuda_unless_told(tmp_path):
+    """``oracle_prefix.run`` without a device raises where there is no CUDA,
+    before it loads or runs anything, and the script exits 2 and writes
+    nothing; neither falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    sys.path.insert(0, ROOT)
+    import oracle_prefix
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        oracle_prefix.run(("p257",), device=None)
+    out = tmp_path / "rows.json"
+    proc = subprocess.run([sys.executable, ORACLE, "--key", "p257", "--json",
+                           str(out)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 2 and "no CUDA device" in proc.stderr
     assert proc.stdout == "" and not out.exists()
 
 

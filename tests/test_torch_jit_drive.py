@@ -27,6 +27,7 @@ import json
 import math
 import re
 import shutil
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,10 +36,12 @@ import pytest
 import torch
 
 from bundleadjustment_benchmarks_tpu import cli as jcli
+from bundleadjustment_benchmarks_tpu.models import problem as jpm
 from bundleadjustment_benchmarks_tpu.ops import projection as jproj
 from bundleadjustment_benchmarks_tpu.solvers import lm as jlm
 from bundleadjustment_benchmarks_tpu.utils.synthetic import make_synthetic_problem
 from bundleadjustment_benchmarks_tpu_torch import cli, convert
+from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
 from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph, jacobian
 from bundleadjustment_benchmarks_tpu_torch.parallel import multihost, sharded
 from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
@@ -47,6 +50,7 @@ from test_torch_cli import (KEPT, RHO_RESOLVED, RTOL_F, RTOL_LAMBDA, RTOL_RHO,
                             TAU, write_synthetic_bal)
 
 MODES = ("cholesky", "qrchol", "qrkit", "moreqr", "spqr")
+P16 = str(Path(__file__).resolve().parents[1] / "data" / "problem-16-22106-pre.txt.gz")
 ROW = re.compile(r"^\s*(\d+)\s+(Accepted|Rejected)\s+(\S+)\s+(\S+)\s+(\S+)\s+\S+s$")
 
 
@@ -446,6 +450,92 @@ def test_graph_key_is_the_problem_object():
     assert lm._graph_key(other, "cholesky", cfg, x0, "cuda:0") != key
     assert lm._graph_key(tp, "cholesky", dataclasses.replace(
         cfg, max_iter=3, max_fun_ev=7, tol_fun=1e-3), x0, "cuda:0") == key
+
+
+def test_graph_cache_holds_one_problem_per_device_and_group(monkeypatch):
+    """A capture for another problem frees the cached captures of every
+    other problem on its device and group, and keeps the same problem's
+    other modes, other devices' and other groups' captures."""
+    closed = []
+
+    class Loop:
+        def __init__(self, name):
+            self.name = name
+
+        def close(self):
+            closed.append(self.name)
+
+    a, b = object(), object()
+    group = ("nccl", 0, 1, 7)
+    cache = {("cuda:0", id(a), "cholesky", None): (a, Loop("a cholesky")),
+             ("cuda:0", id(a), "qrkit", None): (a, Loop("a qrkit")),
+             ("cuda:1", id(a), "cholesky", None): (a, Loop("a on cuda:1")),
+             ("cuda:0", id(a), "cholesky", group): (a, Loop("a sharded")),
+             ("cuda:0", id(b), "qrkit", None): (b, Loop("b qrkit"))}
+    monkeypatch.setattr(lm, "_GRAPHS", cache)
+    lm._free_other_problems(("cuda:0", id(b), "cholesky", None), b)
+    assert sorted(closed) == ["a cholesky", "a qrkit"]
+    assert sorted(loop.name for _, loop in cache.values()) == [
+        "a on cuda:1", "a sharded", "b qrkit"]
+    lm._free_other_problems(("cuda:0", id(b), "cholesky", group), b)
+    assert closed[-1] == "a sharded" and len(cache) == 2
+    lm.clear_graphs()
+    assert cache == {}
+
+
+def test_default_drive_is_jax_default():
+    assert lm.LMConfig().drive == jlm.LMConfig().drive == "jit"
+
+
+#: Measured gaps of the port's float64 p16 cholesky energies to JAX's, both
+#: on the CPU, per iteration (either drive, in either package: each
+#: package's two drives give the same energies): 2.1e-10, 1.1e-9, 1.0e-7,
+#: 3.4e-9, 2.0e-7, 4.0e-7, then 3.8e-4 and 1.0e-3 where rho, and so lambda,
+#: part (5.04e-5 against 2.89e-5 after iteration 8). The damped steps of the
+#: two packages differ by ~1e-8 relative on p16's ill-conditioned reduced
+#: system (test_torch_schur.py::test_solve_damped_as_accurate_as_jax), and
+#: the energies follow. So the first iteration is held to 1e-9, iterations
+#: 2-6 to 1e-6 (about 3x the largest gap there), and the run of 8 to the
+#: same counts and status.
+P16_FIRST_ITERATION_RTOL = 1e-9
+P16_PREFIX_RTOL = 1e-6
+P16_PREFIX = 6
+
+
+def test_default_config_matches_jax_default_on_p16():
+    """Each package's default config (max_iter 8) on p16 in float64,
+    cholesky: the same iterations, evaluations and status, the first
+    iteration's energy within P16_FIRST_ITERATION_RTOL and each of the next
+    ones up to P16_PREFIX within P16_PREFIX_RTOL (JAX's energy after k
+    iterations from its default run with max_iter k, whose limits are
+    traced: one compile); the port's default run took the jit drive (one
+    read for its one chunk), equals its explicit jit run bit for bit and its
+    host run (gap 0.0)."""
+    jp = jpm.load_bal_problem(P16)
+    tp = pm.load_bal_problem(P16, device="cpu")
+    res_j = jlm.minimize(jp, config=dataclasses.replace(jlm.LMConfig(),
+                                                        max_iter=8))
+    prefix_j = [float(jlm.minimize(jp, config=dataclasses.replace(
+        jlm.LMConfig(), max_iter=k)).energy) for k in range(1, P16_PREFIX + 1)]
+    lm.LAST_JIT_RUN.clear()
+    trace = []
+    res_t = lm.minimize(tp, config=dataclasses.replace(lm.LMConfig(), max_iter=8),
+                        device="cpu", trace=trace)
+    counted = dict(lm.LAST_JIT_RUN)
+    jit, host = _drives(tp, "cholesky", max_iter=8)
+    assert [r["iter"] for r in trace[:P16_PREFIX]] == list(range(1, P16_PREFIX + 1))
+    gaps = [_rel(r["energy"], e) for r, e in zip(trace, prefix_j)]
+    print(f"gap default config p16 f64 cholesky vs JAX: counts {_counts(res_t)}, "
+          f"iterations 1-{P16_PREFIX} {[f'{g:.3g}' for g in gaps]}, after 8 "
+          f"{_rel(res_t.energy, float(res_j.energy)):.3g}; jit-host "
+          f"{_rel(res_t.energy, host.energy):.3g}")
+    assert _counts(res_t) == _counts(res_j) == (9, 16, int(lm.LMStatus.MaxItersReached))
+    assert gaps[0] <= P16_FIRST_ITERATION_RTOL
+    assert max(gaps[1:]) <= P16_PREFIX_RTOL
+    assert counted["reads"] == 1 and counted["prepares"] == 8
+    assert _counts(jit) == _counts(res_t) and jit.energy == res_t.energy
+    assert torch.equal(jit.state.points, res_t.state.points)
+    assert _counts(host) == _counts(res_t) and host.energy == res_t.energy
 
 
 def _sharded_one_rank(rank, device, tp, cfg):

@@ -48,7 +48,8 @@ def test_lm_f64_matches_jax(seed, mode):
         res_j = jlm.minimize(jp, mode=mode,
                              config=jlm.LMConfig(drive="jit", max_iter=max_iter))
         res_t = lm.minimize(tp, mode=mode,
-                            config=lm.LMConfig(max_iter=max_iter), device="cpu")
+                            config=lm.LMConfig(drive="host", max_iter=max_iter),
+                            device="cpu")
         return res_j, res_t
 
     res_j, res_t = run(10)
@@ -89,7 +90,7 @@ def test_lm_df32_converges(tau, mode):
     cfg_j = jlm.LMConfig(drive="jit", max_iter=8, matmul_dtype="float32",
                          geometry="df32")
     res_j = jlm.minimize(jp, mode=mode, config=cfg_j)
-    res_t = lm.minimize(tp, mode=mode, device="cpu", config=lm.LMConfig(
+    res_t = lm.minimize(tp, mode=mode, device="cpu", config=lm.LMConfig(drive="host",
         max_iter=8, matmul_dtype="float32", geometry="df32"))
     gap = abs(res_t.energy - res_j.energy) / res_j.energy
     print(f"gap LM df32 {mode} tau {tau}: port {res_t.energy:.6g}, JAX {res_j.energy:.6g}, "
@@ -104,11 +105,14 @@ def test_lm_limits_and_bookkeeping():
     """max_iter = 0 does no work; a run stopped by max_iter counts the
     iteration that found the limit, as the reference does."""
     jp, tp = _pair(0, n_cameras=4, n_points=12, obs_per_point=3)
-    res = lm.minimize(tp, config=lm.LMConfig(max_iter=0), device="cpu")
+    res = lm.minimize(tp, config=lm.LMConfig(drive="host", max_iter=0),
+                      device="cpu")
     assert (res.status, res.iterations, res.fun_evals) == (
         lm.LMStatus.MaxItersReached, 1, 0)
-    res = lm.minimize(tp, config=lm.LMConfig(max_iter=2), device="cpu")
+    res = lm.minimize(tp, config=lm.LMConfig(drive="host", max_iter=2),
+                      device="cpu")
     assert res.status == lm.LMStatus.MaxItersReached and res.iterations == 3
-    res = lm.minimize(tp, config=lm.LMConfig(max_fun_ev=1), device="cpu")
+    res = lm.minimize(tp, config=lm.LMConfig(drive="host", max_fun_ev=1),
+                      device="cpu")
     assert res.status == lm.LMStatus.TooManyFunctionEvaluation
     assert lm.STATUS_STRINGS[res.status] == "Too Many Function Evaluations"

@@ -391,8 +391,9 @@ def test_qrkit_without_pair_tables_caches_rows(once):
 def test_minimize_points_seen_once(once, mode):
     """lm.minimize runs every mode on both drives without pair tables."""
     e0 = float(lm._prepare(once.tp.state, once.tp, mode)[1])
-    for cfg in (lm.LMConfig(max_iter=4),
-                lm.LMConfig(max_iter=4, matmul_dtype="float32", geometry="df32")):
+    for cfg in (lm.LMConfig(drive="host", max_iter=4),
+                lm.LMConfig(drive="host", max_iter=4, matmul_dtype="float32",
+                            geometry="df32")):
         res = lm.minimize(once.tp, mode=mode, config=cfg, device="cpu")
         print(f"points seen once {mode} geometry={cfg.geometry}: energy "
               f"{e0:.6g} -> {res.energy:.6g} in {res.iterations} iterations")
@@ -417,7 +418,7 @@ def test_refine_step(case0, mode):
             schur.refine_step(ctx_t, lam, case0.tp, mode, dxp_t, dxc_t)
         with pytest.raises(ValueError, match="refine_steps=1"):
             lm.minimize(case0.tp, mode=mode, device="cpu",
-                        config=lm.LMConfig(max_iter=1, refine_steps=1))
+                        config=lm.LMConfig(drive="host", max_iter=1, refine_steps=1))
         return
     dxp_j, dxc_j = jschur.solve_damped(ctx_j, lam, case0.jp, mode)
     rp_j, rc_j = jschur.refine_step(ctx_j, lam, case0.jp, mode, dxp_j, dxc_j)
@@ -426,5 +427,5 @@ def test_refine_step(case0, mode):
           f"dxp {_rel(rp_t, rp_j):.3g}")
     assert _rel(rc_t, rc_j) <= 1e-9 and _rel(rp_t, rp_j) <= 1e-9
     res = lm.minimize(case0.tp, mode=mode, device="cpu",
-                      config=lm.LMConfig(max_iter=3, refine_steps=1))
+                      config=lm.LMConfig(drive="host", max_iter=3, refine_steps=1))
     assert np.isfinite(res.energy)

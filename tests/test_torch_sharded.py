@@ -201,19 +201,19 @@ def ranks(files):
                               mode=mode, lam=1.0, config=worker.DF32))
     case_list += [
         dict(name="minimize", kind="minimize", problem="syn3t", mode="cholesky",
-             config=dict(max_iter=8)),
+             config=dict(max_iter=8, drive="host")),
         dict(name="checkpoint", kind="checkpoint", problem="syn3t", max_iter=5,
              every=2, **files),
         dict(name="polish", kind="minimize", problem="syn7", mode="cholesky",
-             config=dict(max_iter=10, polish_iters=4, **worker.DF32)),
+             config=dict(max_iter=10, polish_iters=4, drive="host", **worker.DF32)),
         dict(name="no-polish", kind="minimize", problem="syn7", mode="cholesky",
-             config=dict(max_iter=10, **worker.DF32)),
+             config=dict(max_iter=10, drive="host", **worker.DF32)),
         dict(name="refine", kind="refine", problem="syn3t"),
         # The jit drive (lm.DeviceLoop, eager over gloo on the CPU).
         dict(name="jit-df32", kind="minimize", problem="syn2t", mode="cholesky",
              config=dict(max_iter=8, drive="jit", **worker.DF32)),
         dict(name="host-df32", kind="minimize", problem="syn2t", mode="cholesky",
-             config=dict(max_iter=8, **worker.DF32)),
+             config=dict(max_iter=8, drive="host", **worker.DF32)),
         dict(name="jit-first-trial-df32", kind="jit_first_trial", problem="syn2t",
              mode="cholesky", lam=1.0, config=worker.DF32),
         dict(name="jit-polish", kind="minimize", problem="syn7", mode="cholesky",
@@ -368,7 +368,7 @@ def test_checkpoint_metrics_resume_at_other_shard_counts(ranks, files):
                 checkpoint=files["checkpoint"])
     d1 = multihost.run_ranks(worker.run_case, ["cpu"], args=(case, {"syn3t": tp}),
                              timeout=TIMEOUT)[0]
-    one = lm.minimize(tp, config=lm.LMConfig(max_iter=8), state=state,
+    one = lm.minimize(tp, config=lm.LMConfig(drive="host", max_iter=8), state=state,
                       resume=meta, device="cpu")
     mesh = jsharded.make_mesh(D)
     jres2 = jsharded.minimize_sharded(

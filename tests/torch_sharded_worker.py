@@ -97,7 +97,8 @@ def run_case(rank: int, device, case: dict, problems: dict):
             dataclasses.replace(problems[case["problem"]], state=state), n, rank,
             device=device)
         return _result(sharded.minimize_sharded(
-            again, "cholesky", lm.LMConfig(max_iter=case["max_iter"]), resume=meta))
+            again, "cholesky", lm.LMConfig(drive="host", max_iter=case["max_iter"]),
+            resume=meta))
     if kind == "refine":
         try:
             sharded.minimize_sharded(sp, "cholesky", lm.LMConfig(max_iter=2,
