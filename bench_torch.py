@@ -1,0 +1,324 @@
+"""LM iterations per second of the PyTorch/CUDA port on the card: the
+port's counterpart of ``bench.py``.
+
+    python3 bench_torch.py [--problem p16|p126|p257|ladybug|PATH]
+        [--modes cholesky,qrchol] [--geometry df32|f64] [--max-iter 100]
+        [--repeats 5] [--device cpu]
+
+The workload is bench.py's: ``lm.minimize(problem, mode, LMConfig(
+drive="jit", max_iter=100, geometry="df32", matmul_dtype="float32"))``
+from the loaded float64 state, the warm-up excluded, with every
+other cost of ``minimize`` inside the window (bench.py:40-66). The default
+run is bench.py's p257 fields (bench.py:81-99): the p257 stand-in
+(``data/problem-257-65132-pre.txt.gz``; bench.py's p21 headline problem is
+not in the repo), cholesky then qrchol. ``--geometry f64`` gives bench.py's
+CPU branch (float64 geometry and matmuls); both are on the jit drive
+(``flatline_campaign.drive_config``). The Ladybug stand-in (``--problem
+ladybug``, generated in memory) holds an 11.62 GB graph pool: run it
+alone.
+
+Each (problem, mode) gets one untimed warm-up run (on CUDA it captures the
+CUDA graph, and the first one builds the kernels with nvcc),
+whose capture seconds are printed apart. Then come ``--repeats`` rounds of
+timed runs, the modes alternated in each (A B A B ...), since the host's
+speed varies between calls. A window runs from a synchronize to a
+synchronize after the result's points are read (bench.py's
+``block_until_ready``, bench.py:62-65).
+
+Each workload (problem, mode) is gated, and the line says ``correct``:
+(a) every timed run equals the warm-up in status, iterations, evaluations
+and final energy, bit for bit, and no run captured inside its window;
+(b) with df32 on CUDA, a 10-iteration prefix on the timed graph itself (the
+graph cache's key leaves out the limits, so it replays without a capture)
+and one with the chain kernels' plain versions take the same iterations
+and evaluations, with energies within 1e-9 (untimed); (c) every run
+descends: its energy is
+finite and below the initial one, it stopped on a success or on the
+iteration budget, and its points are finite, of shape (M, 3).
+
+Output: one JSON line before the runs (the card, the problem, the config),
+one per warm-up, one per timed run and one per workload (it/s median, min
+and max, peak and reserved device bytes, the gates), and last one line
+with bench.py's keys: ``metric`` (``lm_iter_per_sec_<problem>_<first
+mode>``), ``value`` (its median it/s), ``unit``, ``vs_baseline`` 1.0 and
+``baseline`` null (``bench_baseline.json`` holds only p21's scipy rate, a
+problem this script cannot name), ``<problem>_<mode>_iter_per_sec``
+for every mode, ``correct`` and ``device`` (``nvidia-smi``'s name and power
+limit). Exit codes: 0 correct, 1 a gate failed (after every line is
+printed), 2 a bad argument, or no CUDA device and no ``--device``: it never
+falls back to the CPU, nor to the plain chain where the kernels fail.
+Imports nothing of JAX.
+
+What ``correct`` does not hold: a reference independent of the port. Gates
+(a) and (b) compare the port with itself (the plain chain shares the LM
+loop, the Schur reduction and the solves), and (c) asks only for a
+descent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import statistics
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+import flatline_campaign as campaign  # noqa: E402
+from bundleadjustment_benchmarks_tpu_torch import resolve_device  # noqa: E402
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain  # noqa: E402
+from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur  # noqa: E402
+
+PROBLEM = "p257"
+MODES = ("cholesky", "qrchol")
+MAX_ITER = 100
+REPEATS = 5
+#: Fewest timed runs of a workload on the card: one call varies 1.4-2x.
+CARD_REPEATS = 3
+#: Gate (b): iterations of the kernel and plain prefixes, and their largest
+#: relative energy gap (chip_smoke.py's bound at p16).
+PREFIX_ITERS = 10
+KERNELS_RTOL = 1e-9
+#: Stops of a descending run: the reference's two successes, and the
+#: iteration budget, where bench.py's own p21 headline stops (p21
+#: flatlines around iteration 175, past its 100).
+DESCENT_STOPS = tuple(lm.STATUS_STRINGS[s] for s in (
+    lm.LMStatus.Success, lm.LMStatus.ExceededLambdaMax,
+    lm.LMStatus.MaxItersReached))
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def problem_name(key: str) -> str:
+    """The problem's name in the metric: its key, or a path's basename
+    without its extensions."""
+    if key in campaign.PROBLEMS or key == "ladybug":
+        return key
+    name = os.path.basename(key)
+    for ext in (".gz", ".txt"):
+        name = name.removesuffix(ext)
+    return name
+
+
+def timed_run(problem, mode: str, cfg: lm.LMConfig, dev: torch.device) -> dict:
+    """One ``lm.minimize``, timed from a synchronize to a synchronize after
+    its points are read; the chain kernels' launch counts and the peak
+    allocation are reset before the window."""
+    cuda = dev.type == "cuda"
+    cuda_chain.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    campaign._sync(dev)
+    t0 = time.perf_counter()
+    res = lm.minimize(problem, mode, cfg, device=dev)
+    points = res.state.points
+    campaign._sync(dev)
+    wall = time.perf_counter() - t0
+    jit = lm.LAST_JIT_RUN
+    return {
+        "mode": mode, "iterations": res.iterations, "fun_evals": res.fun_evals,
+        "status": lm.STATUS_STRINGS[res.status], "energy": res.energy,
+        "wall_s": wall, "it_per_s": res.iterations / wall,
+        **{k: jit.get(k) for k in ("captured", "capture_s", "replays", "reads")},
+        "launches": dict(cuda_chain.LAUNCHES),
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+        "points_ok": tuple(points.shape) == (problem.n_points, 3)
+        and bool(torch.isfinite(points).all()),
+    }
+
+
+def kernels_vs_plain(problem, modes, cfg: lm.LMConfig, dev: torch.device) -> dict:
+    """Gate (b) for each of ``modes`` ({mode: record}; None off CUDA or off
+    df32). First each mode's PREFIX_ITERS-iteration prefix on ``cfg`` with
+    the kernels: the graph cache's key leaves out the limits
+    (``lm._graph_key``), so it replays the timed graph itself, which it
+    must (``captured`` false) with both chain kernels launched. Then those
+    graphs are freed and each mode's prefix with the plain chain captures
+    its own, freed after it: a Ladybug pool holds 11.62 GB, and no more
+    than the timed pools are ever resident."""
+    if cfg.geometry != "df32" or dev.type != "cuda":
+        return {mode: None for mode in modes}
+    prefix = dataclasses.replace(cfg, max_iter=PREFIX_ITERS)
+    kern = {}
+    for mode in modes:
+        cuda_chain.reset_launches()
+        res = lm.minimize(problem, mode, prefix, device=dev)
+        kern[mode] = (res, lm.LAST_JIT_RUN["captured"], dict(cuda_chain.LAUNCHES))
+    lm.clear_graphs()
+    gates = {}
+    for mode in modes:
+        plain = lm.minimize(problem, mode, dataclasses.replace(prefix, kernels=False),
+                            device=dev)
+        lm.clear_graphs()
+        k, captured, launches = kern[mode]
+        gap = abs(k.energy - plain.energy) / abs(plain.energy)
+        gates[mode] = {
+            "iterations": [k.iterations, plain.iterations],
+            "fun_evals": [k.fun_evals, plain.fun_evals],
+            "energy": [k.energy, plain.energy], "rel_gap": gap,
+            "kernels_captured": captured, "kernels_launches": launches,
+            "ok": (k.iterations, k.fun_evals) == (plain.iterations, plain.fun_evals)
+            and gap <= KERNELS_RTOL and captured is False
+            and min(launches.values()) > 0}
+    return gates
+
+
+def _same(a: dict, b: dict) -> bool:
+    return all(a[k] == b[k] for k in ("status", "iterations", "fun_evals", "energy"))
+
+
+def workload(name: str, mode: str, cfg: lm.LMConfig, warm: dict, runs: list,
+             e0: float, reserved, kernels) -> dict:
+    """A workload's record: its rate over the timed runs and its gates."""
+    rates = [r["it_per_s"] for r in runs]
+    gates = {
+        "replay": all(_same(r, warm) for r in runs),
+        "no_capture_in_window": all(not r["captured"] for r in runs),
+        "kernels_vs_plain": kernels,
+        "descent": all(math.isfinite(r["energy"]) and r["energy"] < e0
+                       and r["status"] in DESCENT_STOPS and r["points_ok"]
+                       for r in [warm] + runs),
+    }
+    peaks = [r["peak_bytes"] for r in runs if r["peak_bytes"] is not None]
+    return {
+        "bench": "workload", "problem": name, "mode": mode,
+        "geometry": cfg.geometry or "f64", "matmul_dtype": cfg.matmul_dtype,
+        "drive": cfg.drive, "max_iter": cfg.max_iter, "repeats": len(runs),
+        "capture_s": warm["capture_s"], "warmup_wall_s": warm["wall_s"],
+        "initial_energy": e0,
+        **{k: warm[k] for k in ("status", "iterations", "fun_evals", "energy")},
+        "it_per_s": {"median": statistics.median(rates), "min": min(rates),
+                     "max": max(rates)},
+        "runs_it_per_s": rates,
+        "launches": [r["launches"] for r in runs],
+        "peak_bytes": max(peaks) if peaks else None, "reserved_bytes": reserved,
+        "gates": gates,
+        "correct": (gates["replay"] and gates["no_capture_in_window"]
+                    and gates["descent"] and (kernels is None or kernels["ok"])),
+        "runs": runs,
+    }
+
+
+def run_workloads(problem, name: str, modes, cfg: lm.LMConfig, repeats: int,
+                  device=None, out=emit) -> list:
+    """bench.py's workload for each of ``modes`` on one problem: the
+    warm-ups, ``repeats`` rounds of timed runs (the modes alternated in
+    each), then each workload's gates. Prints a line per warm-up, timed run
+    and workload (``out``) and returns the workload records, each with its
+    timed runs. Raises without CUDA and without ``device``.
+
+    The jit drive's graph cache is keyed by the problem object
+    (``lm._graph_key`` holds its id), and a capture for another problem
+    frees this one's graphs (``lm._device_loop``): so one problem object
+    serves the warm-ups, every timed run and the gates, it is never
+    reloaded between them, and problems are run one after another. A timed
+    run that captured (``LAST_JIT_RUN["captured"]``) fails gate (a); gate
+    (b)'s kernel prefixes replay the timed graphs before any is freed."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    prepare, _, to_loop, _ = lm.step_functions(problem, modes[0], cfg, dev)
+    e0 = float(prepare(to_loop(problem.state))[1])
+    warm, runs = {}, {mode: [] for mode in modes}
+    for mode in modes:
+        warm[mode] = timed_run(problem, mode, cfg, dev)
+        out({"bench": "warmup", "problem": name, **warm[mode]})
+    for round_ in range(repeats):
+        for mode in modes:
+            runs[mode].append(timed_run(problem, mode, cfg, dev))
+            out({"bench": "run", "problem": name, "round": round_,
+                 **runs[mode][-1]})
+    reserved = torch.cuda.memory_reserved(dev) if cuda else None
+    kernels = kernels_vs_plain(problem, modes, cfg, dev)
+    records = []
+    for mode in modes:
+        records.append(workload(name, mode, cfg, warm[mode], runs[mode], e0,
+                                reserved, kernels[mode]))
+        out({k: v for k, v in records[-1].items() if k != "runs"})
+    return records
+
+
+def last_line(name: str, records: list, device_line: str) -> dict:
+    """bench.py's line (bench.py:68-98): the first workload's median rate
+    is the headline, every workload's its own field."""
+    metric = f"lm_iter_per_sec_{name}_{records[0]['mode']}"
+    value = records[0]["it_per_s"]["median"]
+    # bench.py's vs_baseline where bench_baseline.json has no entry for the
+    # metric: it holds only p21's scipy rate, and p21 is not in the repo.
+    line = {"metric": metric, "value": round(value, 4), "unit": "iter/s",
+            "vs_baseline": 1.0, "baseline": None}
+    for r in records:
+        line[f"{name}_{r['mode']}_iter_per_sec"] = round(r["it_per_s"]["median"], 4)
+    line["correct"] = all(r["correct"] for r in records)
+    line["device"] = device_line
+    return line
+
+
+def main(argv=None, out=emit) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--problem", default=PROBLEM,
+                    help="p16, p126, p257, ladybug or the path of a BAL file")
+    ap.add_argument("--modes", default=",".join(MODES),
+                    help=f"comma list of {', '.join(schur.MODES)}")
+    ap.add_argument("--geometry", default="df32", choices=("df32", "f64"))
+    ap.add_argument("--max-iter", type=int, default=MAX_ITER)
+    ap.add_argument("--repeats", type=int, default=REPEATS,
+                    help=f"timed runs per workload (at least {CARD_REPEATS} "
+                    "on CUDA)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: CUDA; 'cpu' to run on the CPU)")
+    args = ap.parse_args(argv)
+    modes = tuple(args.modes.split(","))
+    unknown = [m for m in modes if m not in schur.MODES]
+    if unknown:
+        ap.error(f"unknown modes {unknown}; choose from {schur.MODES}")
+    known = args.problem in campaign.PROBLEMS or args.problem == "ladybug"
+    if not known and not os.path.exists(args.problem):
+        ap.error(f"no problem {args.problem!r}")
+    if args.max_iter < 1:
+        ap.error("--max-iter must be at least 1")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"bench_torch: {e}", file=sys.stderr)
+        return 2
+    cuda = device.type == "cuda"
+    if args.repeats < (CARD_REPEATS if cuda else 1):
+        ap.error(f"--repeats {args.repeats}: at least "
+                 f"{CARD_REPEATS if cuda else 1} on {device.type}")
+    # TF32 would run the float32 Schur matmuls on the tensor cores' 10-bit
+    # mantissa and change the numbers.
+    if cuda and torch.backends.cuda.matmul.allow_tf32:
+        print("bench_torch: torch.backends.cuda.matmul.allow_tf32 is on",
+              file=sys.stderr)
+        return 2
+    cfg = campaign.drive_config(args.geometry, args.max_iter)
+    name = problem_name(args.problem)
+    t0 = time.perf_counter()
+    problem, source = campaign.load_problem(args.problem, device)
+    device_line = campaign.card() if cuda else "cpu"
+    out({"bench": "header", "card": device_line,
+         "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
+         "torch": torch.__version__, "cuda": torch.version.cuda,
+         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+         "problem": name, "source": source, "n_cameras": problem.n_cameras,
+         "n_points": problem.n_points, "n_observations": problem.n_observations,
+         "load_s": time.perf_counter() - t0, "modes": list(modes),
+         "config": dataclasses.asdict(cfg), "kernels": cfg.use_kernels(device),
+         "repeats": args.repeats})
+    records = run_workloads(problem, name, modes, cfg, args.repeats, device, out)
+    line = last_line(name, records, device_line)
+    out(line)
+    return 0 if line["correct"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

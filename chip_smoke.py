@@ -11,7 +11,8 @@ defaults, whose LM drive is the device-resident one, against explicit jit
 and host runs on p257, float64 and df32, and the graph cache's bound over
 p16, p126 and p257 (``default_drive``), float64 cholesky on p126 and p257
 against the scipy oracle's logged prefix on both LM drives
-(``oracle_prefix``), then the other four solver modes
+(``oracle_prefix``), ``bench_torch.py``'s default run, bench.py's workload
+on p257 at 3 repeats, gated (``bench``), then the other four solver modes
 (``modes_df32_p257``, ``modes_f64_p16``), every solve realization against cholesky's step (``modes_agree_p16``),
 qrkit's "rows" and "pair" forms (``qrkit_forms_p257``) and spqr's "gram"
 and "tsqr" forms (``spqr_forms_p257``), then the command line in-process
@@ -1982,6 +1983,44 @@ def default_drive_phase(pm, lm, cuda_chain, problems, p126, smi) -> dict:
     return launches
 
 
+def bench_phase(bench_torch, lm, smi) -> dict:
+    """``bench``: ``bench_torch.py``'s default run (bench.py's workload:
+    p257 df32 cholesky and qrchol to 100 iterations on the jit drive) with
+    3 timed runs each, through its ``main``; its lines pass on under the
+    phase's name, its last one in ``bench_done``. Gate: it exits 0 with
+    ``correct`` true and both p257 fields, no timed run captured, and every
+    timed run launched both chain kernels. Returns each mode's launches in
+    its first timed run."""
+    t_phase = time.perf_counter()
+    lines = []
+
+    def out(obj):
+        lines.append(obj)
+        if "metric" not in obj:
+            emit({"phase": "bench", **obj})
+
+    rc = bench_torch.main(["--repeats", "3"], out=out)
+    lm.clear_graphs()
+    last = lines[-1] if lines else {}
+    runs = [x for x in lines if x.get("bench") == "run"]
+    emit({"phase": "bench_done", "rc": rc, "last_line": last, "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase})
+    check(rc == 0 and last.get("correct") is True,
+          f"bench: exit code {rc}, last line {last}")
+    check(last["metric"] == "lm_iter_per_sec_p257_cholesky"
+          and all(f"p257_{m}_iter_per_sec" in last for m in bench_torch.MODES),
+          f"bench: last line {last} lacks a p257 field")
+    check(len(runs) == 3 * len(bench_torch.MODES)
+          and not any(r["captured"] for r in runs),
+          "bench: a timed run captured its graph: "
+          f"{[(r['mode'], r['captured']) for r in runs]}")
+    check(all(min(r["launches"].values()) > 0 for r in runs),
+          f"bench: a df32 timed run launched no chain kernel: "
+          f"{[r['launches'] for r in runs]}")
+    return {m: next(r["launches"] for r in runs if r["mode"] == m)
+            for m in bench_torch.MODES}
+
+
 def oracle_prefix_phase(oracle_prefix, loaded, smi) -> None:
     """``oracle_prefix``: float64 cholesky on p126 and p257 to the scipy
     oracle's logged iterations, on both LM drives
@@ -2110,6 +2149,7 @@ def main() -> None:
         sys.exit(f"chip_smoke: run from a checkout of the repository "
                  f"(missing {PACKAGE.name}/ or data/ beside {Path(__file__).name})")
     sys.path.insert(0, str(HERE))
+    import bench_torch
     import flatline_campaign
     import oracle_prefix
     from bundleadjustment_benchmarks_tpu_torch import cli
@@ -2360,6 +2400,9 @@ def main() -> None:
         kern[which]["launches"] = default_launches[which]
     oracle_prefix_phase(oracle_prefix, oracle, smi)
     del oracle
+    for mode, launches in bench_phase(bench_torch, lm, smi).items():
+        for which in kern:
+            kern[which][f"launches_bench_p257_{mode}"] = launches[which]
 
     # -- the other solver modes ---------------------------------------------------
     modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi)

@@ -1,0 +1,241 @@
+"""``bench_torch.py``, the port's counterpart of ``bench.py``, on the CPU at
+p16: its workload against a direct ``lm.minimize``, against the JAX
+package's bench.py CPU branch, its command line and its gates.
+
+Tolerances:
+- Against the port's own ``lm.minimize`` with
+  ``flatline_campaign.drive_config("f64", 3)``: the same iterations,
+  evaluations, status and energy, bit for bit (the bench adds nothing to
+  the run it times).
+- Against JAX's ``lm.minimize(problem, "cholesky", LMConfig(drive="jit",
+  max_iter=3))`` (bench.py:45-55 on the CPU): the same iterations,
+  evaluations and status, energies within 1e-6 relative (the gap measured
+  after iteration 3 is ~1e-7; printed with ``pytest -rP``).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from bundleadjustment_benchmarks_tpu.models import problem as jpm
+from bundleadjustment_benchmarks_tpu.solvers import lm as jlm
+from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
+from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import bench_torch as bench  # noqa: E402
+import flatline_campaign as campaign  # noqa: E402
+
+SCRIPT = os.path.join(ROOT, "bench_torch.py")
+P16 = os.path.join(ROOT, campaign.PROBLEMS["p16"])
+JAX_RTOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def p16_f64():
+    """The bench's workload on p16 in float64, 3 iterations, one timed run:
+    (problem, its record, the lines it printed)."""
+    problem = pm.load_bal_problem(P16, device="cpu")
+    lines = []
+    (record,) = bench.run_workloads(problem, "p16", ("cholesky",),
+                                    campaign.drive_config("f64", 3), 1, "cpu",
+                                    out=lines.append)
+    return problem, record, lines
+
+
+def _script(*args):
+    return subprocess.run([sys.executable, SCRIPT, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+
+
+def test_config_is_bench_py_on_the_jit_drive(monkeypatch):
+    """The script runs ``flatline_campaign.drive_config``: bench.py's
+    accelerator config by default, its CPU branch with ``--geometry f64``,
+    both on the jit drive."""
+    df32 = campaign.drive_config("df32", 100)
+    assert (df32.drive, df32.max_iter, df32.geometry, df32.matmul_dtype) == (
+        "jit", 100, "df32", "float32")
+    f64 = campaign.drive_config("f64", 3)
+    assert (f64.drive, f64.max_iter, f64.geometry, f64.matmul_dtype) == (
+        "jit", 3, None, None)
+    seen = []
+    monkeypatch.setattr(bench, "run_workloads",
+                        lambda problem, name, modes, cfg, *a, **kw: seen.append(cfg) or [])
+    monkeypatch.setattr(bench, "last_line", lambda *a: {"correct": True})
+    for argv, want in ((["--max-iter", "100"], df32), (["--geometry", "f64",
+                                                       "--max-iter", "3"], f64)):
+        assert bench.main(["--problem", "p16", "--device", "cpu", *argv],
+                          out=lambda _: None) == 0
+        assert seen[-1] == want
+
+
+def test_workload_equals_direct_minimize(p16_f64):
+    problem, record, _ = p16_f64
+    direct = lm.minimize(problem, "cholesky", campaign.drive_config("f64", 3),
+                         device="cpu")
+    want = {"status": lm.STATUS_STRINGS[direct.status],
+            "iterations": direct.iterations, "fun_evals": direct.fun_evals,
+            "energy": direct.energy}
+    for run in record["runs"]:
+        assert {k: run[k] for k in want} == want
+    assert {k: record[k] for k in want} == want
+
+
+def test_workload_matches_jax_bench_cpu_branch(p16_f64):
+    _, record, _ = p16_f64
+    jp = jpm.load_bal_problem(P16, dtype=jnp.float64)
+    res_j = jlm.minimize(jp, mode="cholesky",
+                         config=jlm.LMConfig(drive="jit", max_iter=3))
+    run = record["runs"][0]
+    gap = abs(run["energy"] - float(res_j.energy)) / abs(float(res_j.energy))
+    print(f"gap bench p16 f64 cholesky vs JAX bench.py CPU branch, 3 "
+          f"iterations: {gap:.3g}")
+    assert (run["status"], run["iterations"], run["fun_evals"]) == (
+        jlm.STATUS_STRINGS[jlm.LMStatus(int(res_j.status))],
+        int(res_j.iterations), int(res_j.fun_evals))
+    assert gap <= JAX_RTOL
+
+
+def test_workload_lines_and_gates(p16_f64):
+    _, record, lines = p16_f64
+    assert [line["bench"] for line in lines] == ["warmup", "run", "workload"]
+    assert "runs" not in lines[-1]
+    assert record["gates"] == {"replay": True, "no_capture_in_window": True,
+                               "kernels_vs_plain": None, "descent": True}
+    assert record["correct"] and record["repeats"] == 1
+    run = record["runs"][0]
+    assert run["captured"] is False and run["reads"] == 1
+    assert record["it_per_s"]["median"] == run["it_per_s"] > 0
+    assert record["energy"] < record["initial_energy"]
+    assert record["peak_bytes"] is None and record["reserved_bytes"] is None
+
+
+def test_script_last_line():
+    proc = _script("--problem", "p16", "--repeats", "1", "--max-iter", "2",
+                   "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = [json.loads(line) for line in proc.stdout.splitlines()]
+    last = lines[-1]
+    assert last["metric"] == "lm_iter_per_sec_p16_cholesky"
+    assert last["unit"] == "iter/s"
+    assert last["vs_baseline"] == 1.0 and last["baseline"] is None
+    assert last["value"] == last["p16_cholesky_iter_per_sec"] > 0
+    assert last["p16_qrchol_iter_per_sec"] > 0
+    assert last["correct"] is True and last["device"] == "cpu"
+    runs = [line for line in lines if line.get("bench") == "run"]
+    assert [r["mode"] for r in runs] == ["cholesky", "qrchol"]
+    assert lines[0]["bench"] == "header" and lines[0]["config"]["geometry"] == "df32"
+
+
+@pytest.mark.parametrize("args", [
+    ["--repeats", "0"],
+    ["--modes", "cholesky,householder"],
+    ["--max-iter", "0"],
+    ["--problem", "no-such-problem.txt"],
+], ids=["repeats0", "unknown-mode", "max-iter0", "no-problem"])
+def test_bad_arguments_exit_nonzero(args):
+    proc = _script("--problem", "p16", "--device", "cpu", *args)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+
+
+def _run(**kw):
+    run = {"mode": "cholesky", "status": lm.STATUS_STRINGS[lm.LMStatus.MaxItersReached],
+           "iterations": 4, "fun_evals": 6, "energy": 10.0, "wall_s": 0.5,
+           "it_per_s": 8.0, "captured": False, "capture_s": 0.0, "replays": 1,
+           "reads": 1, "launches": {}, "peak_bytes": None, "points_ok": True}
+    run.update(kw)
+    return run
+
+
+FAULTS = {
+    "clean": ({}, None),
+    "energy-differs": (dict(energy=10.0 + 1e-12), "replay"),
+    "fun-evals-differ": (dict(fun_evals=7), "replay"),
+    "captured": (dict(captured=True), "no_capture_in_window"),
+    "no-descent": (dict(energy=20.0), "descent"),
+    "non-finite": (dict(energy=float("inf")), "descent"),
+    "bad-stop": (dict(status=lm.STATUS_STRINGS[lm.LMStatus.TooManyFunctionEvaluation]),
+                 "descent"),
+    "bad-points": (dict(points_ok=False), "descent"),
+}
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_gates_catch_each_fault(fault):
+    """A timed run that departs from the warm-up, or captured, fails its
+    gate; a workload whose runs (warm-up too) do not descend fails its own;
+    either makes the workload incorrect. The clean one passes every gate."""
+    change, gate = FAULTS[fault]
+    cfg = campaign.drive_config("f64", 3)
+    if gate == "descent":
+        warm, runs = _run(**change), [_run(**change), _run(**change)]
+    else:
+        warm, runs = _run(), [_run(), _run(**change)]
+    rec = bench.workload("p16", "cholesky", cfg, warm, runs, 15.0, None, None)
+    failed = [k for k, v in rec["gates"].items() if v is False]
+    assert failed == ([gate] if gate else [])
+    assert rec["correct"] is (gate is None)
+
+
+def test_kernel_gate_fails_the_workload():
+    cfg = campaign.drive_config("df32", 3)
+    kernels = {"iterations": [4, 4], "fun_evals": [6, 7], "energy": [10.0, 10.0],
+               "rel_gap": 0.0, "kernels_captured": False,
+               "kernels_launches": {"chain_blocks": 1, "chain_energy": 1}, "ok": False}
+    rec = bench.workload("p16", "cholesky", cfg, _run(), [_run()], 15.0, None,
+                         kernels)
+    assert not rec["correct"]
+    assert bench.kernels_vs_plain(None, ("cholesky", "qrchol"), cfg,
+                                  torch.device("cpu")) == {"cholesky": None,
+                                                           "qrchol": None}
+
+
+def test_last_line_baseline():
+    recs = [{"mode": "cholesky", "it_per_s": {"median": 2.0}, "correct": True},
+            {"mode": "qrchol", "it_per_s": {"median": 1.0}, "correct": False}]
+    line = bench.last_line("p16", recs, "cpu")
+    assert line == {"metric": "lm_iter_per_sec_p16_cholesky", "value": 2.0,
+                    "unit": "iter/s", "vs_baseline": 1.0, "baseline": None,
+                    "p16_cholesky_iter_per_sec": 2.0,
+                    "p16_qrchol_iter_per_sec": 1.0, "correct": False,
+                    "device": "cpu"}
+
+
+@pytest.mark.parametrize("key,name", [
+    ("p257", "p257"), ("ladybug", "ladybug"),
+    ("/data/problem-21-11315-pre.txt", "problem-21-11315-pre"),
+    ("data/problem-16-22106-pre.txt.gz", "problem-16-22106-pre"),
+])
+def test_problem_name(key, name):
+    assert bench.problem_name(key) == name
+
+
+def test_incorrect_run_exits_one_after_printing(monkeypatch):
+    """A timed run that departs from its warm-up: the script prints every
+    line, the last with ``correct: false``, and returns 1."""
+    calls = []
+    minimize = lm.minimize
+
+    def drifting(*args, **kw):
+        res = minimize(*args, **kw)
+        calls.append(res)
+        return res._replace(energy=res.energy * (1 + 1e-9 * (len(calls) - 1)))
+
+    monkeypatch.setattr(bench.lm, "minimize", drifting)
+    lines = []
+    rc = bench.main(["--problem", "p16", "--geometry", "f64", "--modes",
+                     "cholesky", "--max-iter", "1", "--repeats", "1",
+                     "--device", "cpu"], out=lines.append)
+    assert rc == 1 and len(calls) == 2
+    assert [line.get("bench") for line in lines] == [
+        "header", "warmup", "run", "workload", None]
+    assert lines[-1]["correct"] is False
+    assert lines[-2]["gates"]["replay"] is False

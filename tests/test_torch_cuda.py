@@ -570,3 +570,25 @@ def test_sharded_jit_nccl_world_size_1_matches_single(p16_cuda):
     assert counts["allreduce_per_trial"]["calls"] > 0
     assert not [k for k in lm._GRAPHS if k[-1] is not None]  # freed with the group
     lm.clear_graphs()
+
+
+def test_bench_workload_p16_df32(p16_cuda):
+    """``bench_torch.py``'s workload on p16 df32 (cholesky, 20 iterations,
+    3 timed runs) on the jit drive: every gate holds, no timed run
+    captures, and each launches both chain kernels."""
+    sys.path.insert(0, ROOT)
+    try:
+        import bench_torch
+    finally:
+        sys.path.remove(ROOT)
+    prob, _ = p16_cuda
+    (rec,) = bench_torch.run_workloads(
+        prob, "p16", ("cholesky",), bench_torch.campaign.drive_config("df32", 20), 3,
+        "cuda", out=lambda _: None)
+    lm.clear_graphs()
+    assert rec["correct"], rec["gates"]
+    assert rec["gates"]["kernels_vs_plain"]["ok"]
+    assert rec["gates"]["kernels_vs_plain"]["kernels_captured"] is False
+    assert all(r["captured"] is False and r["replays"] > 0 for r in rec["runs"])
+    assert all(min(r["launches"].values()) > 0 for r in rec["runs"])
+    assert rec["peak_bytes"] > 0 and rec["reserved_bytes"] >= rec["peak_bytes"]

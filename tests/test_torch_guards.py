@@ -20,6 +20,7 @@ SMOKE = os.path.join(ROOT, "chip_smoke.py")
 CAMPAIGN = os.path.join(ROOT, "flatline_campaign.py")
 ELLIPSE = os.path.join(ROOT, "examples", "ellipse_fitting_torch.py")
 ORACLE = os.path.join(ROOT, "oracle_prefix.py")
+BENCH = os.path.join(ROOT, "bench_torch.py")
 P16 = os.path.join(ROOT, "data", "problem-16-22106-pre.txt.gz")
 
 
@@ -106,11 +107,12 @@ def _imported_names(path):
     return names
 
 
-@pytest.mark.parametrize("path", [CAMPAIGN, ELLIPSE, ORACLE], ids=os.path.basename)
+@pytest.mark.parametrize("path", [CAMPAIGN, ELLIPSE, ORACLE, BENCH],
+                         ids=os.path.basename)
 def test_campaign_and_example_import_no_jax(path):
-    """The flatline campaign, the ellipse example and the oracle-prefix
-    script name no JAX module, and importing them (and the package modules
-    they reach) loads none."""
+    """The flatline campaign, the ellipse example, the oracle-prefix script
+    and the bench name no JAX module, and importing them (and the package
+    modules they reach) loads none."""
     names = _imported_names(path)
     assert "bundleadjustment_benchmarks_tpu_torch.solvers" in names
     assert [n for n in names if _is_jax_side(n)] == []
@@ -160,6 +162,18 @@ def test_oracle_prefix_needs_cuda_unless_told(tmp_path):
                           timeout=120)
     assert proc.returncode == 2 and "no CUDA device" in proc.stderr
     assert proc.stdout == "" and not out.exists()
+
+
+def test_bench_needs_cuda_unless_told():
+    """Without CUDA and without ``--device`` the bench exits 2 and prints
+    nothing on its standard output; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, BENCH, "--problem", "p16",
+                           "--modes", "cholesky", "--max-iter", "1"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2 and "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
 
 
 def _run_smoke(cwd):
