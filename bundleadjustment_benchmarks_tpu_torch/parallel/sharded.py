@@ -248,11 +248,14 @@ def minimize_sharded(sp: ShardedProblem, mode: str = "cholesky",
     share one card get, raises, see ``check_graph_backend``: such ranks
     pass ``LMConfig(drive="host")``) and no
     iteration table, as JAX's ``lm_loop`` writes none; on the CPU the loop
-    runs eagerly. A collective in a replay is not watched by torch's NCCL
-    timeout: a rank that hangs holds the others at their next chunk read,
-    and the caller's deadline bounds the run (``multihost.run_ranks``'
-    ``deadline``). The captured graph is cached for the group; the group's
-    teardown in ``multihost.run_ranks`` frees it."""
+    runs eagerly. Like JAX's one ``jax.jit`` of the whole run, that loop is
+    one replay and one host read (``config.chunked`` is ignored, as JAX's
+    sharded drive ignores it). A collective in a replay is not
+    watched by torch's NCCL timeout: a rank that hangs holds the others at
+    their next read, which for an unchunked run is its end, so the caller's
+    deadline bounds the run (``multihost.run_ranks``' ``deadline``). The
+    captured graph is cached for the group; the group's teardown in
+    ``multihost.run_ranks`` frees it."""
     reduce = AllReduce(sp)
     res = lm.minimize(sp.problem, mode, config, device=sp.device, resume=resume,
                       checkpoint_path=checkpoint_path,

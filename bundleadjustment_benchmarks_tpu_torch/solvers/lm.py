@@ -22,11 +22,13 @@ run that control flow (``LMConfig.drive``):
 
   * "jit" (``DeviceLoop``, the default, as in the JAX package, and
     bench.py's drive, JAX lm.py:286-786): the LM scalars are float64 device
-    tensors and every decision is taken on the device; on CUDA one chunk of
-    ``chunk_size`` iterations (a loop of damping trials with their control
-    flow) is captured once into a CUDA graph with conditional nodes
-    (``ops/cuda_graph.py``) and replayed, and the host reads the state once
-    per chunk. Its table, JSONL records and checkpoints follow JAX's
+    tensors and every decision is taken on the device; on CUDA the loop of
+    damping trials with its control flow is captured once into a CUDA graph
+    with conditional nodes (``ops/cuda_graph.py``) and replayed. A run that
+    nothing observes is one replay and one host read at its end (JAX's one
+    ``_minimize_jit`` dispatch); an observed or ``chunked`` one replays the
+    graph once per chunk of ``chunk_size`` iterations and reads the state
+    after each, and its table, JSONL records and checkpoints follow JAX's
     chunked drive. The graph is cached for the problem (``_device_loop``).
   * "host" (``lm_loop``; the command line's default, as JAX's): plain
     Python over device-resident tensors. The host reads the trial energy
@@ -133,11 +135,20 @@ class LMConfig:
     #: "jit", the default as in JAX (JAX lm.py:92), and bench.py's drive:
     #: the device-resident drive (``DeviceLoop``); on CUDA every prepare and
     #: trial runs from one captured CUDA graph with conditional nodes, and
-    #: the host reads the LM scalars once per chunk. "host": the Python
-    #: loop, one host read per trial (``lm_loop``).
+    #: the host reads the LM scalars once a run (once per chunk where the
+    #: run is observed or ``chunked``). "host": the Python loop, one host
+    #: read per trial (``lm_loop``).
     drive: str = "jit"
-    #: Outer iterations per host read of the jit drive (JAX lm.py:139-143).
+    #: Outer iterations per host read of the jit drive where it runs in
+    #: chunks (JAX lm.py:139-143).
     chunk_size: int = 16
+    #: Run the jit drive in chunks of ``chunk_size`` iterations even where
+    #: nothing observes the run (JAX lm.py:150-157): a host read after each
+    #: chunk. False, the default as in JAX: a run without ``verbose``, a
+    #: checkpoint, metrics, ``resume`` or a ``trace`` is one dispatch (one
+    #: graph replay on CUDA) and one host read at its end. Ignored on a
+    #: shard, as JAX's ``minimize_sharded`` ignores it.
+    chunked: bool = False
 
     def use_kernels(self, device: torch.device) -> bool:
         if self.kernels and device.type != "cuda":
@@ -409,6 +420,18 @@ class RunLog:
                 fun_evals=fun_evals, energy_history=list(hist))
 
 
+def _nielsen(rho):
+    """Lambda's factor on an accepted trial, max(1/3, 1 - (2 rho - 1)^3)
+    (BacktrackLevMarqCholesky.h:303): of a float on the host drive, of a
+    device tensor on the jit drive (where a NaN rho stays NaN, as under
+    JAX's ``jnp.maximum``)."""
+    t = 2.0 * rho - 1.0
+    factor = 1.0 - t * (t * t)
+    if isinstance(factor, torch.Tensor):
+        return torch.clamp(factor, min=1.0 / 3.0)
+    return max(1.0 / 3.0, factor)
+
+
 def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
             run_log: Optional[RunLog] = None):
     """The LM control flow around ``prepare(x) -> (ctx, energy, lam0)`` and
@@ -460,9 +483,7 @@ def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
                     f"rho denominator {rho_scale}")
             if e_t < energy:
                 rho = (energy - e_t) / rho_scale
-                t = 2.0 * rho - 1.0
-                lam = max(lam * max(1.0 / 3.0, 1.0 - t * (t * t)),
-                          config.lambda_min)
+                lam = max(lam * _nielsen(rho), config.lambda_min)
                 if run_log:
                     run_log.trial(it, "Accepted", energy, rho, lam, elapsed)
                 lam_inc = float(config.lambda_increase_base)
@@ -504,12 +525,13 @@ def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
 #: trial's lambda; trials so far), the last trial's energy, the trials run
 #: in this chunk, the first non-finite trial read (for debug_nans), the
 #: chunk's iteration bounds (set on the device as it starts), then what the
-#: host sets: the chunk's cap on trials and the limits (JAX's traced
-#: _Limits: changing them does not recapture).
+#: host sets: the chunk's length in iterations, the cap on an iteration's
+#: trials, and the limits (JAX's traced _Limits). Changing any of these
+#: does not recapture.
 _DYN = ("lam", "it", "fun_evals", "status", "energy", "between", "f", "lam0",
         "trials", "e_trial", "slots", "bad_it", "bad_energy", "bad_e_test",
         "bad_rho_scale", "chunk_start", "chunk_end")
-_HOST = ("slot_cap", "max_iter", "max_fun_ev", "tol_fun")
+_HOST = ("chunk_len", "trial_cap", "max_iter", "max_fun_ev", "tol_fun")
 #: The entries that an iteration's start and a trial write (a trial also
 #: writes the flatline history).
 _BEGIN_SET = ("it", "fun_evals", "f", "lam", "lam0", "trials", "between")
@@ -580,12 +602,16 @@ class DeviceLoop:
     On CUDA the chunk is captured once into a ``cuda_graph.DeviceGraph``
     (its loop of slots, their two branches and the float32 Cholesky's
     fallback are conditional nodes) and ``run`` replays it; on the CPU
-    ``run`` calls it. Either way the host reads the state once per chunk of
-    ``config.chunk_size`` outer iterations. A chunk stops after
-    ``chunk_size * (_GROWTH + 1)`` trials, more than its iterations can take
+    ``run`` calls it. Either way the host reads the state once per chunk.
+    The chunk's length is a device value (``chunk_len``, set by ``run``):
+    ``config.chunk_size`` outer iterations for a chunked run, ``max_iter``
+    for an unchunked one, which so runs as one chunk, one replay and one
+    read (JAX's single ``_minimize_jit`` dispatch); one capture serves both.
+    An iteration stops after ``_GROWTH + 1`` trials, as many as it can take
     where lambda grows (the growth table reaches inf by its last entry for
-    any base above 1); ``run`` raises if that cap ended a chunk, where the
-    host drive would loop forever.
+    any base above 1, and a rejected trial at an infinite lambda stops the
+    run); ``run`` raises if that cap ended a chunk, where the host drive
+    would loop forever, on either route.
 
     On a shard (``reduce``, a sharded ``schur.Reduce``) ``prepare`` and
     ``trial`` hold collectives, which the capture records into the graph:
@@ -596,7 +622,9 @@ class DeviceLoop:
     collectives. Torch's NCCL watchdog does not see work in a replay, so
     no collective timeout bounds it: a rank that hangs there holds the
     others at the chunk's read, and only the caller's deadline (a
-    ``multihost.run_ranks`` ``deadline``, a job's limit) ends the run."""
+    ``multihost.run_ranks`` ``deadline``, a job's limit) ends the run. An
+    unchunked run reads once, at its end, so that deadline is the only
+    bound on the whole run."""
 
     def __init__(self, x0, prepare, trial, config: LMConfig, device,
                  reduce: schur.Reduce = schur.LOCAL):
@@ -623,6 +651,7 @@ class DeviceLoop:
         self.ctx = None
         self.graph = None
         self.reads = self.replays = self.slots = self.prepares = 0
+        self.chunked = False
 
     def _v(self, name):
         return self.sv[self.pos[name]]
@@ -638,7 +667,7 @@ class DeviceLoop:
     def chunk(self):
         v = self._v
         self.sv[self.pos["chunk_start"]].copy_(v("it"))
-        self.sv[self.pos["chunk_end"]].copy_(v("it") + self.config.chunk_size)
+        self.sv[self.pos["chunk_end"]].copy_(v("it") + v("chunk_len"))
         self.sv[self.pos["slots"]].zero_()
         cuda_graph.device_while(self._live, self._slot)
 
@@ -649,7 +678,8 @@ class DeviceLoop:
                      & (v("fun_evals") <= v("max_fun_ev"))
                      & (v("it") < v("chunk_end")))
         return ((v("status") == float(LMStatus.Running))
-                & (~between | may_start) & (v("slots") < v("slot_cap")))
+                & (~between | may_start)
+                & (between | (v("trials") < v("trial_cap"))))
 
     def _slot(self):
         cuda_graph.device_if(self._v("between") > 0, self._begin)
@@ -688,9 +718,7 @@ class DeviceLoop:
         accepted = e_t < f
         # Accept: Nielsen decrease (BacktrackLevMarqCholesky.h:299-316).
         rho = (f - e_t) / rho_scale
-        t = 2.0 * rho - 1.0
-        lam_acc = torch.clamp(lam * torch.clamp(1.0 - t * (t * t), min=1.0 / 3.0),
-                              min=cfg.lambda_min)
+        lam_acc = torch.clamp(lam * _nielsen(rho), min=cfg.lambda_min)
         # Reject: the stop check precedes the growth (:325-334); a
         # non-finite lambda or energy stops too.
         finite = torch.isfinite(lam) & torch.isfinite(f)
@@ -764,9 +792,11 @@ class DeviceLoop:
         self.ctx = None
 
     def _init(self, x0, cfg: LMConfig, lam=math.nan, it=0, fun_evals=0,
-              hist=(), slot_cap=None) -> None:
+              hist=(), chunk_len=None, trial_cap=_GROWTH + 1) -> None:
         """Copy ``x0`` into the loop's state and set the LM scalars: those
-        given (a fresh run's or a checkpoint's) and ``cfg``'s limits."""
+        given (a fresh run's or a checkpoint's), the chunk's length
+        (default ``chunk_size``), the cap on an iteration's trials, and
+        ``cfg``'s limits."""
         for dst, src in zip(_leaves(self.x), _leaves(x0)):
             dst.copy_(src)
         pos, size = self.pos, cfg.energy_history_size
@@ -778,8 +808,8 @@ class DeviceLoop:
         init[pos["between"]] = 1.0
         hist = list(hist)[:size]
         init[pos["hist0"]:pos["hist0"] + size] = hist + [0.0] * (size - len(hist))
-        init[pos["slot_cap"]] = (self.config.chunk_size * (_GROWTH + 1)
-                                 if slot_cap is None else slot_cap)
+        init[pos["chunk_len"]] = self.config.chunk_size if chunk_len is None else chunk_len
+        init[pos["trial_cap"]] = trial_cap
         init[pos["max_iter"]] = min(cfg.max_iter, i32max)
         init[pos["max_fun_ev"]] = min(cfg.max_fun_ev, i32max)
         init[pos["tol_fun"]] = cfg.tol_fun
@@ -803,17 +833,22 @@ class DeviceLoop:
         big = dataclasses.replace(self.config, max_iter=2**31 - 1,
                                   max_fun_ev=2**31 - 1)
         # Iteration 2's lambda is the carried one, not the rule's.
-        self._init(x0, big, lam=lam, it=1, slot_cap=1)
+        self._init(x0, big, lam=lam, it=1, chunk_len=1, trial_cap=1)
         self._chunk()
         return self._read(False)[self.pos["e_trial"]]
 
     def run(self, x0, resume=None, run_log: Optional[RunLog] = None,
             checkpoint_every: int = 0, sync_debug: bool = False,
             config: Optional[LMConfig] = None):
-        """The chunked loop from ``x0`` (and ``resume``'s LM scalars), with
-        ``config``'s limits (max_iter, max_fun_ev, tol_fun) and debug_nans
-        (default: the config the loop was built with; the rest of a config
-        is fixed by the capture).
+        """The loop from ``x0`` (and ``resume``'s LM scalars), with
+        ``config``'s limits (max_iter, max_fun_ev, tol_fun), debug_nans and
+        chunked (default: the config the loop was built with; the rest of a
+        config is fixed by the capture). It routes as JAX's ``minimize``:
+        in chunks of ``chunk_size`` iterations where ``run_log`` observes
+        the run (verbose, metrics, checkpoints, a trace), where it resumes
+        or where ``chunked`` is set, else as one chunk of ``max_iter``. On
+        a shard ``chunked`` is ignored, as JAX's ``minimize_sharded`` has
+        no chunks (``self.chunked`` says which route the run took).
         ``sync_debug`` (CUDA): each chunk runs under
         ``torch.cuda.set_sync_debug_mode("error")``, so that an operation
         that synchronizes there raises; the read after it is outside.
@@ -824,21 +859,24 @@ class DeviceLoop:
         lm.py:724-736). Returns lm_loop's tuple."""
         cfg, pos = config or self.config, self.pos
         size = cfg.energy_history_size
+        max_iter = min(cfg.max_iter, 2**31 - 1)
+        observe = run_log is not None and bool(
+            run_log.verbose or run_log._metrics or run_log.trace is not None
+            or run_log.checkpoint_path)
+        self.chunked = observe or bool(resume) or (
+            cfg.chunked and not self.reduce.sharded)
+        chunk = self.config.chunk_size if self.chunked else max_iter
         it = 0
         if resume:
             it = int(resume.get("iteration", 0))
             self._init(x0, cfg, lam=float(resume.get("lam", math.nan)), it=it,
                        fun_evals=int(resume.get("fun_evals", 0)),
-                       hist=resume.get("energy_history", []))
+                       hist=resume.get("energy_history", []), chunk_len=chunk)
         else:
-            self._init(x0, cfg)
-        observe = run_log is not None and (
-            run_log.verbose or run_log._metrics or run_log.trace is not None
-            or run_log.checkpoint_path)
+            self._init(x0, cfg, chunk_len=chunk)
         ckpt = run_log is not None and run_log.checkpoint_path and checkpoint_every
         next_ckpt = (it // checkpoint_every + 1) * checkpoint_every if ckpt else None
-        chunk, n_rec = self.config.chunk_size, len(_REC)
-        max_iter = min(cfg.max_iter, 2**31 - 1)
+        n_rec = len(_REC)
         max_fe = min(cfg.max_fun_ev, 2**31 - 1)
         running = float(LMStatus.Running)
         fun_evals = int(resume.get("fun_evals", 0)) if resume else 0
@@ -860,7 +898,7 @@ class DeviceLoop:
             stopped = status != running or it + 1 > max_iter or fun_evals > max_fe
             if not (between and (stopped or it >= start + chunk)):
                 raise RuntimeError(
-                    f"LM iteration {it}: the chunk ran {int(vals[pos['slots']])} "
+                    f"LM iteration {it}: the iteration ran {int(vals[pos['trials']])} "
                     "trials without ending; lambda does not grow (lambda_"
                     f"increase_base {self.config.lambda_increase_base})")
             if cfg.debug_nans and vals[pos["bad_it"]] > 0:
@@ -910,8 +948,9 @@ class DeviceLoop:
 #: entries (``_device_loop``).
 _GRAPHS: dict = {}
 #: What the last jit-drive run did: capture_s (0 where the capture was
-#: cached or on the CPU), captured (this run captured), replays (chunks run:
-#: graph replays on CUDA), reads (host reads of the LM state), slots (trials
+#: cached or on the CPU), captured (this run captured), chunked (it ran in
+#: chunks of chunk_size, else as one), replays (chunks run: graph replays on
+#: CUDA), reads (host reads of the LM state), slots (trials
 #: run, counted on the device), prepares (iterations started), the size of
 #: the graph cache, and on a shard the collectives: allreduce_per_prepare
 #: and allreduce_per_trial ({"calls", "bytes"} of one, from the capture on
@@ -945,7 +984,8 @@ def _free_other_problems(key, problem) -> None:
 
 def _graph_key(problem, mode, config, x0, dev, reduce=schur.LOCAL):
     cfg = dataclasses.replace(config, max_iter=0, max_fun_ev=0, tol_fun=0.0,
-                              verbose=False, polish_iters=0, debug_nans=False)
+                              verbose=False, polish_iters=0, debug_nans=False,
+                              chunked=False)
     return (str(dev), id(problem), mode, cfg,
             tuple((t.dtype, tuple(t.shape)) for t in _leaves(x0)),
             reduce.capture_key())
@@ -1019,15 +1059,22 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     (``DeviceLoop``): on CUDA its graph is captured at the first call for
     (problem, mode, config without limits, the reduce's group) and replayed
     by later ones, until a capture for another problem on the device frees
-    it (``_device_loop``; ``clear_graphs`` frees all); checkpoints fall at the
-    first chunk end at or past each multiple of ``checkpoint_every`` (25
-    where 0 is given with a path), as in JAX's chunked drive. On a shard it
-    routes as the JAX package's ``minimize_sharded``: a run with
+    it (``_device_loop``; ``clear_graphs`` frees all). It routes as the JAX
+    package's ``minimize``: a run with ``config.verbose``,
+    ``checkpoint_path``, ``metrics_path``, ``resume``, ``trace`` or
+    ``config.chunked`` runs in chunks of ``chunk_size`` iterations, a host
+    read after each (JAX's ``chunked_loop``; checkpoints fall at the first
+    chunk end at or past each multiple of ``checkpoint_every``, 25 where 0
+    is given with a path); any other is one replay and one read. On a shard
+    it routes as the JAX package's ``minimize_sharded``: a run with
     ``checkpoint_path``, ``metrics_path`` or ``resume`` takes the host
     drive, any other the device loop with its collectives captured (NCCL on
     CUDA; a gloo group on CUDA raises) and, like JAX's ``lm_loop``, no
-    iteration table. A collective in a replay has no timeout of its own
-    (see ``DeviceLoop``)."""
+    iteration table: one dispatch, or chunks where a ``trace`` asks
+    (``config.chunked`` is ignored there: JAX's sharded drive has no
+    chunks). A
+    collective in a replay has no timeout of its own (see
+    ``DeviceLoop``)."""
     schur.check_mode(mode)
     config = config or LMConfig()
     if config.drive not in ("host", "jit"):
@@ -1092,7 +1139,7 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
                 cuda_eigh.collect_graph_launches()
             LAST_JIT_RUN.clear()
             LAST_JIT_RUN.update(
-                capture_s=capture_s, captured=capture_s > 0,
+                capture_s=capture_s, captured=capture_s > 0, chunked=loop.chunked,
                 replays=loop.replays, reads=loop.reads, slots=loop.slots,
                 prepares=loop.prepares, graphs_cached=len(_GRAPHS))
             if reduce.sharded:

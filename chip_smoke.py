@@ -7,12 +7,14 @@ csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
 in-repo BAL stand-ins, drives ``lm.minimize(mode="cholesky")`` on the df32
 drive (kernels on, p257 stand-in) and on the float64 drive (p16 stand-in),
 both on the host LM drive, then ``lm.minimize`` with ``LMConfig()``'s
-defaults, whose LM drive is the device-resident one, against explicit jit
+defaults, whose LM drive is the device-resident one (one replay and one
+host read a run, as JAX's one dispatch), against explicit jit
 and host runs on p257, float64 and df32, and the graph cache's bound over
 p16, p126 and p257 (``default_drive``), float64 cholesky on p126 and p257
 against the scipy oracle's logged prefix on both LM drives
 (``oracle_prefix``), ``bench_torch.py``'s default run, bench.py's workload
-on p257 at 3 repeats, gated (``bench``), then the other four solver modes
+on p257 at 3 repeats, gated, each workload held to the JAX package's
+campaign row and the scipy oracle's prefix (``bench``), then the other four solver modes
 (``modes_df32_p257``, ``modes_f64_p16``), every solve realization against cholesky's step (``modes_agree_p16``),
 qrkit's "rows" and "pair" forms (``qrkit_forms_p257``) and spqr's "gram"
 and "tsqr" forms (``spqr_forms_p257``), then the command line in-process
@@ -1207,13 +1209,13 @@ def hold_jit(lm, prob, mode, cfg, host, jit, e0, where) -> dict:
     return out
 
 
-def chunks_and_trials(lm, res, chunk: int) -> tuple:
-    """(host reads, trials) a jit run of result ``res`` should show: one
-    read per chunk of the iterations it started, and a trial for every
-    evaluation that was not an iteration's prepare."""
+def reads_and_trials(lm, res) -> tuple:
+    """(host reads, trials) a jit run of result ``res`` that nothing
+    observed should show: one read (one dispatch, JAX's default), and a
+    trial for every evaluation that was not an iteration's prepare."""
     started = res.iterations - (res.status in (
         lm.LMStatus.MaxItersReached, lm.LMStatus.TooManyFunctionEvaluation))
-    return -(-started // chunk), res.fun_evals - started
+    return 1, res.fun_evals - started
 
 
 def summary(run: dict) -> dict:
@@ -1234,8 +1236,9 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
     ``jit_p257_df32`` (cholesky, 20 iterations, jit and host alternated
     three times each), ``jit_modes`` (all five modes at p257 df32 and p16
     float64), ``jit_ladybug_df32`` (the Ladybug stand-in, both drives'
-    peaks) and ``jit_no_sync`` (the chunk loop under
-    ``torch.cuda.set_sync_debug_mode("error")`` between its reads).
+    peaks) and ``jit_no_sync`` (a ``chunked=True`` run of the cached graph
+    under ``torch.cuda.set_sync_debug_mode("error")`` between its reads:
+    one read and one replay per chunk of 16 iterations).
     Returns per kernel its launches in the jit p257 run."""
     dev = torch.device("cuda", 0)
     extra = {"chain_blocks": {}, "chain_energy": {}}
@@ -1325,7 +1328,7 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
         check(count > 0, f"jit_p257_df32: {which} not launched in the graph")
         extra[which]["launches_jit_p257_df32"] = count
     for r in runs["jit"]:
-        reads, trials = chunks_and_trials(lm, r["res"], lm.LMConfig().chunk_size)
+        reads, trials = reads_and_trials(lm, r["res"])
         check((r["jit"]["reads"], r["jit"]["replays"], r["jit"]["slots"])
               == (reads, reads, trials),
               f"jit_p257_df32: {r['jit']} for {r['res'].iterations} iterations, "
@@ -1333,19 +1336,27 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
 
     # -- jit_no_sync -------------------------------------------------------------
     t_phase = time.perf_counter()
-    cfg = lm.LMConfig(drive="jit", max_iter=20, **kw)
+    # Chunked: the graph of the one-dispatch runs above replayed per chunk.
+    cfg = lm.LMConfig(drive="jit", max_iter=20, chunked=True, **kw)
     prepare, trial, to_loop, _ = lm.step_functions(p257, "cholesky", cfg, dev)
     x0 = to_loop(p257.state)
     loop, capture_s = lm._device_loop(p257, "cholesky", cfg, x0, dev, prepare, trial)
-    loop.reads = 0
+    loop.reads = loop.replays = 0
     _, status, it, fun_evals, energy, _ = loop.run(x0, sync_debug=True,
                                                    config=cfg)
     torch.cuda.synchronize()
+    started = it - (status in (lm.LMStatus.MaxItersReached,
+                               lm.LMStatus.TooManyFunctionEvaluation))
+    chunks = -(-started // cfg.chunk_size)
     emit({"phase": "jit_no_sync", "iterations": it, "fun_evals": fun_evals,
           "status": status.name, "energy": energy, "reads": loop.reads,
+          "replays": loop.replays, "chunks": chunks,
           "captured_here": capture_s > 0, "nvidia_smi": smi,
           "phase_s": time.perf_counter() - t_phase})
     check(capture_s == 0.0, "jit_no_sync: the p257 graph was not cached")
+    check(loop.chunked and loop.reads == loop.replays == chunks > 1,
+          f"jit_no_sync: {loop.reads} reads, {loop.replays} replays for "
+          f"{started} iterations started in chunks of {cfg.chunk_size}")
     check((it, fun_evals) == (runs["jit"][0]["res"].iterations,
                               runs["jit"][0]["res"].fun_evals),
           f"jit_no_sync: {it} iterations, {fun_evals} evaluations")
@@ -1371,7 +1382,7 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
                                  dataclasses.replace(cfg, drive="jit"))
             gate = hold_jit(lm, prob, mode, cfg, host, jit, e0_m,
                             f"jit_modes {name} {mode}")
-            reads, trials = chunks_and_trials(lm, jit["res"], cfg.chunk_size)
+            reads, trials = reads_and_trials(lm, jit["res"])
             check((jit["jit"]["reads"], jit["jit"]["slots"]) == (reads, trials),
                   f"jit_modes {name} {mode}: {jit['jit']}")
             emit({"phase": "jit_modes", "problem": name, "mode": mode,
@@ -1627,7 +1638,7 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
         host, jit = runs["host"], runs["jit"]
         h, j = host["res"], jit["res"]
         gap = abs(j.energy - h.energy) / abs(h.energy)
-        reads, trials = chunks_and_trials(lm, j, cfg.chunk_size)
+        reads, trials = reads_and_trials(lm, j)
         prepares = jit["jit"]["prepares"]
         emit({"phase": "jit_qrkit_rows_p257", "drive": "df32" if kw else "f64",
               "capture": capture, "host": summary(host), "jit": summary(jit),
@@ -1737,11 +1748,12 @@ def sharded_jit_rank(rank, device, problems, smi) -> dict:
                    **{f"{k}_it_per_s": [r["it_per_s"] for r in v]
                       for k, v in runs.items()}}
     x0 = pm.to_fast(shards["p257"].problem.state)
-    loop.reads = 0
+    loop.reads = loop.replays = 0
     _, status, it, fun_evals, energy, _ = loop.run(x0, sync_debug=True, config=cfg)
     torch.cuda.synchronize(device)
     out["no_sync"] = {"iterations": it, "fun_evals": fun_evals,
-                      "status": status.name, "energy": energy, "reads": loop.reads}
+                      "status": status.name, "energy": energy, "reads": loop.reads,
+                      "replays": loop.replays}
     lm.clear_graphs()
 
     out["modes"] = []
@@ -1759,15 +1771,13 @@ def sharded_jit_rank(rank, device, problems, smi) -> dict:
     return out
 
 
-def jit_counts_ok(s: dict, chunk: int) -> bool:
-    """One read and one replay per chunk of the iterations a jit run (its
-    ``summary``) started, and a trial counted on the device for every
-    evaluation that was not a prepare."""
+def jit_counts_ok(s: dict) -> bool:
+    """One read and one replay for a jit run (its ``summary``) that nothing
+    observed, and a trial counted on the device for every evaluation that
+    was not a prepare."""
     started = s["iterations"] - (s["status"] in ("MaxItersReached",
                                                  "TooManyFunctionEvaluation"))
-    chunks = -(-started // chunk)
-    return (s["reads"], s["replays"], s["slots"]) == (
-        chunks, chunks, s["fun_evals"] - started)
+    return (s["reads"], s["replays"], s["slots"]) == (1, 1, s["fun_evals"] - started)
 
 
 def same_path(runs: dict, tol: float) -> bool:
@@ -1787,7 +1797,6 @@ def sharded_jit_phases(lm, multihost, problems, smi) -> dict:
     has two GPUs, two NCCL ranks (``jit_sharded_nccl_d2``). Returns per
     kernel its launches in the sharded jit p257 run."""
     t_phase = time.perf_counter()
-    chunk = lm.LMConfig().chunk_size
     (out,) = multihost.run_ranks(sharded_jit_rank, ["cuda:0"], args=(problems, smi))
     p257 = out["p257"]
     emit({"phase": "jit_sharded_nccl_p257", "backend": out["backend"],
@@ -1802,7 +1811,7 @@ def sharded_jit_phases(lm, multihost, problems, smi) -> dict:
         check(same_path(trio, NCCL_RTOL),
               f"jit_sharded_nccl_p257 run {i}: paths differ {trio}")
         for k in ("sharded_jit", "single_jit"):
-            check(jit_counts_ok(trio[k], chunk), f"jit_sharded_nccl_p257 {k}: {trio[k]}")
+            check(jit_counts_ok(trio[k]), f"jit_sharded_nccl_p257 {k}: {trio[k]}")
         per = trio["sharded_jit"]
         check(per["allreduce_per_prepare"]["calls"] > 0
               and per["allreduce_per_trial"]["calls"] > 0,
@@ -1814,7 +1823,8 @@ def sharded_jit_phases(lm, multihost, problems, smi) -> dict:
     jit0 = p257["sharded_jit"][0]
     check((no_sync["iterations"], no_sync["fun_evals"], no_sync["status"])
           == (jit0["iterations"], jit0["fun_evals"], jit0["status"])
-          and no_sync["energy"] == jit0["energy"],
+          and no_sync["energy"] == jit0["energy"]
+          and no_sync["reads"] == no_sync["replays"] == 1,
           f"jit_sharded_no_sync: {no_sync} against {jit0}")
     for line in out["modes"]:
         emit({"phase": "jit_sharded_modes", **line, "tolerance": NCCL_RTOL,
@@ -1822,7 +1832,7 @@ def sharded_jit_phases(lm, multihost, problems, smi) -> dict:
         where = f"jit_sharded_modes {line['problem']} {line['mode']}"
         trio = {k: line[k] for k in ("sharded_jit", "sharded_host", "single_jit")}
         check(same_path(trio, NCCL_RTOL), f"{where}: paths differ {trio}")
-        check(jit_counts_ok(line["sharded_jit"], chunk), f"{where}: {line['sharded_jit']}")
+        check(jit_counts_ok(line["sharded_jit"]), f"{where}: {line['sharded_jit']}")
     emit({"phase": "jit_sharded_nccl_done", "phase_s": time.perf_counter() - t_phase})
 
     t_phase = time.perf_counter()
@@ -1948,6 +1958,10 @@ def default_drive_phase(pm, lm, cuda_chain, problems, p126, smi) -> dict:
         check(all(r["jit"]["replays"] > 0 and not r["jit"]["captured"]
                   for r in runs["default"]),
               f"{where}: a default run did not replay the cached graph")
+        check(all(r["jit"]["reads"] == r["jit"]["replays"] == 1
+                  and r["jit"]["chunked"] is False for r in runs["default"]),
+              f"{where}: an unobserved default run read more than once "
+              f"({[r['jit'] for r in runs['default']]})")
         check(line["default_equals_explicit_jit"],
               f"{where}: the default differs from an explicit jit run")
         check((d0.iterations, d0.fun_evals, d0.status)
@@ -1987,10 +2001,12 @@ def bench_phase(bench_torch, lm, smi) -> dict:
     """``bench``: ``bench_torch.py``'s default run (bench.py's workload:
     p257 df32 cholesky and qrchol to 100 iterations on the jit drive) with
     3 timed runs each, through its ``main``; its lines pass on under the
-    phase's name, its last one in ``bench_done``. Gate: it exits 0 with
-    ``correct`` true and both p257 fields, no timed run captured, and every
-    timed run launched both chain kernels. Returns each mode's launches in
-    its first timed run."""
+    phase's name, its last one in ``bench_done``, and a ``bench_reference``
+    line per workload gives its reads, replays and gate (d). Gate: it exits
+    0 with ``correct`` true (gate (d) included) and both p257 fields, no
+    timed run captured, every timed run read and replayed once and
+    launched both chain kernels. Returns each mode's launches in its first
+    timed run."""
     t_phase = time.perf_counter()
     lines = []
 
@@ -2003,6 +2019,17 @@ def bench_phase(bench_torch, lm, smi) -> dict:
     lm.clear_graphs()
     last = lines[-1] if lines else {}
     runs = [x for x in lines if x.get("bench") == "run"]
+    for w in (x for x in lines if x.get("bench") == "workload"):
+        ref = w["reference"]
+        emit({"phase": "bench_reference", "mode": w["mode"], "reads": w["reads"],
+              "replays": w["replays"], "it_per_s": w["it_per_s"],
+              "iterations": w["iterations"], "status": w["status"],
+              "within": ref["within"], "error": ref.get("error"),
+              "endpoint": ref["endpoint"] and {k: ref["endpoint"][k] for k in (
+                  "source", "gaps", "dominates", "within")},
+              "prefix": ref["prefix"] and {k: ref["prefix"][k] for k in (
+                  "source", "gaps", "within")},
+              "nvidia_smi": smi})
     emit({"phase": "bench_done", "rc": rc, "last_line": last, "nvidia_smi": smi,
           "phase_s": time.perf_counter() - t_phase})
     check(rc == 0 and last.get("correct") is True,
@@ -2014,6 +2041,9 @@ def bench_phase(bench_torch, lm, smi) -> dict:
           and not any(r["captured"] for r in runs),
           "bench: a timed run captured its graph: "
           f"{[(r['mode'], r['captured']) for r in runs]}")
+    check(all(r["reads"] == r["replays"] == 1 for r in runs),
+          f"bench: a timed run read or replayed more than once: "
+          f"{[(r['mode'], r['reads'], r['replays']) for r in runs]}")
     check(all(min(r["launches"].values()) > 0 for r in runs),
           f"bench: a df32 timed run launched no chain kernel: "
           f"{[r['launches'] for r in runs]}")

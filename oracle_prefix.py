@@ -44,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
 import sys
@@ -85,6 +86,15 @@ CHOLESKY = dict(first_rel=1e-4, first_iters=3, rel=2e-3, inlier_px=1e-3,
 #: first five pairs within 1e-2, all within 1e-1, 5e-3 px and 5%.
 JAX_BUDGET = dict(first_rel=1e-2, first_iters=5, rel=1e-1, inlier_px=5e-3,
                   obj_rtol=5e-2, inlier_count_rtol=None)
+#: Where the reference logs lambda after each iteration: the damping
+#: update's factor (lambda over the previous iteration's) within this of
+#: the reference's over iterations 2..``first_iters``, in every mode (a
+#: mode's initial lambda may differ from the cholesky oracle's, its update
+#: may not). An energy moves little where lambda is small against the
+#: Hessian, so a wrong update can pass the energies of a short prefix: an
+#: inverted Nielsen factor (lambda x 3 where it should shrink 3x) leaves
+#: p257's first two energies 1.2e-4 apart, its factor 8x off.
+LAM_FACTOR_REL = 1e-2
 ARTIFACT = "torch_results/oracle_prefix_h100.json"
 ORACLE_ROW = re.compile(
     r"^\s*(\d+) Accepted ([0-9.eE+-]+) rho=[0-9.eE+-]+ lam=([0-9.eE+-]+)")
@@ -121,28 +131,37 @@ def oracle_state(path: str, problem):
 
 
 def load(key: str, device, problem=None):
-    """(problem on ``device``, oracle trace, (iteration, oracle state)); the
-    stand-in is read unless ``problem``, already loaded, is given."""
+    """(problem on ``device``, oracle trace, (iteration, the reference's
+    statistics of the oracle's state there)); the stand-in is read unless
+    ``problem``, already loaded, is given. ``run_row`` takes any such
+    triple, its last item None where the reference has no state."""
     log, npz, bal = CONFIGS[key]
     if problem is None:
         problem, _ = campaign.load_problem(os.path.join(HERE, bal), device)
+    k, state = oracle_state(os.path.join(RESULTS, npz), problem)
     return (problem, parse_oracle_trace(os.path.join(RESULTS, log)),
-            oracle_state(os.path.join(RESULTS, npz), problem))
+            (k, campaign.post_statistics(state, problem.obs)))
 
 
-def gaps(pairs: list, matched: dict, budget: dict) -> dict:
-    """The row's largest gaps to the oracle and whether each is within
-    ``budget``."""
-    first = [p["rel"] for p in pairs[:budget["first_iters"]]]
-    o, p = matched["oracle"], matched["port"]
-    out = {"first_rel": max(first), "rel": max(q["rel"] for q in pairs),
-           "inlier_px": abs(p["inlier_mean_reprojection_error"]
-                            - o["inlier_mean_reprojection_error"]),
-           "obj_rtol": abs(p["true_objective"] - o["true_objective"])
-           / abs(o["true_objective"]),
-           "inlier_count_rtol": abs(p["n_inliers"] - o["n_inliers"]) / o["n_inliers"]}
-    within = all(out[k] < v for k, v in budget.items()
-                 if k != "first_iters" and v is not None)
+def gaps(pairs: list, matched, budget: dict) -> dict:
+    """The row's largest gaps to the oracle (the statistics' only where
+    ``matched``) and whether each is within ``budget``."""
+    first = pairs[:budget["first_iters"]]
+    out = {"first_rel": max((p["rel"] for p in first), default=math.inf),
+           "rel": max((q["rel"] for q in pairs), default=math.inf)}
+    factors = [p["lam_factor_rel"] for p in first if "lam_factor_rel" in p]
+    if factors:
+        out["lam_factor_rel"] = max(factors)
+    if matched is not None:
+        o, p = matched["oracle"], matched["port"]
+        out.update(
+            inlier_px=abs(p["inlier_mean_reprojection_error"]
+                          - o["inlier_mean_reprojection_error"]),
+            obj_rtol=abs(p["true_objective"] - o["true_objective"])
+            / abs(o["true_objective"]),
+            inlier_count_rtol=abs(p["n_inliers"] - o["n_inliers"]) / o["n_inliers"])
+    within = all(out[k] < v for k, v in dict(
+        budget, lam_factor_rel=LAM_FACTOR_REL).items() if k in out and v is not None)
     return {"gaps": out, "within": within}
 
 
@@ -152,12 +171,14 @@ def run_row(key: str, mode: str, lm_drive: str, device=None, loaded=None) -> dic
     synchronizes), its energies paired with the log's, and the statistics
     of its state and the oracle's at the npz's iteration (a second run to
     that iteration where it comes earlier). ``loaded``: ``load(key)``'s
-    value, to share one load among rows. Raises without CUDA and without
-    ``device``."""
+    value, to share one load among rows, or another reference's triple in
+    its form (``key`` then names the row). A row is ``within`` where every
+    logged iteration is paired and every gap within ``budget_for(mode)``.
+    Raises without CUDA and without ``device``."""
     dev = resolve_device(device)
-    problem, trace_o, (k, state_o) = loaded or load(key, dev)
-    budget = trace_o[-1][0]
-    cfg = lm.LMConfig(drive=lm_drive, max_iter=budget)
+    problem, trace_o, matched_o = loaded or load(key, dev)
+    last = trace_o[-1][0]
+    cfg = lm.LMConfig(drive=lm_drive, max_iter=last)
     trace = []
     campaign._sync(dev)
     t0 = time.perf_counter()
@@ -165,15 +186,30 @@ def run_row(key: str, mode: str, lm_drive: str, device=None, loaded=None) -> dic
     campaign._sync(dev)
     wall = time.perf_counter() - t0
     jit = dict(lm.LAST_JIT_RUN) if lm_drive == "jit" else None
-    port = {r["iter"]: r["energy"] for r in trace}
-    pairs = [{"iter": it, "oracle_energy": e, "port_energy": port[it],
-              "rel": abs(port[it] - e) / e} for it, e, _ in trace_o if it in port]
-    res_k = res if k == budget else lm.minimize(
-        problem, mode, dataclasses.replace(cfg, max_iter=k), device=dev)
-    matched = {"iter": k,
-               "oracle": campaign.post_statistics(state_o, problem.obs),
-               "port": campaign.post_statistics(res_k.state, problem.obs)}
-    row = {"problem": os.path.basename(CONFIGS[key][2]), "key": key,
+    port = {r["iter"]: r for r in trace}
+    pairs = []
+    for it, e, lam in trace_o:
+        if it not in port:
+            continue
+        p = port[it]
+        pair = {"iter": it, "oracle_energy": e, "port_energy": p["energy"],
+                "rel": abs(p["energy"] - e) / e}
+        if lam is not None:
+            pair.update(oracle_lam=lam, port_lam=p["lam"])
+            prev = pairs[-1] if pairs else {}
+            if prev.get("iter") == it - 1 and "oracle_lam" in prev:
+                pair["lam_factor_rel"] = abs(p["lam"] / prev["port_lam"] * (
+                    prev["oracle_lam"] / lam) - 1.0)
+        pairs.append(pair)
+    matched = None
+    if matched_o is not None:
+        k, stats_o = matched_o
+        res_k = res if k == last else lm.minimize(
+            problem, mode, dataclasses.replace(cfg, max_iter=k), device=dev)
+        matched = {"iter": k, "oracle": stats_o,
+                   "port": campaign.post_statistics(res_k.state, problem.obs)}
+    name = os.path.basename(CONFIGS[key][2]) if key in CONFIGS else key
+    row = {"problem": name, "key": key,
            "mode": mode, "drive": "f64", "lm_drive": lm_drive,
            "platform": "gpu" if dev.type == "cuda" else dev.type,
            "status": lm.STATUS_STRINGS[res.status], "iterations": res.iterations,
@@ -181,6 +217,7 @@ def run_row(key: str, mode: str, lm_drive: str, device=None, loaded=None) -> dic
            "jit": jit, "pairs": pairs, "matched": matched,
            "budget": budget_for(mode)}
     row.update(gaps(pairs, matched, budget_for(mode)))
+    row["within"] = row["within"] and len(pairs) == len(trace_o)
     if lm_drive == "jit":
         lm.clear_graphs()
     return row

@@ -13,10 +13,12 @@ Tolerances:
   after iteration 3 is ~1e-7; printed with ``pytest -rP``).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import types
 
 import jax.numpy as jnp
 import pytest
@@ -32,6 +34,7 @@ sys.path.insert(0, ROOT)
 
 import bench_torch as bench  # noqa: E402
 import flatline_campaign as campaign  # noqa: E402
+import oracle_prefix as op  # noqa: E402
 
 SCRIPT = os.path.join(ROOT, "bench_torch.py")
 P16 = os.path.join(ROOT, campaign.PROBLEMS["p16"])
@@ -108,10 +111,12 @@ def test_workload_lines_and_gates(p16_f64):
     assert [line["bench"] for line in lines] == ["warmup", "run", "workload"]
     assert "runs" not in lines[-1]
     assert record["gates"] == {"replay": True, "no_capture_in_window": True,
-                               "kernels_vs_plain": None, "descent": True}
+                               "kernels_vs_plain": None, "descent": True,
+                               "reference": True}
     assert record["correct"] and record["repeats"] == 1
     run = record["runs"][0]
-    assert run["captured"] is False and run["reads"] == 1
+    assert run["captured"] is False and run["reads"] == run["replays"] == 1
+    assert record["reads"] == record["replays"] == [1]
     assert record["it_per_s"]["median"] == run["it_per_s"] > 0
     assert record["energy"] < record["initial_energy"]
     assert record["peak_bytes"] is None and record["reserved_bytes"] is None
@@ -165,6 +170,7 @@ FAULTS = {
     "bad-stop": (dict(status=lm.STATUS_STRINGS[lm.LMStatus.TooManyFunctionEvaluation]),
                  "descent"),
     "bad-points": (dict(points_ok=False), "descent"),
+    "off-reference": ({}, "reference"),
 }
 
 
@@ -179,7 +185,9 @@ def test_gates_catch_each_fault(fault):
         warm, runs = _run(**change), [_run(**change), _run(**change)]
     else:
         warm, runs = _run(), [_run(), _run(**change)]
-    rec = bench.workload("p16", "cholesky", cfg, warm, runs, 15.0, None, None)
+    reference = {"within": gate != "reference"}
+    rec = bench.workload("p16", "cholesky", cfg, warm, runs, 15.0, None, None,
+                         reference)
     failed = [k for k, v in rec["gates"].items() if v is False]
     assert failed == ([gate] if gate else [])
     assert rec["correct"] is (gate is None)
@@ -191,7 +199,7 @@ def test_kernel_gate_fails_the_workload():
                "rel_gap": 0.0, "kernels_captured": False,
                "kernels_launches": {"chain_blocks": 1, "chain_energy": 1}, "ok": False}
     rec = bench.workload("p16", "cholesky", cfg, _run(), [_run()], 15.0, None,
-                         kernels)
+                         kernels, {"within": True})
     assert not rec["correct"]
     assert bench.kernels_vs_plain(None, ("cholesky", "qrchol"), cfg,
                                   torch.device("cpu")) == {"cholesky": None,
@@ -234,8 +242,174 @@ def test_incorrect_run_exits_one_after_printing(monkeypatch):
     rc = bench.main(["--problem", "p16", "--geometry", "f64", "--modes",
                      "cholesky", "--max-iter", "1", "--repeats", "1",
                      "--device", "cpu"], out=lines.append)
-    assert rc == 1 and len(calls) == 2
+    # The warm-up, the timed run and gate (d)'s float64 prefix.
+    assert rc == 1 and len(calls) == 3
     assert [line.get("bench") for line in lines] == [
         "header", "warmup", "run", "workload", None]
     assert lines[-1]["correct"] is False
     assert lines[-2]["gates"]["replay"] is False
+
+
+# -- gate (d): a reference outside the port ----------------------------------
+
+
+def test_p16_workload_held_to_the_oracle_prefix(p16_f64):
+    """The p16 float64 cholesky workload's gate (d): its 3-iteration run
+    stopped at its budget, so no endpoint is compared; its float64 prefix
+    pairs the scipy oracle's first P16_PREFIX_ITERS iterations within
+    oracle_prefix.CHOLESKY (measured <= 9.9e-6 relative)."""
+    _, record, _ = p16_f64
+    ref = record["reference"]
+    print(f"p16 f64 cholesky prefix vs the scipy oracle: {ref['prefix']['gaps']}")
+    assert ref["endpoint"] is None and "iteration budget" in ref["endpoint_none"]
+    prefix = ref["prefix"]
+    assert prefix["source"].startswith(bench.P16_ORACLE)
+    assert [p["iter"] for p in prefix["pairs"]] == list(
+        range(1, bench.P16_PREFIX_ITERS + 1))
+    assert prefix["matched"] is None and prefix["budget"] == op.CHOLESKY
+    assert prefix["gaps"]["first_rel"] < op.CHOLESKY["first_rel"]
+    assert prefix["gaps"]["rel"] < op.CHOLESKY["rel"]
+    assert prefix["within"] and ref["within"] and "error" not in ref
+
+
+#: (problem, mode, geometry) of each endpoint reference: the scipy oracle at
+#: p16, the JAX package's campaign rows at p126 and p257.
+ENDPOINTS = (("p16", "cholesky", "f64"), ("p16", "spqr", "f64"),
+             ("p257", "cholesky", "df32"), ("p257", "qrchol", "df32"),
+             ("p126", "moreqr", "f64"))
+
+
+@pytest.mark.parametrize("shift", [1.0, 1.1], ids=["at-the-row", "objective+10%"])
+@pytest.mark.parametrize("name,mode,geometry", ENDPOINTS,
+                         ids=["-".join(e) for e in ENDPOINTS])
+def test_endpoint_gate(monkeypatch, name, mode, geometry, shift):
+    """(d1) passes where the endpoint's statistics are the reference row's
+    own, and fails where its true objective lies 10% above (beyond both
+    the float64 2% and the df32 9% budget)."""
+    source, ref = bench.endpoint_reference(name, mode, geometry)
+    post = dict(ref, true_objective=ref["true_objective"] * shift)
+    monkeypatch.setattr(campaign, "post_statistics", lambda state, obs: post)
+    monkeypatch.setattr(op, "run_row", lambda *a, **kw: {
+        "iterations": 2, "pairs": [], "matched": None, "gaps": {},
+        "budget": op.CHOLESKY, "within": True})
+    monkeypatch.setattr(bench, "prefix_reference", lambda *a: ("stub", None))
+    warm = {"status": lm.STATUS_STRINGS[lm.LMStatus.Success]}
+    gate = bench.reference_gate(types.SimpleNamespace(obs=None), name, mode,
+                                geometry, warm, None, "cpu")
+    assert gate["endpoint"]["source"] == source
+    assert gate["endpoint"]["gaps"]["obj_rtol"] == pytest.approx(shift - 1.0)
+    assert gate["endpoint"]["within"] is (shift == 1.0)
+    assert gate["within"] is (shift == 1.0)
+
+
+@pytest.mark.parametrize("name,attr", [("p16", "P16_ORACLE"), ("p257", "JAX_ROWS"),
+                                       ("ladybug", "LADYBUG_PREFIX")])
+@pytest.mark.parametrize("how", ["missing", "unreadable"])
+def test_missing_reference_fails_the_gate(monkeypatch, tmp_path, name, attr, how):
+    """A reference file that is missing or not JSON fails gate (d), naming
+    the file; nothing is skipped and no LM run starts."""
+    path = tmp_path / "reference.json"
+    if how == "unreadable":
+        path.write_text("{not json")
+    monkeypatch.setattr(bench, attr, str(path))
+    monkeypatch.setattr(op, "run_row", lambda *a, **kw: pytest.fail("ran"))
+    warm = {"status": lm.STATUS_STRINGS[lm.LMStatus.Success]}
+    gate = bench.reference_gate(None, name, "cholesky", "df32", warm, None, "cpu")
+    assert gate["within"] is False and str(path) in gate["error"]
+    rec = bench.workload(name, "cholesky", campaign.drive_config("df32", 3),
+                         _run(), [_run()], 15.0, None, None, gate)
+    assert rec["gates"]["reference"] is False and not rec["correct"]
+
+
+def test_a_problem_without_reference_fails_the_gate():
+    warm = {"status": lm.STATUS_STRINGS[lm.LMStatus.Success]}
+    gate = bench.reference_gate(None, "problem-21-11315-pre", "cholesky", "f64",
+                                warm, None, "cpu")
+    assert gate["within"] is False and "no float64 prefix reference" in gate["error"]
+
+
+def test_broken_damping_update_fails_only_the_reference_gate(monkeypatch, p16_f64):
+    """Lambda's factor on an accept inverted (1 / the Nielsen factor: lambda
+    grows 3x on a good step where it should shrink 3x), in the one function
+    both LM drives use: the runs still replay bit for bit, capture nothing
+    and descend, so gates (a)-(c) pass, and the workload is incorrect on
+    gate (d) alone: lambda's factor from one iteration to the next lies 8x
+    off the oracle's (beyond LAM_FACTOR_REL's 1e-2) from iteration 2, and
+    the energies at the third iteration 2.8e-4 (beyond CHOLESKY's 1e-4)."""
+    problem, clean, _ = p16_f64
+    nielsen = lm._nielsen
+    monkeypatch.setattr(lm, "_nielsen", lambda rho: 1.0 / nielsen(rho))
+    cfg = campaign.drive_config("f64", 3)
+    jit, host = (lm.minimize(problem, "cholesky", dataclasses.replace(cfg, drive=d),
+                             device="cpu") for d in ("jit", "host"))
+    assert jit.energy == host.energy != clean["energy"]
+    (record,) = bench.run_workloads(problem, "p16", ("cholesky",), cfg, 1, "cpu",
+                                    out=lambda _: None)
+    print(f"broken damping: prefix gaps {record['reference']['prefix']['gaps']}")
+    assert record["gates"] == {"replay": True, "no_capture_in_window": True,
+                               "kernels_vs_plain": None, "descent": True,
+                               "reference": False}
+    gaps = record["reference"]["prefix"]["gaps"]
+    assert gaps["first_rel"] > op.CHOLESKY["first_rel"]
+    assert gaps["lam_factor_rel"] > op.LAM_FACTOR_REL
+    assert not record["correct"]
+
+
+def test_broken_damping_update_fails_the_p257_prefix(monkeypatch):
+    """The same fault against the scipy oracle's two logged p257 iterations,
+    the prefix gate (d2) of bench_torch.py's p257 workloads: the damping
+    factor of iteration 2 lies 8x off the oracle's (the energies 1.2e-4,
+    the statistics at iteration 2 within their budget), so the row fails;
+    without the fault the factor is within 3.7e-4 (the log's four
+    significant digits)."""
+    loaded = op.load("p257", "cpu")
+    clean = op.run_row("p257", "cholesky", "jit", "cpu", loaded)
+    nielsen = lm._nielsen
+    monkeypatch.setattr(lm, "_nielsen", lambda rho: 1.0 / nielsen(rho))
+    broken = op.run_row("p257", "cholesky", "jit", "cpu", loaded)
+    print(f"p257 prefix gaps: clean {clean['gaps']}, broken {broken['gaps']}")
+    assert clean["within"] and clean["gaps"]["lam_factor_rel"] < op.LAM_FACTOR_REL
+    assert broken["gaps"]["lam_factor_rel"] > op.LAM_FACTOR_REL
+    assert not broken["within"]
+
+
+def test_jax_reference_holds_the_port_prefix():
+    """jax_reference.py's function (the JAX package's float64 cholesky on its
+    host drive, 2 iterations) on a small generated problem, and the port's
+    float64 prefix on the port's own generated copy held to it by
+    oracle_prefix.run_row under CHOLESKY, as the bench holds the Ladybug
+    stand-in (measured: energies 7.2e-8 relative, objective 8.1e-9)."""
+    import jax_reference
+    from bundleadjustment_benchmarks_tpu.utils import balgen as jbalgen
+    from bundleadjustment_benchmarks_tpu_torch.utils import balgen
+
+    kw = dict(seed=3, mean_degree=4.3)
+    ref = jax_reference.jax_prefix(jbalgen.generate_bal_like(30, 800, **kw))
+    problem = pm.from_bal_dataset(balgen.generate_bal_like(30, 800, **kw),
+                                  device="cpu")
+    matched = ref["matched"]
+    row = op.run_row("balgen-30-800", "cholesky", "jit", "cpu", (
+        problem, [(r["iter"], r["energy"], r["lam"]) for r in ref["trace"]],
+        (matched["iter"], matched["stats"])))
+    print(f"port vs JAX prefix, balgen 30 x 800: {row['gaps']}")
+    assert [p["iter"] for p in row["pairs"]] == [1, 2] and ref["iterations"] == 3
+    assert row["budget"] == op.CHOLESKY and row["within"]
+    assert row["gaps"]["lam_factor_rel"] < op.LAM_FACTOR_REL
+    assert row["matched"]["port"]["n_inliers"] == matched["stats"]["n_inliers"]
+
+
+def test_ladybug_reference_artifact():
+    """The committed JAX prefix on the Ladybug stand-in: the stand-in's shape
+    and seed, float64 cholesky on JAX's host drive, two iterations that
+    descend with lambda after each, the statistics at the second, JAX's
+    version and the seconds."""
+    ref = bench._read_json(bench.LADYBUG_PREFIX)
+    n, m, _ = campaign.LADYBUG
+    assert (ref["n_cameras"], ref["n_points"], ref["seed"]) == (n, m, n)
+    assert ref["n_observations"] == 670568
+    assert (ref["mode"], ref["geometry"], ref["lm_drive"]) == ("cholesky", "f64", "host")
+    energies = [r["energy"] for r in ref["trace"]]
+    assert [r["iter"] for r in ref["trace"]] == [1, 2] and energies[1] < energies[0]
+    assert all(r["lam"] > 0 for r in ref["trace"])
+    assert ref["matched"]["iter"] == 2 and ref["energy"] == energies[-1]
+    assert ref["jax"] and ref["seconds"] > 0

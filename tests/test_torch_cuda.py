@@ -592,3 +592,42 @@ def test_bench_workload_p16_df32(p16_cuda):
     assert all(r["captured"] is False and r["replays"] > 0 for r in rec["runs"])
     assert all(min(r["launches"].values()) > 0 for r in rec["runs"])
     assert rec["peak_bytes"] > 0 and rec["reserved_bytes"] >= rec["peak_bytes"]
+
+
+@pytest.mark.parametrize("name,mode", [("p257", "cholesky"), ("p257", "qrchol"),
+                                       ("ladybug", "cholesky")],
+                         ids=["p257-cholesky", "p257-qrchol", "ladybug-cholesky"])
+def test_broken_damping_update_fails_only_gate_d(monkeypatch, name, mode):
+    """``bench_torch.py``'s full-width workloads (df32, 100 iterations, one
+    timed run) with lambda's factor on an accept inverted (1 / the Nielsen
+    factor) in the one function both LM drives use: gates (a)-(c) pass,
+    and gate (d) fails, on the damping factor of its float64 prefix (8x
+    off the reference's where 1e-2 is allowed). The endpoint gate (d1) and
+    the prefix's gaps are printed (``pytest -rP``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, ROOT)
+    try:
+        import bench_torch
+    finally:
+        sys.path.remove(ROOT)
+    nielsen = lm._nielsen
+    monkeypatch.setattr(lm, "_nielsen", lambda rho: 1.0 / nielsen(rho))
+    lm.clear_graphs()
+    problem, _ = bench_torch.campaign.load_problem(name, torch.device("cuda"))
+    cfg = bench_torch.campaign.drive_config("df32", bench_torch.MAX_ITER)
+    try:
+        (rec,) = bench_torch.run_workloads(problem, name, (mode,), cfg, 1, "cuda",
+                                           out=lambda _: None)
+    finally:
+        lm.clear_graphs()
+    ref = rec["reference"]
+    print(f"broken damping, {name} {mode}: {rec['status']} after "
+          f"{rec['iterations']} iterations, energy {rec['energy']}, gates {rec['gates']}, "
+          f"endpoint {ref['endpoint'] and ref['endpoint']['gaps']} "
+          f"{ref.get('endpoint_none', '')}, prefix {ref['prefix']['gaps']}")
+    gates = rec["gates"]
+    assert gates["replay"] and gates["no_capture_in_window"] and gates["descent"]
+    assert gates["kernels_vs_plain"]["ok"]
+    assert gates["reference"] is False and not rec["correct"]
+    assert ref["prefix"]["gaps"]["lam_factor_rel"] > bench_torch.oracle_prefix.LAM_FACTOR_REL

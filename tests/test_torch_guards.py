@@ -130,6 +130,20 @@ def test_campaign_and_example_import_no_jax(path):
     assert [m for m in out if _is_jax_side(m)] == []
 
 
+PORT_FILES = sorted(
+    os.path.join(d, f)
+    for d, _, files in os.walk(os.path.join(ROOT, "bundleadjustment_benchmarks_tpu_torch"))
+    for f in files if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", [SMOKE, CAMPAIGN, ORACLE, BENCH, *PORT_FILES],
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_nothing_of_the_port_imports_jax_reference(path):
+    """``jax_reference.py`` runs the JAX package to write the Ladybug
+    reference; the port, its scripts and chip_smoke.py never import it."""
+    assert "jax_reference" not in _imported_names(path)
+
+
 def test_campaign_needs_cuda_unless_told(tmp_path):
     """Without CUDA and without ``--device cpu`` the campaign exits non-zero
     and runs and writes nothing; it never falls back to the CPU."""

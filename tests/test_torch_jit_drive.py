@@ -364,7 +364,8 @@ def test_breakdown_branch_is_a_device_predicate():
 
 def test_growth_table_and_reads():
     """The device's lambda growth table is the host drive's recurrence
-    (saturating at inf), and the drive reads the host once per chunk."""
+    (saturating at inf), and a ``chunked`` drive reads the host once per
+    chunk."""
     table = lm.growth_table(2.0)
     inc, ref = 2.0, []
     for _ in range(12):
@@ -374,7 +375,7 @@ def test_growth_table_and_reads():
     assert lm.growth_table(1.0) == [1.0] * len(table)
     _, tp = _pair(0, n_cameras=6, n_points=40, obs_per_point=4,
                   inlier_threshold=2.0)
-    cfg = lm.LMConfig(drive="jit", max_iter=3, chunk_size=2)
+    cfg = lm.LMConfig(drive="jit", max_iter=3, chunk_size=2, chunked=True)
     prepare, trial, to_loop, _ = lm.step_functions(tp, "cholesky", cfg, "cpu")
     loop = lm.DeviceLoop(to_loop(tp.state), prepare, trial, cfg,
                          torch.device("cpu"))
@@ -391,13 +392,13 @@ def test_growth_table_and_reads():
 
 @pytest.mark.parametrize("chunk_size", [2, 4, 16])
 def test_one_read_per_chunk_with_rejections(chunk_size):
-    """A run whose iterations reject trials (to the lambda-max stop) still
-    reads the host once per chunk, and counts every trial on the device:
-    the host drive's path, one read per chunk."""
+    """A chunked run whose iterations reject trials (to the lambda-max
+    stop) still reads the host once per chunk, and counts every trial on
+    the device: the host drive's path, one read per chunk."""
     _, tp = _pair(0, n_cameras=6, n_points=40, obs_per_point=4,
                   inlier_threshold=2.0)
     jit, host = _drives(tp, "cholesky", max_iter=30, tol_fun=1e-30,
-                        chunk_size=chunk_size)
+                        chunk_size=chunk_size, chunked=True)
     assert _counts(jit) == _counts(host) and jit.energy == host.energy
     assert jit.status == lm.LMStatus.ExceededLambdaMax
     assert jit.fun_evals - jit.iterations > jit.iterations  # rejections
@@ -408,15 +409,18 @@ def test_one_read_per_chunk_with_rejections(chunk_size):
     assert lm.LAST_JIT_RUN["slots"] == jit.fun_evals - jit.iterations
 
 
-def test_chunk_cap_raises_where_lambda_cannot_grow():
+@pytest.mark.parametrize("chunked", [False, True], ids=["one-dispatch", "chunked"])
+def test_chunk_cap_raises_where_lambda_cannot_grow(chunked):
     """With lambda_increase_base 1 a rejected trial never ends its
-    iteration (the host drive loops forever): the chunk stops at its cap of
-    chunk_size * 129 trials and the run raises."""
+    iteration (the host drive loops forever): on either route the
+    iteration stops at its cap of 129 trials (as many as one can take
+    where lambda grows) and the run raises at its read, whatever
+    ``max_iter`` is."""
     _, tp = _pair(0, n_cameras=6, n_points=40, obs_per_point=4,
                   inlier_threshold=2.0)
-    cfg = lm.LMConfig(drive="jit", max_iter=50, chunk_size=2, tol_fun=1e-30,
-                      lambda_increase_base=1.0)
-    with pytest.raises(RuntimeError, match="258 trials without ending"):
+    cfg = lm.LMConfig(drive="jit", max_iter=1_000_000, chunk_size=2,
+                      tol_fun=1e-30, lambda_increase_base=1.0, chunked=chunked)
+    with pytest.raises(RuntimeError, match="ran 129 trials without ending"):
         lm.minimize(tp, device="cpu", config=cfg)
 
 
@@ -441,7 +445,8 @@ def test_device_while_and_if_on_cpu():
 def test_graph_key_is_the_problem_object():
     """The capture cache tells apart two problems that share their
     observation tensors (a replaced inlier threshold or pair table), and
-    ignores the limits, which the graph reads from the device."""
+    ignores the limits and ``chunked``, which the graph reads from the
+    device (one capture serves both routes)."""
     _, tp = _pair(0)
     cfg = lm.LMConfig(drive="jit")
     x0 = lm.step_functions(tp, "cholesky", cfg, "cpu")[2](tp.state)
@@ -449,7 +454,8 @@ def test_graph_key_is_the_problem_object():
     other = dataclasses.replace(tp, inlier_threshold=tp.inlier_threshold * 2)
     assert lm._graph_key(other, "cholesky", cfg, x0, "cuda:0") != key
     assert lm._graph_key(tp, "cholesky", dataclasses.replace(
-        cfg, max_iter=3, max_fun_ev=7, tol_fun=1e-3), x0, "cuda:0") == key
+        cfg, max_iter=3, max_fun_ev=7, tol_fun=1e-3, chunked=True), x0,
+        "cuda:0") == key
 
 
 def test_graph_cache_holds_one_problem_per_device_and_group(monkeypatch):
@@ -523,6 +529,8 @@ def test_default_config_matches_jax_default_on_p16():
                         device="cpu", trace=trace)
     counted = dict(lm.LAST_JIT_RUN)
     jit, host = _drives(tp, "cholesky", max_iter=8)
+    # The unobserved default run is JAX's one dispatch: one read.
+    assert lm.LAST_JIT_RUN["reads"] == 1 and not lm.LAST_JIT_RUN["chunked"]
     assert [r["iter"] for r in trace[:P16_PREFIX]] == list(range(1, P16_PREFIX + 1))
     gaps = [_rel(r["energy"], e) for r, e in zip(trace, prefix_j)]
     print(f"gap default config p16 f64 cholesky vs JAX: counts {_counts(res_t)}, "
@@ -635,3 +643,136 @@ def test_jit_polish_composes():
     jit, host = _drives(tp, "cholesky", **kw)
     assert _counts(jit) == _counts(host) and jit.energy == host.energy
     assert torch.equal(jit.state.points, host.state.points)
+
+
+# -- one dispatch where nothing observes the run, as JAX's default -------------
+
+
+def _chunks(res, chunk: int, start: int = 0) -> int:
+    """Chunks of ``chunk`` iterations that a run of result ``res``, resumed
+    at iteration ``start``, started: its reads where it runs in chunks."""
+    started = res.iterations - start - (res.status in (
+        lm.LMStatus.MaxItersReached, lm.LMStatus.TooManyFunctionEvaluation))
+    return -(-started // chunk)
+
+
+def test_chunked_defaults_to_false_in_both_packages():
+    assert lm.LMConfig().chunked is jlm.LMConfig().chunked is False
+    assert lm.LMConfig().chunk_size == jlm.LMConfig().chunk_size == 16
+
+
+@pytest.fixture(scope="module")
+def p16_to_stop():
+    """p16, float64 cholesky, default config to its flatline stop, as one
+    dispatch and with ``chunked=True``: {chunked: (result, LAST_JIT_RUN,
+    calls of DeviceLoop.chunk)}."""
+    tp = pm.load_bal_problem(P16, device="cpu")
+    out = {}
+    for chunked in (False, True):
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            chunk = lm.DeviceLoop.chunk
+            mp.setattr(lm.DeviceLoop, "chunk",
+                       lambda self: calls.append(1) or chunk(self))
+            res = lm.minimize(tp, config=lm.LMConfig(chunked=chunked), device="cpu")
+        out[chunked] = (res, dict(lm.LAST_JIT_RUN), len(calls))
+    return out
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["one-dispatch", "chunked"])
+def test_p16_run_to_its_stop_reads(p16_to_stop, chunked):
+    """The default config, which nothing observes, runs the loop once and
+    reads the host once (JAX's one ``_minimize_jit``); ``chunked=True``
+    reads once per chunk of 16 iterations. Both count every trial."""
+    res, counted, calls = p16_to_stop[chunked]
+    print(f"p16 f64 cholesky chunked={chunked}: {_counts(res)}, {counted}")
+    assert res.status == lm.LMStatus.Success and res.iterations > 16
+    want = _chunks(res, 16) if chunked else 1
+    assert counted["reads"] == counted["replays"] == calls == want
+    assert counted["chunked"] is chunked
+    assert counted["slots"] == res.fun_evals - counted["prepares"]
+
+
+def test_p16_one_dispatch_equals_chunked(p16_to_stop):
+    """One dispatch and chunks of 16 end bit for bit alike: status,
+    iterations, evaluations, energy, lambda and every state field."""
+    one, chunked = p16_to_stop[False][0], p16_to_stop[True][0]
+    assert _counts(one) == _counts(chunked)
+    assert (one.energy, one.lam) == (chunked.energy, chunked.lam)
+    for field in ("K", "R", "T", "k1", "k2", "points"):
+        assert torch.equal(getattr(one.state, field), getattr(chunked.state, field))
+
+
+OBSERVERS = ("verbose", "metrics", "checkpoint", "resume", "trace", "chunked")
+
+
+@pytest.mark.parametrize("how", OBSERVERS)
+def test_observed_runs_read_once_per_chunk(how, tmp_path, capsys):
+    """A jit run with the iteration table, metrics, a checkpoint, a resume,
+    a trace or ``chunked=True`` runs in chunks (JAX's chunked_loop): one
+    read and one replay per chunk of ``chunk_size``, on the host drive's
+    path bit for bit."""
+    _, tp = _pair(0, n_cameras=6, n_points=40, obs_per_point=4,
+                  inlier_threshold=2.0)
+    cfg = lm.LMConfig(drive="jit", max_iter=7, chunk_size=2, tol_fun=1e-30,
+                      verbose=how == "verbose", chunked=how == "chunked")
+    kw, start = {}, 0
+    if how == "metrics":
+        kw["metrics_path"] = str(tmp_path / "m.jsonl")
+    elif how == "checkpoint":
+        kw["checkpoint_path"] = str(tmp_path / "c.npz")
+    elif how == "trace":
+        kw["trace"] = []
+    elif how == "resume":
+        start = 1
+        kw["resume"] = {"iteration": start, "lam": 1e-2, "fun_evals": 2,
+                        "energy_history": [0.0, 0.0]}
+    res = lm.minimize(tp, device="cpu", config=cfg, **kw)
+    counted = dict(lm.LAST_JIT_RUN)
+    capsys.readouterr()
+    host = lm.minimize(tp, device="cpu", resume=kw.get("resume"),
+                       config=dataclasses.replace(cfg, drive="host", verbose=False))
+    print(f"{how}: {_counts(res)}, {counted}")
+    assert counted["chunked"] is True
+    assert counted["reads"] == counted["replays"] == _chunks(res, 2, start) > 1
+    assert _counts(res) == _counts(host) and res.energy == host.energy
+
+
+@pytest.fixture(scope="module")
+def sharded_runs():
+    """2 gloo ranks on the CPU, 12 iterations of float64 cholesky on the
+    sharded jit drive: as one dispatch, with ``chunked=True`` (which a
+    shard ignores, as JAX's sharded drive does) and with a trace (in chunks
+    of 2)."""
+    import torch_sharded_worker as worker
+
+    jp, _ = _pair(0, n_cameras=6, n_points=40, obs_per_point=4,
+                  inlier_threshold=2.0)
+    runs = [dict(name=name, kind="minimize", problem="syn", mode="cholesky",
+                 trace=name == "traced",
+                 config=dict(drive="jit", max_iter=12, chunk_size=2,
+                             chunked=name == "chunked=True"))
+            for name in ("chunked=False", "chunked=True", "traced")]
+    return multihost.run_ranks(worker.cases, ["cpu"] * 2,
+                               args=(runs, {"syn": convert.problem_to_numpy(jp)}),
+                               timeout=240.0)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_sharded_gloo_one_dispatch_equals_chunked(sharded_runs, rank):
+    """Each rank's unchunked sharded jit run reads and replays once, like
+    JAX's one ``jax.jit`` of the sharded run, with ``chunked=True`` too (a
+    shard ignores it, as JAX's does), and ends bit for bit as its traced
+    run, which reads once per chunk."""
+    out = sharded_runs[rank]
+    one, chunked = out["chunked=False"], out["traced"]
+    print(f"rank {rank}: one dispatch {one['jit']}, traced {chunked['jit']}")
+    for run in (one, out["chunked=True"]):
+        assert run["jit"]["reads"] == run["jit"]["replays"] == 1
+        assert run["jit"]["chunked"] is False
+    started = chunked["iterations"] - (chunked["status"] == lm.LMStatus.MaxItersReached)
+    assert chunked["jit"]["reads"] == chunked["jit"]["replays"] == -(-started // 2) > 1
+    for k in ("iterations", "fun_evals", "status", "energy", "lam"):
+        assert one[k] == chunked[k] == out["chunked=True"][k], k
+    assert np.array_equal(one["points"], chunked["points"])
+    assert np.array_equal(one["T"], chunked["T"])

@@ -9,7 +9,9 @@ iterations 1-3 and 2e-3 at every one; at the oracle state's iteration the
 inlier mean error within 1e-3 px, the true objective within 1e-2 relative
 and the inlier count within 1%. The card's other modes at p126 are held to
 the JAX package's test_oracle_prefix budget (``oracle_prefix.JAX_BUDGET``).
-The host and the jit LM drives take the same path: equal energies and
+Every mode's lambda factor from one iteration to the next, over the
+budget's first iterations, within ``oracle_prefix.LAM_FACTOR_REL`` (1e-2;
+the logs' four significant digits leave <= 3.7e-4). The host and the jit LM drives take the same path: equal energies and
 statistics.
 """
 
@@ -77,6 +79,8 @@ def _hold(row: dict) -> None:
                          ids=["p257-host", "p257-jit", "p126-jit"])
 def test_prefix_within_budget(cpu_rows, key, lm_drive):
     _hold(cpu_rows[(key, lm_drive)])
+    # Both logs have lambda: the damping factor is held too.
+    assert cpu_rows[(key, lm_drive)]["gaps"]["lam_factor_rel"] < op.LAM_FACTOR_REL
 
 
 def test_host_equals_jit_at_p257(cpu_rows):

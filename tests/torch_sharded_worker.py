@@ -61,7 +61,16 @@ def run_case(rank: int, device, case: dict, problems: dict):
     if kind == "minimize":
         cfg = lm.LMConfig(**case["config"])
         lm.LAST_JIT_RUN.clear()
-        out = _result(sharded.minimize_sharded(sp, case["mode"], cfg))
+        if case.get("trace"):
+            # minimize_sharded's run with a trace, which lm.minimize takes.
+            reduce = sharded.AllReduce(sp)
+            res = lm.minimize(sp.problem, case["mode"], cfg, device=device,
+                              reduce=reduce, trace=[])
+            res = res._replace(state=dataclasses.replace(
+                res.state, points=reduce.points(res.state.points)))
+        else:
+            res = sharded.minimize_sharded(sp, case["mode"], cfg)
+        out = _result(res)
         out["jit"] = dict(lm.LAST_JIT_RUN)
         return out
     if kind == "checkpoint":
@@ -112,7 +121,8 @@ def run_case(rank: int, device, case: dict, problems: dict):
 def cases(rank: int, device, case_list, problem_arrays) -> dict:
     """Every case of ``case_list`` on this rank: {name: result}. A case is
     a dict with ``name``, ``kind`` ("step": one prepare and one trial at
-    ``lam``; "minimize" (with ``lm.LAST_JIT_RUN``); "checkpoint": a run
+    ``lam``; "minimize" (with ``lm.LAST_JIT_RUN``; with ``trace`` true
+    through ``lm.minimize`` with a trace); "checkpoint": a run
     that writes checkpoints and metrics; "resume": a run from a
     checkpoint; "refine"; "jit_counts": a jit-drive run's collective
     totals beside the reduce's own count; "jit_first_trial": one slot of
