@@ -143,6 +143,12 @@ def _in_group(fn, rank, devices, backend, init_method, timeout, args):
         dist.destroy_process_group()
 
 
+def _inherited_threads(environ=os.environ) -> int:
+    """``OMP_NUM_THREADS``'s first entry where it is a positive count, else 0."""
+    value = environ.get("OMP_NUM_THREADS", "").split(",")[0].strip()
+    return int(value) if value.isdigit() and int(value) > 0 else 0
+
+
 def _spawned(fn, rank, devices, backend, init_method, timeout, args, results):
     """A spawned rank: torchrun's environment variables, then its value or
     its traceback to the parent."""
@@ -153,7 +159,11 @@ def _spawned(fn, rank, devices, backend, init_method, timeout, args, results):
     if device.type == "cpu":
         # The CPU's cores are shared: ranks that each spin a full thread
         # pool on small operations run ~4x slower (measured at 2 ranks).
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))
+        # An inherited OMP_NUM_THREADS wins where it is lower: the process
+        # that starts the ranks may share the cores with others (a test
+        # worker among several), which cpu_count cannot see.
+        threads = (os.cpu_count() or 1) // len(devices)
+        torch.set_num_threads(max(1, min(threads, _inherited_threads() or threads)))
     try:
         value = _in_group(fn, rank, devices, backend, init_method, timeout, args)
         results.put((rank, True, value))

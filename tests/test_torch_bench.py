@@ -24,6 +24,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu.models import problem as jpm
 from bundleadjustment_benchmarks_tpu.solvers import lm as jlm
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm

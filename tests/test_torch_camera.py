@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu.models import camera as jcam
 from bundleadjustment_benchmarks_tpu.models.problem import BAState as JBAState
 from bundleadjustment_benchmarks_tpu.ops import rodrigues as jrod

@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu import cli as jcli
 from bundleadjustment_benchmarks_tpu_torch import cli
 from bundleadjustment_benchmarks_tpu_torch.io import bal

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 sys.path.insert(
     0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "examples"))

@@ -31,6 +31,8 @@ import sys
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 import test_flatline_parity as jax_parity
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

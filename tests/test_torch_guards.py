@@ -11,9 +11,14 @@ import sys
 import pytest
 import torch
 
+import torch_threads  # sizes torch's thread pool to the xdist worker
+
 from bundleadjustment_benchmarks_tpu_torch import convert, resolve_device
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
+from bundleadjustment_benchmarks_tpu_torch.parallel import multihost
 from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+
+import torch_sharded_worker as worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
@@ -21,6 +26,7 @@ CAMPAIGN = os.path.join(ROOT, "flatline_campaign.py")
 ELLIPSE = os.path.join(ROOT, "examples", "ellipse_fitting_torch.py")
 ORACLE = os.path.join(ROOT, "oracle_prefix.py")
 BENCH = os.path.join(ROOT, "bench_torch.py")
+THREADS_HELPER = os.path.join(ROOT, "tests", "torch_threads.py")
 P16 = os.path.join(ROOT, "data", "problem-16-22106-pre.txt.gz")
 
 
@@ -266,3 +272,63 @@ def test_kernels_on_cpu_raise():
 def test_kernels_default_follows_device(geometry, kernels, device, want):
     cfg = lm.LMConfig(geometry=geometry, kernels=kernels)
     assert cfg.use_kernels(torch.device(device)) is want
+
+
+@pytest.mark.parametrize("environ,cpus,want", [
+    ({}, 8, 8),
+    ({"PYTEST_XDIST_WORKER_COUNT": "6"}, 8, 2),
+    ({"PYTEST_XDIST_WORKER_COUNT": "6"}, 64, 10),
+    ({"PYTEST_XDIST_WORKER_COUNT": "16"}, 8, 2),
+    ({"OMP_NUM_THREADS": "4"}, 8, 4),
+    ({"OMP_NUM_THREADS": "3,1"}, 8, 3),
+    ({"OMP_NUM_THREADS": "1"}, 8, 2),
+    ({"OMP_NUM_THREADS": "16", "PYTEST_XDIST_WORKER_COUNT": "2"}, 8, 4),
+    ({"OMP_NUM_THREADS": "0"}, 8, 8),
+    ({"OMP_NUM_THREADS": "many"}, 8, 8),
+])
+def test_thread_count_rule(environ, cpus, want):
+    """The CPUs shared among the xdist workers, lowered to the caller's
+    OMP_NUM_THREADS, never below 2 threads."""
+    assert torch_threads.threads_for(environ, cpus) == want
+
+
+def test_torch_threads_sized_to_the_worker():
+    """This worker's pool is the helper's count, at least 2 threads."""
+    assert torch_threads.THREADS >= torch_threads.FLOOR == 2
+    assert torch.get_num_threads() == torch_threads.THREADS
+
+
+def test_thread_cap_exported_to_children():
+    """A process a test starts inherits the cap through OMP_NUM_THREADS
+    (and MKL_NUM_THREADS): the helper's count unless the caller set one."""
+    assert all(name in os.environ for name in torch_threads.EXPORTED)
+    if not torch_threads.INHERITED:
+        assert os.environ["OMP_NUM_THREADS"] == str(torch_threads.THREADS)
+    out = subprocess.run([sys.executable, "-c",
+                          "import torch; print(torch.get_num_threads())"],
+                         check=True, capture_output=True, text=True, timeout=120)
+    assert int(out.stdout) == int(os.environ["OMP_NUM_THREADS"].split(",")[0])
+
+
+def test_spawned_ranks_keep_the_exported_cap():
+    """Two gloo ranks that ``multihost.run_ranks`` spawns on the CPU run no
+    more threads each than the cap they inherit."""
+    cap = int(os.environ["OMP_NUM_THREADS"].split(",")[0])
+    outs = multihost.run_ranks(worker.num_threads, ["cpu", "cpu"], timeout=120.0)
+    assert len(outs) == 2 and all(1 <= n <= cap for n in outs), (outs, cap)
+
+
+def test_torch_threads_imports_no_jax():
+    """The helper names no JAX module, and importing it loads none."""
+    assert "torch" in _imported_names(THREADS_HELPER)
+    assert [n for n in _imported_names(THREADS_HELPER) if _is_jax_side(n)] == []
+    code = ("import sys\n"
+            "import torch_threads\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.path.dirname(THREADS_HELPER)]))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         check=True, capture_output=True, text=True,
+                         timeout=120).stdout.split()
+    assert "torch_threads" in out
+    assert [m for m in out if _is_jax_side(m)] == []

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu.ops import linalg as jlinalg
 from bundleadjustment_benchmarks_tpu_torch.ops import linalg
 

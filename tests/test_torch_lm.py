@@ -3,6 +3,8 @@
 import jax.numpy as jnp
 import pytest
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu.ops import projection as jproj
 from bundleadjustment_benchmarks_tpu.solvers import lm as jlm
 from bundleadjustment_benchmarks_tpu.utils.synthetic import make_synthetic_problem

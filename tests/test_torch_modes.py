@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu.models import problem as jpm
 from bundleadjustment_benchmarks_tpu.ops import jacobian as jjac
 from bundleadjustment_benchmarks_tpu.ops import linalg as jlinalg

@@ -19,6 +19,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu import cli as jcli
 from bundleadjustment_benchmarks_tpu_torch import cli
 from bundleadjustment_benchmarks_tpu_torch.parallel import multihost
@@ -133,6 +135,29 @@ def test_no_cuda_and_no_explicit_cpu_choice_raises(monkeypatch, call):
         assert fn(backend="gloo") is False
     else:
         assert fn(device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("omp", [None, "3"])
+def test_spawned_cpu_ranks_split_the_cpus(omp):
+    """A spawned CPU rank takes ``cpu_count // len(devices)`` threads where
+    no OMP_NUM_THREADS is set (a user's run, in a fresh environment), and
+    the inherited value where it is lower."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("OMP_NUM_THREADS", "MKL_NUM_THREADS")}
+    if omp is not None:
+        env["OMP_NUM_THREADS"] = omp
+    env["PYTHONPATH"] = os.pathsep.join([ROOT, os.path.join(ROOT, "tests")])
+    code = ("import json\n"
+            "from bundleadjustment_benchmarks_tpu_torch.parallel import multihost\n"
+            "import torch_sharded_worker as worker\n"
+            "print(json.dumps(multihost.run_ranks(worker.num_threads, ['cpu', 'cpu'],\n"
+            "                                     timeout=120.0)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    split = max(1, (os.cpu_count() or 1) // 2)
+    want = split if omp is None else min(split, int(omp))
+    assert json.loads(proc.stdout.splitlines()[-1]) == [want, want]
 
 
 def test_failed_rank_fails_the_group():

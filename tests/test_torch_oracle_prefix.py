@@ -22,6 +22,8 @@ import sys
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu.io import bal as jbal
 from bundleadjustment_benchmarks_tpu.models import problem as jpm
 from bundleadjustment_benchmarks_tpu.utils.synthetic import make_synthetic_problem

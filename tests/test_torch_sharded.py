@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu.io.bal import BalDataset as JBalDataset
 from bundleadjustment_benchmarks_tpu.models import problem as jpm
 from bundleadjustment_benchmarks_tpu.models.problem import from_bal_dataset as jfrom_bal

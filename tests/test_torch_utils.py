@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist worker)
+
 from bundleadjustment_benchmarks_tpu.io import bal as jbal
 from bundleadjustment_benchmarks_tpu.models.problem import load_bal_problem as jload
 from bundleadjustment_benchmarks_tpu.utils import balgen as jbalgen

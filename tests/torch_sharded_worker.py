@@ -146,6 +146,11 @@ def group_all_reduce(rank: int, device) -> dict:
             "rank": mesh.rank, "size": mesh.size, "pid": os.getpid()}
 
 
+def num_threads(rank: int, device) -> int:
+    """The rank's intra-op thread count."""
+    return torch.get_num_threads()
+
+
 def fail_on_rank_1(rank: int, device) -> None:
     if rank == 1:
         raise ArithmeticError("rank 1 fails on purpose")
