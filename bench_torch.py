@@ -62,7 +62,17 @@ the Ladybug stand-in the JAX package's first iterations
 (``torch_results/jax_prefix_ladybug_cpu.json``, written by
 ``jax_reference.py``). A missing or unreadable reference file, or a
 problem without a prefix reference (a BAL path), fails (d) with its
-reason in ``reference.error``.
+reason in ``reference.error``; (d3) "control" (``control_run``): after
+the timed runs and before (b) frees the timed graphs, one more run of
+the workload with its iteration records observed, which takes the
+chunked route through the same captured graph; it must not capture, must
+end where the warm-up ended bit for bit, and every one of its iterations
+must keep the reference's LM rules as ``control_gate`` writes them again,
+apart from the drives' code: lambda carried, grown and updated, accept,
+stop and the evaluation count (the line's ``control``: its seconds, the
+first rule broken, the largest gap per rule, and the rejected trials,
+mid-range accepts and second growths it checked, or what it did not
+reach).
 
 Output: one JSON line before the runs (the card, the problem, the config),
 one per warm-up, one per timed run and one per workload (it/s median, min
@@ -82,8 +92,18 @@ than the df32 envelope (1e-2 px, 9% objective, 25% inliers). The df32
 stop is chaotic: a change that only rounds differently moves where a run
 stops on lambda-max within that envelope, so (d1) at df32 catches a gross
 fault only. (d2) holds, in float64, the LM loop, the damping update and
-the Schur solves that the df32 runs share; the df32 geometry itself is
-held only by (b), against its plain chain.
+the Schur solves that the df32 runs share, over its short prefix only;
+the df32 geometry itself is held only by (b), against its plain chain.
+(d3) holds the LM's scalar rules on every iteration of the timed graph,
+but not the numbers they act on: a step, rho's denominator or an energy
+computed wrongly but consistently passes it, and so does lambda's first
+value (the rule's, from the Schur context). Those stay with (b), (d1)
+and (d2). It sees a fault only where the run reaches it: a fault in the
+factor's middle range only where an accept has rho below RHO_CLAMP, in
+the growth only where a trial takes a second growth factor (the line's
+``unreached`` names what a run missed). An accepted iteration's lambda
+folds in the growth of its rejected trials, so a wrong growth there is
+named ``accept``.
 """
 
 from __future__ import annotations
@@ -137,6 +157,21 @@ LADYBUG_PREFIX = "torch_results/jax_prefix_ladybug_cpu.json"
 #: oracle_prefix.CHOLESKY and JAX_BUDGET); at iterations 7-8 cholesky's
 #: lambda parts from the oracle's (3.4e-4, 9.6e-4).
 P16_PREFIX_ITERS = 5
+#: Gate (d3): lambda after an accept or a final reject against the rule's,
+#: relative. The drives and the checker round the factor's cube and the
+#: growth's power alike up to an ulp or two.
+CONTROL_LAM_RTOL = 1e-12
+#: Gate (d3): an iteration's prepare energy against the energy the
+#: iteration before it accepted (the same state, summed by the prepare's
+#: and the trial's chains), relative. Measured: 0 in float64 on the CPU
+#: (p16, 25 iterations) and <= 6.5e-15 with df32's plain chain there (p16
+#: and a generated problem, 18-42 iterations); 0 on an H100 in every
+#: default workload, df32 with the chain kernels and float64 alike.
+CONTROL_F_RTOL = 1e-12
+#: Nielsen's factor max(1/3, 1 - (2 rho - 1)^3) is its clamp 1/3 from this
+#: rho up, and above it below: an accept with a smaller rho checks the
+#: factor's middle range.
+RHO_CLAMP = (1.0 + (2.0 / 3.0) ** (1.0 / 3.0)) / 2.0
 
 
 def emit(obj) -> None:
@@ -173,7 +208,7 @@ def timed_run(problem, mode: str, cfg: lm.LMConfig, dev: torch.device) -> tuple:
     return {
         "mode": mode, "iterations": res.iterations, "fun_evals": res.fun_evals,
         "status": lm.STATUS_STRINGS[res.status], "energy": res.energy,
-        "wall_s": wall, "it_per_s": res.iterations / wall,
+        "lam": res.lam, "wall_s": wall, "it_per_s": res.iterations / wall,
         **{k: jit.get(k) for k in ("captured", "capture_s", "replays", "reads")},
         "launches": dict(cuda_chain.LAUNCHES),
         "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
@@ -304,12 +339,236 @@ def reference_gate(problem, name: str, mode: str, geometry: str, warm: dict,
     return out
 
 
+def _rel(a: float, b: float) -> float:
+    """|a - b| / |b|: 0 where they are equal, inf where either is not
+    finite or b is 0 and they differ."""
+    if a == b:
+        return 0.0
+    if not (math.isfinite(a) and math.isfinite(b)) or b == 0.0:
+        return math.inf
+    return abs(a - b) / abs(b)
+
+
+def _grown(nu: float) -> float:
+    """The next growth factor, nu^1.5 (inf once it overflows)."""
+    try:
+        return nu ** 1.5
+    except OverflowError:
+        return math.inf
+
+
+def control_gate(records, cfg: lm.LMConfig, endpoint: dict) -> dict:
+    """Gate (d3): every iteration of a run held to the reference's LM rules
+    (BacktrackLevMarqCholesky.h:299-353), from its iteration records
+    (``lm.IterRecord`` tuples (f, rho, lam0, lam_out, n_trials, accepted,
+    energy_out), from the run's first iteration) and its ``endpoint``
+    (status string, iterations, fun_evals, energy, lam). The rules are
+    written here again, apart from the drives' code:
+
+    - carry: lam0 is the lambda the iteration before ended with, bit for
+      bit, and f the energy it accepted within CONTROL_F_RTOL; the
+      endpoint's energy and lambda are the last iteration's;
+    - growth: trial j runs at lam0 times nu_0 ... nu_(j-2), nu_0 =
+      lambda_increase_base, nu <- nu^1.5; an iteration that ends rejected
+      ends at its last trial's lambda (CONTROL_LAM_RTOL);
+    - accept: accepted exactly where energy_out < f; then rho > 0 and
+      lam_out = max(lambda_trial max(1/3, 1 - (2 rho - 1)^3), lambda_min)
+      (CONTROL_LAM_RTOL);
+    - stop: a trial rejected at lambda > lambda_max (or at a non-finite
+      lambda or f, the port's guard) ends the run with ExceededLambdaMax,
+      and a smaller one grows lambda; an accept where the flatline test over
+      the last ``energy_history_size`` accepted energies holds ends it with
+      Success; otherwise the run ends only at max_iter (MaxItersReached) or
+      past max_fun_ev (TooManyFunctionEvaluation), and no iteration runs
+      after a stop; the endpoint's status and iterations are those;
+    - count: fun_evals is the sum of 1 + n_trials.
+
+    Returns {ok, broken: None or {rule, iteration, detail} of the first
+    rule broken, iterations, accepts, rejected_trials, mid_accepts
+    (accepts with rho below RHO_CLAMP, where the factor exceeds its
+    clamp), second_growths (trials whose lambda took two or more growth
+    factors), unreached (what the run never exercised), gaps (the largest
+    relative gap of carry, growth and accept)}."""
+    gaps = {"carry": 0.0, "growth": 0.0, "accept": 0.0}
+    first = []
+
+    def fail(rule: str, k: int, detail: str) -> None:
+        if not first:
+            first.append({"rule": rule, "iteration": k, "detail": detail})
+
+    def gap(rule: str, k: int, got: float, want: float, tol: float,
+            what: str) -> None:
+        g = _rel(got, want)
+        gaps[rule] = max(gaps[rule], g)
+        if not g <= tol:
+            fail(rule, k, f"{what} {got!r}, the rule's {want!r} ({g:.3g} off)")
+
+    size, status = cfg.energy_history_size, lm.STATUS_STRINGS
+    n = len(records)
+    accepted_energies = []
+    rejected = mid = regrown = evals = 0
+    expected = None
+    for k, (f, rho, lam0, lam_out, n_trials, accepted, e_out) in enumerate(
+            records, 1):
+        n_trials, accepted = int(n_trials), bool(accepted)
+        evals += 1 + n_trials
+        rejected += n_trials - accepted
+        regrown += max(0, n_trials - 2)
+        if k > 1:
+            prev = records[k - 2]
+            if lam0 != prev[3]:
+                fail("carry", k, f"lam0 {lam0!r}, the lambda iteration {k - 1} "
+                     f"ended with {prev[3]!r}")
+            gap("carry", k, f, prev[6], CONTROL_F_RTOL,
+                f"f, the energy iteration {k - 1} accepted {prev[6]!r}:")
+        if n_trials < 1:
+            fail("count", k, f"{n_trials} trials")
+            continue
+        lam, nu = lam0, float(cfg.lambda_increase_base)
+        for j in range(1, n_trials):
+            if not (lam <= cfg.lambda_max and math.isfinite(lam)
+                    and math.isfinite(f)):
+                fail("stop", k, f"trial {j} was rejected at lambda {lam!r} "
+                     f"(lambda_max {cfg.lambda_max!r}, f {f!r}) and the "
+                     "iteration went on")
+            lam *= nu
+            nu = _grown(nu)
+        if accepted != (e_out < f):
+            fail("accept", k, f"accepted {accepted} with energy_out {e_out!r} "
+                 f"against f {f!r}")
+        if not accepted:
+            gap("growth", k, lam_out, lam, CONTROL_LAM_RTOL,
+                f"rejected after {n_trials} trials from lam0 {lam0!r}, lambda")
+            if k < n:
+                fail("stop", k, f"the iteration ended rejected and iteration "
+                     f"{k + 1} ran")
+            elif lam > cfg.lambda_max or not (math.isfinite(lam)
+                                              and math.isfinite(f)):
+                expected = lm.LMStatus.ExceededLambdaMax
+            else:
+                fail("stop", k, f"the last trial was rejected at lambda {lam!r}"
+                     f" <= lambda_max {cfg.lambda_max!r} and lambda did not grow")
+            continue
+        if not rho > 0.0:
+            fail("accept", k, f"accepted with rho {rho!r}")
+        mid += rho < RHO_CLAMP
+        factor = max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
+        gap("accept", k, lam_out, max(lam * factor, cfg.lambda_min),
+            CONTROL_LAM_RTOL, f"rho {rho!r}, trial {n_trials} at lambda "
+            f"{lam!r}: lam_out")
+        accepted_energies.append(e_out)
+        window = accepted_energies[-size:]
+        flat = k > size and abs(e_out - max(window)) < cfg.tol_fun * e_out
+        if flat and k < n:
+            fail("stop", k, f"the flatline test held (energy {e_out!r}, last "
+                 f"{size} accepted {window}) and iteration {k + 1} ran")
+        elif flat:
+            expected = lm.LMStatus.Success
+        elif k == n:
+            if k + 1 > cfg.max_iter:
+                expected = lm.LMStatus.MaxItersReached
+            elif evals > cfg.max_fun_ev:
+                expected = lm.LMStatus.TooManyFunctionEvaluation
+            else:
+                fail("stop", k, "the run ended after an accept with no stop "
+                     f"rule holding (max_iter {cfg.max_iter}, {evals} of "
+                     f"max_fun_ev {cfg.max_fun_ev} evaluations)")
+    if n == 0:
+        fail("stop", 0, "no iteration recorded")
+    elif n > cfg.max_iter:
+        fail("stop", n, f"{n} iterations ran, max_iter {cfg.max_iter}")
+    if expected is not None:
+        iterations = n + (expected in (lm.LMStatus.MaxItersReached,
+                                       lm.LMStatus.TooManyFunctionEvaluation))
+        if (endpoint["status"], endpoint["iterations"]) != (
+                status[expected], iterations):
+            fail("stop", n, f"the endpoint says {endpoint['status']!r} after "
+                 f"{endpoint['iterations']} iterations, the records "
+                 f"{status[expected]!r} after {iterations}")
+    if n and (endpoint["energy"], endpoint["lam"]) != (records[-1][6],
+                                                        records[-1][3]):
+        fail("carry", n, f"the endpoint's energy and lambda {endpoint['energy']!r}, "
+             f"{endpoint['lam']!r}, the last iteration's {records[-1][6]!r}, "
+             f"{records[-1][3]!r}")
+    if endpoint["fun_evals"] != evals:
+        fail("count", n, f"fun_evals {endpoint['fun_evals']}, the records' "
+             f"iterations and trials {evals}")
+    unreached = [what for what, count in (
+        ("rejection", rejected), ("mid-range accept", mid),
+        ("second growth", regrown)) if not count]
+    return {"ok": not first, "broken": first[0] if first else None,
+            "iterations": n, "accepts": len(accepted_energies),
+            "rejected_trials": rejected, "mid_accepts": mid,
+            "second_growths": regrown, "unreached": unreached, "gaps": gaps}
+
+
+def control_run(problem, mode: str, cfg: lm.LMConfig, dev: torch.device,
+                warm: dict) -> dict:
+    """Gate (d3) of one workload: one more run of ``cfg`` on the timed
+    graph (the graph cache's key leaves out ``chunked``, ``lm._graph_key``)
+    with its iteration records observed, which routes it in chunks (a
+    replay and a read per chunk). Untimed. Its record: seconds, captured
+    (must be false), chunked, replays, reads, same_endpoint (status,
+    iterations, evaluations, energy and lambda equal the warm-up's ``warm``
+    bit for bit, tying the records to the route that was timed),
+    ``control_gate``'s keys with its ``ok`` as ``rules``, and ok."""
+    records = []
+    campaign._sync(dev)
+    t0 = time.perf_counter()
+    res = lm.minimize(problem, mode, cfg, device=dev, records=records)
+    campaign._sync(dev)
+    seconds = time.perf_counter() - t0
+    jit = lm.LAST_JIT_RUN
+    endpoint = {"status": lm.STATUS_STRINGS[res.status],
+                "iterations": res.iterations, "fun_evals": res.fun_evals,
+                "energy": res.energy, "lam": res.lam}
+    check = control_gate(records, cfg, endpoint)
+    same = all(endpoint[k] == warm[k] for k in endpoint)
+    out = {"seconds": seconds,
+           **{k: jit.get(k) for k in ("captured", "chunked", "replays", "reads")},
+           "same_endpoint": same, "rules": check.pop("ok"), **check}
+    out["ok"] = out["rules"] and same and out["captured"] is False
+    return out
+
+
+def planted_faults() -> dict:
+    """Faults of the LM rules that gate (d3) must catch, each a replacement
+    for one function of ``lm`` that both drives call: {name: (attribute,
+    replacement, the ``control_gate`` count that says a run reaches it)}.
+    Nielsen's middle range made linear, max(1/3, 1 - (2 rho - 1)), is
+    wrong at rho below 5/6 but 1/2; the growth nu <- nu^2 from a second
+    growth on; the factor inverted (lambda x 3 on a good step) at every
+    accept. On CUDA the graph that a run replays must be captured under
+    the fault (``lm.clear_graphs()`` first)."""
+    nielsen = lm._nielsen
+
+    def linear(rho):
+        factor = 2.0 - 2.0 * rho
+        if isinstance(factor, torch.Tensor):
+            return torch.clamp(factor, min=1.0 / 3.0)
+        return max(1.0 / 3.0, factor)
+
+    def squared(base: float) -> list:
+        table = [float(base)]
+        for _ in range(lm._GROWTH - 1):
+            try:
+                table.append(table[-1] ** 2)
+            except OverflowError:
+                table.append(math.inf)
+        return table
+
+    return {"middle-range": ("_nielsen", linear, "mid_accepts"),
+            "growth-squared": ("growth_table", squared, "second_growths"),
+            "inverted": ("_nielsen", lambda rho: 1.0 / nielsen(rho), "accepts")}
+
+
 def _same(a: dict, b: dict) -> bool:
     return all(a[k] == b[k] for k in ("status", "iterations", "fun_evals", "energy"))
 
 
 def workload(name: str, mode: str, cfg: lm.LMConfig, warm: dict, runs: list,
-             e0: float, reserved, kernels, reference: dict) -> dict:
+             e0: float, reserved, kernels, reference: dict,
+             control: dict) -> dict:
     """A workload's record: its rate over the timed runs and its gates."""
     rates = [r["it_per_s"] for r in runs]
     gates = {
@@ -320,6 +579,7 @@ def workload(name: str, mode: str, cfg: lm.LMConfig, warm: dict, runs: list,
                        and r["status"] in DESCENT_STOPS and r["points_ok"]
                        for r in [warm] + runs),
         "reference": reference["within"],
+        "control": control["ok"],
     }
     peaks = [r["peak_bytes"] for r in runs if r["peak_bytes"] is not None]
     return {
@@ -336,10 +596,10 @@ def workload(name: str, mode: str, cfg: lm.LMConfig, warm: dict, runs: list,
         "replays": [r["replays"] for r in runs],
         "launches": [r["launches"] for r in runs],
         "peak_bytes": max(peaks) if peaks else None, "reserved_bytes": reserved,
-        "gates": gates, "reference": reference,
+        "gates": gates, "reference": reference, "control": control,
         "correct": (gates["replay"] and gates["no_capture_in_window"]
                     and gates["descent"] and (kernels is None or kernels["ok"])
-                    and gates["reference"]),
+                    and gates["reference"] and gates["control"]),
         "runs": runs,
     }
 
@@ -358,8 +618,9 @@ def run_workloads(problem, name: str, modes, cfg: lm.LMConfig, repeats: int,
     serves the warm-ups, every timed run and the gates, it is never
     reloaded between them, and problems are run one after another. A timed
     run that captured (``LAST_JIT_RUN["captured"]``) fails gate (a); gate
-    (b)'s kernel prefixes replay the timed graphs before any is freed, and
-    gate (d)'s float64 prefixes run after (b)."""
+    (d3)'s observed runs and then gate (b)'s kernel prefixes replay the
+    timed graphs before any is freed, and gate (d)'s float64 prefixes run
+    after (b)."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     prepare, _, to_loop, _ = lm.step_functions(problem, modes[0], cfg, dev)
@@ -374,6 +635,8 @@ def run_workloads(problem, name: str, modes, cfg: lm.LMConfig, repeats: int,
             out({"bench": "run", "problem": name, "round": round_,
                  **runs[mode][-1]})
     reserved = torch.cuda.memory_reserved(dev) if cuda else None
+    control = {mode: control_run(problem, mode, cfg, dev, warm[mode])
+               for mode in modes}
     kernels = kernels_vs_plain(problem, modes, cfg, dev)
     geometry = cfg.geometry or "f64"
     reference = {mode: reference_gate(problem, name, mode, geometry, warm[mode],
@@ -381,7 +644,8 @@ def run_workloads(problem, name: str, modes, cfg: lm.LMConfig, repeats: int,
     records = []
     for mode in modes:
         records.append(workload(name, mode, cfg, warm[mode], runs[mode], e0,
-                                reserved, kernels[mode], reference[mode]))
+                                reserved, kernels[mode], reference[mode],
+                                control[mode]))
         out({k: v for k, v in records[-1].items() if k != "runs"})
     return records
 

@@ -145,9 +145,9 @@ class LMConfig:
     #: Run the jit drive in chunks of ``chunk_size`` iterations even where
     #: nothing observes the run (JAX lm.py:150-157): a host read after each
     #: chunk. False, the default as in JAX: a run without ``verbose``, a
-    #: checkpoint, metrics, ``resume`` or a ``trace`` is one dispatch (one
-    #: graph replay on CUDA) and one host read at its end. Ignored on a
-    #: shard, as JAX's ``minimize_sharded`` ignores it.
+    #: checkpoint, metrics, ``resume``, a ``trace`` or ``records`` is one
+    #: dispatch (one graph replay on CUDA) and one host read at its end.
+    #: Ignored on a shard, as JAX's ``minimize_sharded`` ignores it.
     chunked: bool = False
 
     def use_kernels(self, device: torch.device) -> bool:
@@ -330,7 +330,9 @@ class RunLog:
     ``phase`` is set), a checkpoint of the accepted state every
     ``checkpoint_every`` iterations, and one dict per accepted iteration
     appended to ``trace`` (iter, energy: the accepted energy, lam: the
-    lambda after the update, and phase when set). ``to_state`` maps the
+    lambda after the update, and phase when set), and one ``IterRecord``
+    per iteration appended to ``records``, from the run's first iteration
+    on (a two-phase run appends both phases'). ``to_state`` maps the
     loop state to the BAState a checkpoint holds. ``write=False`` (a
     sharded run's ranks other than 0) prints and writes nothing but still
     calls ``to_state`` where a checkpoint falls due, since on a shard that
@@ -347,7 +349,8 @@ class RunLog:
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 0, to_state=None,
                  write: bool = True, trace: Optional[list] = None,
-                 capture_s: Optional[float] = None):
+                 capture_s: Optional[float] = None,
+                 records: Optional[list] = None):
         self.verbose = verbose and write
         self.metrics_path = metrics_path if write else None
         self.phase = phase
@@ -356,6 +359,7 @@ class RunLog:
         self.to_state = to_state
         self.write = write
         self.trace = trace
+        self.records = records
         self.capture_s = capture_s
         self._metrics = None
 
@@ -409,6 +413,10 @@ class RunLog:
                 rec["phase"] = self.phase
             self.trace.append(rec)
 
+    def iteration(self, record: "IterRecord") -> None:
+        if self.records is not None:
+            self.records.append(record)
+
     def save(self, x, lam: float, it: int, fun_evals: int, hist) -> None:
         """Checkpoint ``x`` (the loop state) with the LM scalars."""
         from bundleadjustment_benchmarks_tpu_torch.utils import checkpoint
@@ -418,6 +426,23 @@ class RunLog:
             checkpoint.save_checkpoint(
                 self.checkpoint_path, state, lam=lam, iteration=it,
                 fun_evals=fun_evals, energy_history=list(hist))
+
+
+class IterRecord(NamedTuple):
+    """One outer iteration as both drives record it (JAX's _IterRecord,
+    JAX lm.py:301-311, with the energy it ended at): the prepare's energy
+    ``f``, the last trial's gain ratio ``rho``, the first trial's lambda
+    ``lam0``, lambda after the accept or the last reject ``lam_out``, the
+    trials run, whether the last was accepted, and ``energy_out``: the
+    accepted trial's energy, else ``f``."""
+
+    f: float
+    rho: float
+    lam0: float
+    lam_out: float
+    n_trials: int
+    accepted: bool
+    energy_out: float
 
 
 def _nielsen(rho):
@@ -441,15 +466,16 @@ def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
     lambda, iteration, fun_evals and the energy history continue from it,
     and the first-iteration lambda rule is skipped. ``run_log`` gets every
     trial's row (Elapsed: the host clock after the trial's one host read,
-    from the start of the iteration or of the previous rejected trial) and
-    every accepted state.
+    from the start of the iteration or of the previous rejected trial),
+    every iteration's ``IterRecord`` and every accepted state. Lambda
+    grows by ``growth_table``'s factors, as on the jit drive.
 
     Returns (x, status, iterations, fun_evals, energy, lam) with the
     reference's bookkeeping: a run stopped by max_iter or max_fun_ev counts
     the iteration that found the limit."""
     x = x0
     lam = math.nan  # set from the first prepare's schur.initial_lambda
-    lam_inc = float(config.lambda_increase_base)
+    growth = growth_table(config.lambda_increase_base)
     it = fun_evals = 0
     size = config.energy_history_size
     hist = [0.0] * size
@@ -464,12 +490,14 @@ def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
     while it + 1 <= config.max_iter and fun_evals <= config.max_fun_ev:
         it += 1
         t0 = time.perf_counter()
-        ctx, energy_t, lam0 = prepare(x)
+        ctx, energy_t, lam_rule = prepare(x)
         fun_evals += 1
         if it == 1 and not resume:
-            lam = float(lam0)
+            lam = float(lam_rule)
+        lam0, trials = lam, 0
         while True:
             x_t, e_t, rho_scale = trial(ctx, x, lam)
+            trials += 1
             fun_evals += 1
             # One host read per trial; the outer energy rides along.
             e_t, rho_scale, energy = torch.stack(
@@ -486,7 +514,8 @@ def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
                 lam = max(lam * _nielsen(rho), config.lambda_min)
                 if run_log:
                     run_log.trial(it, "Accepted", energy, rho, lam, elapsed)
-                lam_inc = float(config.lambda_increase_base)
+                    run_log.iteration(IterRecord(energy, rho, lam0, lam, trials,
+                                                 True, e_t))
                 energy = e_t
                 hist[it % size] = energy
                 break
@@ -495,9 +524,14 @@ def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
             if lam > config.lambda_max or not (
                     math.isfinite(lam) and math.isfinite(energy)):
                 status = LMStatus.ExceededLambdaMax
+                if run_log:
+                    # The jit drive's rho of the last trial: IEEE division.
+                    rho = (torch.tensor(energy - e_t, dtype=torch.float64)
+                           / rho_scale).item()
+                    run_log.iteration(IterRecord(energy, rho, lam0, lam, trials,
+                                                 False, energy))
                 break
-            lam *= lam_inc
-            lam_inc = lam_inc ** 1.5
+            lam *= growth[min(trials - 1, _GROWTH - 1)]
             t0 = time.perf_counter()
         if status != LMStatus.Running:
             break
@@ -538,10 +572,11 @@ _BEGIN_SET = ("it", "fun_evals", "f", "lam", "lam0", "trials", "between")
 _STEP_SET = ("lam", "fun_evals", "trials", "between", "status", "energy",
              "e_trial", "slots", "bad_it", "bad_energy", "bad_e_test",
              "bad_rho_scale")
-#: One record per outer iteration (JAX's _IterRecord, plus the energy it
-#: ended at; its lam_inc0 is always lambda_increase_base, since lam_inc
-#: resets at every accept): enough to rebuild every trial's table row.
-_REC = ("f", "rho", "lam0", "lam_out", "n_trials", "accepted", "energy_out")
+#: The columns of the device's record of each outer iteration, an
+#: ``IterRecord`` (JAX's _IterRecord without its lam_inc0, which is always
+#: lambda_increase_base since lam_inc resets at every accept): enough to
+#: rebuild every trial's table row.
+_REC = IterRecord._fields
 #: Entries of the lambda growth table: lam_inc after n rejects in a row
 #: (base, base^1.5, ...), saturated at the last (inf for any base > 1).
 _GROWTH = 128
@@ -562,9 +597,9 @@ def _from_leaves(like, leaves):
 
 
 def growth_table(base: float) -> list:
-    """lam_inc after 0, 1, ... rejects: the host drive's ``lam_inc **
-    1.5`` recurrence, in Python floats (so the two drives agree bit for
-    bit), saturating at inf."""
+    """lam_inc after 0, 1, ... rejects: ``base``, then ``lam_inc ** 1.5``
+    (BacktrackLevMarqCholesky.h:331-334), in Python floats, saturating at
+    inf. Both drives grow lambda by it, so they agree bit for bit."""
     table = [float(base)]
     for _ in range(_GROWTH - 1):
         try:
@@ -597,7 +632,7 @@ class DeviceLoop:
     slots, ``between`` says whether the next slot starts an iteration),
     ``run``'s first write is _init_outer_state and its end
     _finalize_limits. lam_inc is not carried: after n rejects in a row it
-    is ``growth_table``'s n-th entry, the host drive's recurrence.
+    is ``growth_table``'s n-th entry, as on the host drive.
 
     On CUDA the chunk is captured once into a ``cuda_graph.DeviceGraph``
     (its loop of slots, their two branches and the float32 Cholesky's
@@ -845,24 +880,26 @@ class DeviceLoop:
         chunked (default: the config the loop was built with; the rest of a
         config is fixed by the capture). It routes as JAX's ``minimize``:
         in chunks of ``chunk_size`` iterations where ``run_log`` observes
-        the run (verbose, metrics, checkpoints, a trace), where it resumes
-        or where ``chunked`` is set, else as one chunk of ``max_iter``. On
-        a shard ``chunked`` is ignored, as JAX's ``minimize_sharded`` has
-        no chunks (``self.chunked`` says which route the run took).
+        the run (verbose, metrics, checkpoints, a trace, records), where it
+        resumes or where ``chunked`` is set, else as one chunk of
+        ``max_iter``. On a shard ``chunked`` is ignored, as JAX's
+        ``minimize_sharded`` has no chunks (``self.chunked`` says which
+        route the run took).
         ``sync_debug`` (CUDA): each chunk runs under
         ``torch.cuda.set_sync_debug_mode("error")``, so that an operation
         that synchronizes there raises; the read after it is outside.
         With ``run_log`` it emits each chunk's rows (Rejected rows
         synthesized from the iteration's lam0 and the growth table, with
-        rho None), trace records and the checkpoints due (at the first
-        chunk end at or past each multiple of ``checkpoint_every``, JAX
-        lm.py:724-736). Returns lm_loop's tuple."""
+        rho None), its iteration records as the device wrote them, trace
+        records and the checkpoints due (at the first chunk end at or past
+        each multiple of ``checkpoint_every``, JAX lm.py:724-736). Returns
+        lm_loop's tuple."""
         cfg, pos = config or self.config, self.pos
         size = cfg.energy_history_size
         max_iter = min(cfg.max_iter, 2**31 - 1)
         observe = run_log is not None and bool(
             run_log.verbose or run_log._metrics or run_log.trace is not None
-            or run_log.checkpoint_path)
+            or run_log.records is not None or run_log.checkpoint_path)
         self.chunked = observe or bool(resume) or (
             cfg.chunked and not self.reduce.sharded)
         chunk = self.config.chunk_size if self.chunked else max_iter
@@ -930,6 +967,8 @@ class DeviceLoop:
         for i, (f, rho, lam0, lam_out, n_trials, accepted, e_out) in enumerate(recs):
             it = start + i + 1
             accepted = accepted > 0
+            run_log.iteration(IterRecord(f, rho, lam0, lam_out, int(n_trials),
+                                         accepted, e_out))
             lam = lam0
             for k in range(int(n_trials) - (1 if accepted else 0)):
                 run_log.trial(it, "Rejected", f, None, lam, per_trial,
@@ -1029,7 +1068,8 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
              metrics_path: Optional[str] = None,
              metrics_phase: Optional[str] = None,
              reduce: schur.Reduce = schur.LOCAL,
-             trace: Optional[list] = None) -> LMResult:
+             trace: Optional[list] = None,
+             records: Optional[list] = None) -> LMResult:
     """Run LM on a BA problem on ``device`` (CUDA unless the caller passes
     one, e.g. ``device="cpu"``; without CUDA and without ``device`` it
     raises). The problem and state are moved there first. ``mode`` is one
@@ -1040,7 +1080,8 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     checkpoint's state); ``checkpoint_path`` with ``checkpoint_every > 0``
     writes the accepted state every that many iterations; ``metrics_path``
     appends one JSONL record per trial, tagged ``metrics_phase``;
-    ``trace``, a list, gets one record per accepted iteration (``RunLog``).
+    ``trace``, a list, gets one record per accepted iteration, and
+    ``records``, a list, one ``IterRecord`` per iteration (``RunLog``).
 
     With ``config.polish_iters`` and a df32 or float32-matmul config, the
     two-phase drive: the fast phase (records tagged "fast") to its own stop
@@ -1061,20 +1102,20 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     by later ones, until a capture for another problem on the device frees
     it (``_device_loop``; ``clear_graphs`` frees all). It routes as the JAX
     package's ``minimize``: a run with ``config.verbose``,
-    ``checkpoint_path``, ``metrics_path``, ``resume``, ``trace`` or
-    ``config.chunked`` runs in chunks of ``chunk_size`` iterations, a host
-    read after each (JAX's ``chunked_loop``; checkpoints fall at the first
-    chunk end at or past each multiple of ``checkpoint_every``, 25 where 0
-    is given with a path); any other is one replay and one read. On a shard
+    ``checkpoint_path``, ``metrics_path``, ``resume``, ``trace``,
+    ``records`` or ``config.chunked`` runs in chunks of ``chunk_size``
+    iterations, a host read after each (JAX's ``chunked_loop``; checkpoints
+    fall at the first chunk end at or past each multiple of
+    ``checkpoint_every``, 25 where 0 is given with a path); any other is
+    one replay and one read. On a shard
     it routes as the JAX package's ``minimize_sharded``: a run with
     ``checkpoint_path``, ``metrics_path`` or ``resume`` takes the host
     drive, any other the device loop with its collectives captured (NCCL on
     CUDA; a gloo group on CUDA raises) and, like JAX's ``lm_loop``, no
-    iteration table: one dispatch, or chunks where a ``trace`` asks
-    (``config.chunked`` is ignored there: JAX's sharded drive has no
-    chunks). A
-    collective in a replay has no timeout of its own (see
-    ``DeviceLoop``)."""
+    iteration table: one dispatch, or chunks where a ``trace`` or
+    ``records`` asks (``config.chunked`` is ignored there: JAX's sharded
+    drive has no chunks). A collective in a replay has no timeout of its
+    own (see ``DeviceLoop``)."""
     schur.check_mode(mode)
     config = config or LMConfig()
     if config.drive not in ("host", "jit"):
@@ -1085,7 +1126,8 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
             tol_fun=max(config.tol_fun, _POLISH_FAST_TOL))
         observe = dict(checkpoint_path=checkpoint_path,
                        checkpoint_every=checkpoint_every,
-                       metrics_path=metrics_path, reduce=reduce, trace=trace)
+                       metrics_path=metrics_path, reduce=reduce, trace=trace,
+                       records=records)
         fast = minimize(problem, mode, fast_cfg, state=state, device=device,
                         resume=resume, metrics_phase="fast", **observe)
         polish_cfg = dataclasses.replace(
@@ -1125,7 +1167,8 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     with RunLog(verbose, metrics_path, metrics_phase, checkpoint_path,
                 checkpoint_every, to_checkpoint,
                 write=reduce.rank == 0, trace=trace,
-                capture_s=None if reduce.sharded else capture_s) as run_log:
+                capture_s=None if reduce.sharded else capture_s,
+                records=records) as run_log:
         if loop is None:
             x, status, it, fun_evals, energy, lam = lm_loop(
                 x0, prepare, trial, config, resume=resume, run_log=run_log)

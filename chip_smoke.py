@@ -14,7 +14,9 @@ p16, p126 and p257 (``default_drive``), float64 cholesky on p126 and p257
 against the scipy oracle's logged prefix on both LM drives
 (``oracle_prefix``), ``bench_torch.py``'s default run, bench.py's workload
 on p257 at 3 repeats, gated, each workload held to the JAX package's
-campaign row and the scipy oracle's prefix (``bench``), then the other four solver modes
+campaign row and the scipy oracle's prefix and every iteration to the LM
+rules (``bench``), faults planted in those rules caught by the last gate
+(``bench_planted``), then the other four solver modes
 (``modes_df32_p257``, ``modes_f64_p16``), every solve realization against cholesky's step (``modes_agree_p16``),
 qrkit's "rows" and "pair" forms (``qrkit_forms_p257``) and spqr's "gram"
 and "tsqr" forms (``spqr_forms_p257``), then the command line in-process
@@ -2001,12 +2003,17 @@ def bench_phase(bench_torch, lm, smi) -> dict:
     """``bench``: ``bench_torch.py``'s default run (bench.py's workload:
     p257 df32 cholesky and qrchol to 100 iterations on the jit drive) with
     3 timed runs each, through its ``main``; its lines pass on under the
-    phase's name, its last one in ``bench_done``, and a ``bench_reference``
-    line per workload gives its reads, replays and gate (d). Gate: it exits
-    0 with ``correct`` true (gate (d) included) and both p257 fields, no
-    timed run captured, every timed run read and replayed once and
-    launched both chain kernels. Returns each mode's launches in its first
-    timed run."""
+    phase's name, its last one in ``bench_done``, a ``bench_reference``
+    line per workload gives its reads, replays and gate (d), and a
+    ``bench_control`` line its gate (d3): the observed run's seconds,
+    capture, route and endpoint, the iterations checked, the accepts, the
+    rejected trials, the mid-range accepts and second growths, what the
+    run did not reach, the first rule broken and the largest gap per rule.
+    Gate: it exits 0 with ``correct`` true (gates (d) and (d3) included)
+    and both p257 fields, no timed run and no observed run captured, every
+    workload's control passed on every iteration, every timed run read and
+    replayed once and launched both chain kernels. Returns each mode's
+    launches in its first timed run."""
     t_phase = time.perf_counter()
     lines = []
 
@@ -2030,6 +2037,14 @@ def bench_phase(bench_torch, lm, smi) -> dict:
               "prefix": ref["prefix"] and {k: ref["prefix"][k] for k in (
                   "source", "gaps", "within")},
               "nvidia_smi": smi})
+        emit({"phase": "bench_control", "mode": w["mode"], **w["control"],
+              "nvidia_smi": smi})
+        control = w["control"]
+        check(control["ok"] and control["captured"] is False
+              and control["same_endpoint"],
+              f"bench: {w['mode']}'s gate (d3) failed: captured "
+              f"{control['captured']}, same endpoint {control['same_endpoint']}, "
+              f"first rule broken {control['broken']}")
     emit({"phase": "bench_done", "rc": rc, "last_line": last, "nvidia_smi": smi,
           "phase_s": time.perf_counter() - t_phase})
     check(rc == 0 and last.get("correct") is True,
@@ -2049,6 +2064,65 @@ def bench_phase(bench_torch, lm, smi) -> dict:
           f"{[r['launches'] for r in runs]}")
     return {m: next(r["launches"] for r in runs if r["mode"] == m)
             for m in bench_torch.MODES}
+
+
+def bench_planted_phase(bench_torch, campaign, lm, problem, smi) -> None:
+    """``bench_planted``: gate (d3) against the faults of
+    ``bench_torch.planted_faults`` on bench.py's p257 df32 cholesky
+    workload (the jit drive, max_iter 100). A run is a warm-up that
+    captures a fresh graph (the graph cache cleared before and after, so
+    that the capture takes the fault) and ``bench_torch.control_run`` on
+    that graph. Gate: the clean run passes control on every iteration;
+    each fault that the clean run reaches (its count in
+    ``planted_faults``) fails control's rules; a fault it does not reach is
+    printed as not reached, and does not pass."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = campaign.drive_config("df32", bench_torch.MAX_ITER)
+    faults = bench_torch.planted_faults()
+
+    def run(fault):
+        lm.clear_graphs()
+        if fault:
+            attr, replacement, _ = faults[fault]
+            saved = getattr(lm, attr)
+            setattr(lm, attr, replacement)
+        try:
+            warm, _ = bench_torch.timed_run(problem, "cholesky", cfg, dev)
+            return warm, bench_torch.control_run(problem, "cholesky", cfg, dev, warm)
+        finally:
+            if fault:
+                setattr(lm, attr, saved)
+            lm.clear_graphs()
+
+    keys = ("rules", "broken", "iterations", "accepts", "rejected_trials",
+            "mid_accepts", "second_growths", "unreached", "gaps", "seconds",
+            "captured", "same_endpoint")
+    warm, clean = run(None)
+    emit({"phase": "bench_planted", "fault": None,
+          **{k: warm[k] for k in ("status", "iterations", "fun_evals", "captured")},
+          "control": {k: clean[k] for k in keys}, "nvidia_smi": smi})
+    check(warm["captured"] and clean["ok"],
+          f"bench_planted: the clean run captured {warm['captured']}, its "
+          f"control broke {clean['broken']}")
+    not_reached = []
+    for fault, (_, _, reach) in faults.items():
+        reached = clean[reach] > 0
+        warm, control = run(fault)
+        emit({"phase": "bench_planted", "fault": fault, "reached": reached,
+              "reached_by": reach, "failed_control": not control["rules"],
+              **{k: warm[k] for k in ("status", "iterations", "fun_evals",
+                                      "captured")},
+              "control": {k: control[k] for k in keys}, "nvidia_smi": smi})
+        check(warm["captured"], f"bench_planted: {fault}'s run did not capture")
+        if reached:
+            check(not control["rules"],
+                  f"bench_planted: fault {fault} passed gate (d3) on p257 df32 "
+                  "cholesky")
+        else:
+            not_reached.append(fault)
+    emit({"phase": "bench_planted_done", "not_reached": not_reached,
+          "phase_s": time.perf_counter() - t_phase})
 
 
 def oracle_prefix_phase(oracle_prefix, loaded, smi) -> None:
@@ -2433,6 +2507,7 @@ def main() -> None:
     for mode, launches in bench_phase(bench_torch, lm, smi).items():
         for which in kern:
             kern[which][f"launches_bench_p257_{mode}"] = launches[which]
+    bench_planted_phase(bench_torch, flatline_campaign, lm, problems["p257"], smi)
 
     # -- the other solver modes ---------------------------------------------------
     modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi)

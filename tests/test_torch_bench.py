@@ -114,7 +114,7 @@ def test_workload_lines_and_gates(p16_f64):
     assert "runs" not in lines[-1]
     assert record["gates"] == {"replay": True, "no_capture_in_window": True,
                                "kernels_vs_plain": None, "descent": True,
-                               "reference": True}
+                               "reference": True, "control": True}
     assert record["correct"] and record["repeats"] == 1
     run = record["runs"][0]
     assert run["captured"] is False and run["reads"] == run["replays"] == 1
@@ -122,6 +122,27 @@ def test_workload_lines_and_gates(p16_f64):
     assert record["it_per_s"]["median"] == run["it_per_s"] > 0
     assert record["energy"] < record["initial_energy"]
     assert record["peak_bytes"] is None and record["reserved_bytes"] is None
+
+
+def test_workload_control_line(p16_f64):
+    """Gate (d3) on the 3-iteration p16 workload: one more run through the
+    timed route's loop, observed, so chunked (one chunk of 16 holds its 3
+    iterations: one replay, one read), ending where the warm-up ended;
+    every iteration passes the rules, and the line says the run reached
+    neither a rejected trial nor a mid-range accept (its rho stays above
+    the clamp's 0.9368 over iterations 1-3)."""
+    _, record, lines = p16_f64
+    control = record["control"]
+    assert lines[-1]["control"] == control
+    assert control["captured"] is False and control["chunked"] is True
+    assert control["replays"] == control["reads"] == 1
+    assert control["same_endpoint"] and control["rules"] and control["ok"]
+    assert control["broken"] is None and control["seconds"] > 0
+    assert (control["iterations"], control["accepts"]) == (3, 3)
+    assert control["unreached"] == ["rejection", "mid-range accept",
+                                    "second growth"]
+    assert control["gaps"]["carry"] <= bench.CONTROL_F_RTOL
+    assert control["gaps"]["accept"] <= bench.CONTROL_LAM_RTOL
 
 
 def test_script_last_line():
@@ -155,7 +176,7 @@ def test_bad_arguments_exit_nonzero(args):
 
 def _run(**kw):
     run = {"mode": "cholesky", "status": lm.STATUS_STRINGS[lm.LMStatus.MaxItersReached],
-           "iterations": 4, "fun_evals": 6, "energy": 10.0, "wall_s": 0.5,
+           "iterations": 4, "fun_evals": 6, "energy": 10.0, "lam": 1e-3, "wall_s": 0.5,
            "it_per_s": 8.0, "captured": False, "capture_s": 0.0, "replays": 1,
            "reads": 1, "launches": {}, "peak_bytes": None, "points_ok": True}
     run.update(kw)
@@ -173,6 +194,7 @@ FAULTS = {
                  "descent"),
     "bad-points": (dict(points_ok=False), "descent"),
     "off-reference": ({}, "reference"),
+    "off-control": ({}, "control"),
 }
 
 
@@ -188,8 +210,9 @@ def test_gates_catch_each_fault(fault):
     else:
         warm, runs = _run(), [_run(), _run(**change)]
     reference = {"within": gate != "reference"}
+    control = {"ok": gate != "control"}
     rec = bench.workload("p16", "cholesky", cfg, warm, runs, 15.0, None, None,
-                         reference)
+                         reference, control)
     failed = [k for k, v in rec["gates"].items() if v is False]
     assert failed == ([gate] if gate else [])
     assert rec["correct"] is (gate is None)
@@ -201,7 +224,7 @@ def test_kernel_gate_fails_the_workload():
                "rel_gap": 0.0, "kernels_captured": False,
                "kernels_launches": {"chain_blocks": 1, "chain_energy": 1}, "ok": False}
     rec = bench.workload("p16", "cholesky", cfg, _run(), [_run()], 15.0, None,
-                         kernels, {"within": True})
+                         kernels, {"within": True}, {"ok": True})
     assert not rec["correct"]
     assert bench.kernels_vs_plain(None, ("cholesky", "qrchol"), cfg,
                                   torch.device("cpu")) == {"cholesky": None,
@@ -244,8 +267,9 @@ def test_incorrect_run_exits_one_after_printing(monkeypatch):
     rc = bench.main(["--problem", "p16", "--geometry", "f64", "--modes",
                      "cholesky", "--max-iter", "1", "--repeats", "1",
                      "--device", "cpu"], out=lines.append)
-    # The warm-up, the timed run and gate (d)'s float64 prefix.
-    assert rc == 1 and len(calls) == 3
+    # The warm-up, the timed run, gate (d3)'s observed run and gate (d)'s
+    # float64 prefix.
+    assert rc == 1 and len(calls) == 4
     assert [line.get("bench") for line in lines] == [
         "header", "warmup", "run", "workload", None]
     assert lines[-1]["correct"] is False
@@ -319,7 +343,7 @@ def test_missing_reference_fails_the_gate(monkeypatch, tmp_path, name, attr, how
     gate = bench.reference_gate(None, name, "cholesky", "df32", warm, None, "cpu")
     assert gate["within"] is False and str(path) in gate["error"]
     rec = bench.workload(name, "cholesky", campaign.drive_config("df32", 3),
-                         _run(), [_run()], 15.0, None, None, gate)
+                         _run(), [_run()], 15.0, None, None, gate, {"ok": True})
     assert rec["gates"]["reference"] is False and not rec["correct"]
 
 
@@ -335,9 +359,11 @@ def test_broken_damping_update_fails_only_the_reference_gate(monkeypatch, p16_f6
     grows 3x on a good step where it should shrink 3x), in the one function
     both LM drives use: the runs still replay bit for bit, capture nothing
     and descend, so gates (a)-(c) pass, and the workload is incorrect on
-    gate (d) alone: lambda's factor from one iteration to the next lies 8x
-    off the oracle's (beyond LAM_FACTOR_REL's 1e-2) from iteration 2, and
-    the energies at the third iteration 2.8e-4 (beyond CHOLESKY's 1e-4)."""
+    the reference gates alone: on (d), lambda's factor from one iteration
+    to the next lies 8x off the oracle's (beyond LAM_FACTOR_REL's 1e-2)
+    from iteration 2, and the energies at the third iteration 2.8e-4
+    (beyond CHOLESKY's 1e-4); on (d3), iteration 1's lambda lies 8x off
+    the rule's."""
     problem, clean, _ = p16_f64
     nielsen = lm._nielsen
     monkeypatch.setattr(lm, "_nielsen", lambda rho: 1.0 / nielsen(rho))
@@ -350,7 +376,9 @@ def test_broken_damping_update_fails_only_the_reference_gate(monkeypatch, p16_f6
     print(f"broken damping: prefix gaps {record['reference']['prefix']['gaps']}")
     assert record["gates"] == {"replay": True, "no_capture_in_window": True,
                                "kernels_vs_plain": None, "descent": True,
-                               "reference": False}
+                               "reference": False, "control": False}
+    assert record["control"]["broken"]["rule"] == "accept"
+    assert record["control"]["broken"]["iteration"] == 1
     gaps = record["reference"]["prefix"]["gaps"]
     assert gaps["first_rel"] > op.CHOLESKY["first_rel"]
     assert gaps["lam_factor_rel"] > op.LAM_FACTOR_REL

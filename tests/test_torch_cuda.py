@@ -577,7 +577,8 @@ def test_sharded_jit_nccl_world_size_1_matches_single(p16_cuda):
 def test_bench_workload_p16_df32(p16_cuda):
     """``bench_torch.py``'s workload on p16 df32 (cholesky, 20 iterations,
     3 timed runs) on the jit drive: every gate holds, no timed run
-    captures, and each launches both chain kernels."""
+    captures, and each launches both chain kernels; gate (d3)'s observed
+    run replays the timed graph in chunks."""
     sys.path.insert(0, ROOT)
     try:
         import bench_torch
@@ -594,6 +595,10 @@ def test_bench_workload_p16_df32(p16_cuda):
     assert all(r["captured"] is False and r["replays"] > 0 for r in rec["runs"])
     assert all(min(r["launches"].values()) > 0 for r in rec["runs"])
     assert rec["peak_bytes"] > 0 and rec["reserved_bytes"] >= rec["peak_bytes"]
+    control = rec["control"]
+    assert control["ok"] and control["captured"] is False and control["chunked"]
+    chunks = -(-control["iterations"] // lm.LMConfig().chunk_size)
+    assert control["replays"] == control["reads"] == chunks
 
 
 @pytest.mark.parametrize("name,mode", [("p257", "cholesky"), ("p257", "qrchol"),
@@ -604,8 +609,9 @@ def test_broken_damping_update_fails_only_gate_d(monkeypatch, name, mode):
     timed run) with lambda's factor on an accept inverted (1 / the Nielsen
     factor) in the one function both LM drives use: gates (a)-(c) pass,
     and gate (d) fails, on the damping factor of its float64 prefix (8x
-    off the reference's where 1e-2 is allowed). The endpoint gate (d1) and
-    the prefix's gaps are printed (``pytest -rP``)."""
+    off the reference's where 1e-2 is allowed), and so does gate (d3), on
+    the timed graph's first iteration. The endpoint gate (d1), the
+    prefix's gaps and the rule (d3) names are printed (``pytest -rP``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sys.path.insert(0, ROOT)
@@ -627,9 +633,13 @@ def test_broken_damping_update_fails_only_gate_d(monkeypatch, name, mode):
     print(f"broken damping, {name} {mode}: {rec['status']} after "
           f"{rec['iterations']} iterations, energy {rec['energy']}, gates {rec['gates']}, "
           f"endpoint {ref['endpoint'] and ref['endpoint']['gaps']} "
-          f"{ref.get('endpoint_none', '')}, prefix {ref['prefix']['gaps']}")
+          f"{ref.get('endpoint_none', '')}, prefix {ref['prefix']['gaps']}, "
+          f"control {rec['control']['broken']}")
     gates = rec["gates"]
     assert gates["replay"] and gates["no_capture_in_window"] and gates["descent"]
     assert gates["kernels_vs_plain"]["ok"]
     assert gates["reference"] is False and not rec["correct"]
+    assert gates["control"] is False
+    assert rec["control"]["broken"]["rule"] == "accept"
+    assert rec["control"]["broken"]["iteration"] == 1
     assert ref["prefix"]["gaps"]["lam_factor_rel"] > bench_torch.oracle_prefix.LAM_FACTOR_REL
