@@ -33,10 +33,11 @@ bench.py's config leaves it); each run's line has its ``reads`` and
 Each workload (problem, mode) is gated, and the line says ``correct``:
 (a) every timed run equals the warm-up in status, iterations, evaluations
 and final energy, bit for bit, and no run captured inside its window;
-(b) with df32 on CUDA, a 10-iteration prefix on the timed graph itself (the
-graph cache's key leaves out the limits, so it replays without a capture)
-and one with the chain kernels' plain versions take the same iterations
-and evaluations, with energies within 1e-9 (untimed); (c) every run
+(b) with df32 on CUDA, the whole workload on the timed graph itself (the
+graph cache's key leaves out the limits and the observers, so it replays
+without a capture) and once more with the chain kernels' plain versions
+take the same trials and accepts on every iteration, with energies within
+1e-9 (untimed; ``kernels_vs_plain``); (c) every run
 descends: its energy is
 finite and below the initial one, it stopped on a success or on the
 iteration budget, and its points are finite, of shape (M, 3); (d) the
@@ -72,7 +73,18 @@ apart from the drives' code: lambda carried, grown and updated, accept,
 stop and the evaluation count (the line's ``control``: its seconds, the
 first rule broken, the largest gap per rule, and the rejected trials,
 mid-range accepts and second growths it checked, or what it did not
-reach).
+reach); (e) "numerics" (``numerics_gate``), on the same observed run,
+whose states are observed too (one replay and one read per iteration):
+every accepted step, recovered from the states before and after it,
+held to the damped normal equations at the state before it (the
+Jacobian and residuals the run computes there, summed in float64; on
+df32 the float32 chain) by its Jacobi-scaled backward error eta, less
+the allowance for the recovery's rounding, and the accepted energy
+against the float64 energy of the state after it (the line's
+``numerics``: its seconds, the accepted iterations checked and the loose
+ones among them, whose steps lie under the states' rounding and are not
+held to the bound, the largest of each measure with its iteration,
+lambda and rho, and the first iteration over a bound).
 
 Output: one JSON line before the runs (the card, the problem, the config),
 one per warm-up, one per timed run and one per workload (it/s median, min
@@ -97,18 +109,29 @@ the df32 geometry itself is held only by (b), against its plain chain.
 (d3) holds the LM's scalar rules on every iteration of the timed graph,
 but not the numbers they act on: a step, rho's denominator or an energy
 computed wrongly but consistently passes it, and so does lambda's first
-value (the rule's, from the Schur context). Those stay with (b), (d1)
-and (d2). It sees a fault only where the run reaches it: a fault in the
+value (the rule's, from the Schur context). The step and the energy
+are (e)'s; rho's denominator and lambda's first value stay with (b), (d1)
+and (d2). (d3) sees a fault only where the run reaches it: a fault in the
 factor's middle range only where an accept has rho below RHO_CLAMP, in
 the growth only where a trial takes a second growth factor (the line's
 ``unreached`` names what a run missed). An accepted iteration's lambda
 folds in the growth of its rejected trials, so a wrong growth there is
-named ``accept``.
+named ``accept``. (e) holds each accepted step and energy on every
+iteration, but not a rejected trial's step (it leaves no state), nor a
+flatline stop's last step (discarded), nor a loose iteration's step (at
+a lambda where the step lies under the states' rounding, the line's
+``loose``), and the step only against faults above the float32 solve's
+own error at df32: eta is dominated there by the long steps of points
+seen at a narrow angle and of BA's weak directions, so a step fault
+must reach STEP_FAULT_DF32 (the reduced right-hand side scaled by 1 +
+STEP_FAULT_DF32) to fail (e) at p257 df32, where 1 + STEP_FAULT fails it in float64
+(PERF.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -116,6 +139,7 @@ import os
 import statistics
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -125,7 +149,8 @@ sys.path.insert(0, HERE)
 import flatline_campaign as campaign  # noqa: E402
 import oracle_prefix  # noqa: E402
 from bundleadjustment_benchmarks_tpu_torch import resolve_device  # noqa: E402
-from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain  # noqa: E402
+from bundleadjustment_benchmarks_tpu_torch.models import problem as problem_mod  # noqa: E402
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian, projection  # noqa: E402
 from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur  # noqa: E402
 
 PROBLEM = "p257"
@@ -134,9 +159,8 @@ MAX_ITER = 100
 REPEATS = 5
 #: Fewest timed runs of a workload on the card: one call varies 1.4-2x.
 CARD_REPEATS = 3
-#: Gate (b): iterations of the kernel and plain prefixes, and their largest
-#: relative energy gap (chip_smoke.py's bound at p16).
-PREFIX_ITERS = 10
+#: Gate (b): the largest relative energy gap of the kernel and plain runs
+#: at any iteration (chip_smoke.py's bound at p16).
 KERNELS_RTOL = 1e-9
 #: Stops of a descending run: the reference's two successes, and the
 #: iteration budget, where bench.py's own p21 headline stops (p21
@@ -172,6 +196,25 @@ CONTROL_F_RTOL = 1e-12
 #: rho up, and above it below: an accept with a smaller rho checks the
 #: factor's middle range.
 RHO_CLAMP = (1.0 + (2.0 / 3.0) ** (1.0 / 3.0)) / 2.0
+#: Gate (e), "numerics" (``numerics_gate``), per geometry: the largest
+#: backward error eta of an accepted step above the allowance for its
+#: recovery from two states (eta's excess), and the largest relative gap
+#: between an accepted trial's energy and the float64 energy of the state
+#: it left. Read by ``numerics_probe.py`` on an H100 ("NVIDIA H100 80GB
+#: HBM3, 700.00 W"). Float64 (p16, five modes): eta's excess <= -7.5e-14
+#: (eta <= 4.4e-10 where the iteration is held), energy gap 0;
+#: ``step-scaled`` (1 + STEP_FAULT) 1.57e-7 at p16 cholesky's iteration
+#: 1, 1.07e-6 at most. df32: eta's excess <= 2.46e-6 on the default
+#: workloads (p257 qrchol; cholesky 4.26e-7, Ladybug 9.64e-7) and 1.59e-5
+#: in any mode measured (Ladybug qrchol); ``step-scaled`` at p257
+#: cholesky 1.36e-5 at 1 + 0.1 (under the bound), 7.48e-4 at 1 +
+#: STEP_FAULT_DF32, 9.94e-2 at 1 + 1.0. The df32 energy gap <= 2.68e-5
+#: (p257 qrchol) and 5.22e-5 under the planted inverted factor;
+#: ``energy-scaled`` reads ENERGY_FAULT.
+NUMERICS_BOUNDS = {
+    "f64": {"eta": 1e-8, "energy_gap": 1e-13},
+    "df32": {"eta": 5e-5, "energy_gap": 1e-3},
+}
 
 
 def emit(obj) -> None:
@@ -217,39 +260,69 @@ def timed_run(problem, mode: str, cfg: lm.LMConfig, dev: torch.device) -> tuple:
     }, res.state
 
 
+def records_parting(kern: list, plain: list) -> dict:
+    """Two runs' iteration records compared from the first: bitwise_to
+    (the last iteration up to which they are equal bit for bit),
+    within_to (the last up to which every iteration takes the same trials
+    and accept with energy_out within KERNELS_RTOL) and parted (the first
+    iteration past within_to with both runs' records there, a record None
+    where that run had ended; None where they stay within to the end of
+    both)."""
+    bitwise = within = 0
+    for k, (a, b) in enumerate(zip(kern, plain), 1):
+        if a == b and bitwise == k - 1:
+            bitwise = k
+        if (a.n_trials, a.accepted) != (b.n_trials, b.accepted) or not _rel(
+                a.energy_out, b.energy_out) <= KERNELS_RTOL:
+            break
+        within = k
+    parted = None
+    if within < max(len(kern), len(plain)):
+        parted = {"iteration": within + 1, "records": [
+            r[within] if within < len(r) else None for r in (kern, plain)]}
+    return {"bitwise_to": bitwise, "within_to": within, "parted": parted}
+
+
 def kernels_vs_plain(problem, modes, cfg: lm.LMConfig, dev: torch.device) -> dict:
     """Gate (b) for each of ``modes`` ({mode: record}; None off CUDA or off
-    df32). First each mode's PREFIX_ITERS-iteration prefix on ``cfg`` with
-    the kernels: the graph cache's key leaves out the limits
-    (``lm._graph_key``), so it replays the timed graph itself, which it
-    must (``captured`` false) with both chain kernels launched. Then those
-    graphs are freed and each mode's prefix with the plain chain captures
-    its own, freed after it: a Ladybug pool holds 11.62 GB, and no more
-    than the timed pools are ever resident."""
+    df32): the whole workload run with its iteration records, first with
+    the chain kernels: the graph cache's key leaves out the limits and the
+    observers (``lm._graph_key``), so it replays the timed graph itself,
+    which it must (``captured`` false) with both chain kernels launched.
+    Then those graphs are freed and each mode's run with the chain's plain
+    versions captures its own, freed after it: a Ladybug pool holds
+    11.62 GB, and no more than the timed pools are ever resident. Every
+    iteration of the two must take the same trials and accept, with
+    energies within KERNELS_RTOL (``records_parting``): measured on an
+    H100 they stay so to the stop at p257 cholesky and qrchol and on the
+    Ladybug stand-in, within 5.5e-15 and not bit for bit (PERF.md)."""
     if cfg.geometry != "df32" or dev.type != "cuda":
         return {mode: None for mode in modes}
-    prefix = dataclasses.replace(cfg, max_iter=PREFIX_ITERS)
     kern = {}
     for mode in modes:
         cuda_chain.reset_launches()
-        res = lm.minimize(problem, mode, prefix, device=dev)
-        kern[mode] = (res, lm.LAST_JIT_RUN["captured"], dict(cuda_chain.LAUNCHES))
+        records = []
+        res = lm.minimize(problem, mode, cfg, device=dev, records=records)
+        kern[mode] = (res, records, lm.LAST_JIT_RUN["captured"],
+                      dict(cuda_chain.LAUNCHES))
     lm.clear_graphs()
     gates = {}
     for mode in modes:
-        plain = lm.minimize(problem, mode, dataclasses.replace(prefix, kernels=False),
-                            device=dev)
+        records = []
+        plain = lm.minimize(problem, mode, dataclasses.replace(cfg, kernels=False),
+                            device=dev, records=records)
         lm.clear_graphs()
-        k, captured, launches = kern[mode]
-        gap = abs(k.energy - plain.energy) / abs(plain.energy)
+        k, k_records, captured, launches = kern[mode]
+        gap = _rel(k.energy, plain.energy)
+        parting = records_parting(k_records, records)
         gates[mode] = {
             "iterations": [k.iterations, plain.iterations],
             "fun_evals": [k.fun_evals, plain.fun_evals],
-            "energy": [k.energy, plain.energy], "rel_gap": gap,
+            "energy": [k.energy, plain.energy], "rel_gap": gap, **parting,
             "kernels_captured": captured, "kernels_launches": launches,
             "ok": (k.iterations, k.fun_evals) == (plain.iterations, plain.fun_evals)
-            and gap <= KERNELS_RTOL and captured is False
-            and min(launches.values()) > 0}
+            and gap <= KERNELS_RTOL and parting["parted"] is None
+            and captured is False and min(launches.values()) > 0}
     return gates
 
 
@@ -502,22 +575,35 @@ def control_gate(records, cfg: lm.LMConfig, endpoint: dict) -> dict:
             "second_growths": regrown, "unreached": unreached, "gaps": gaps}
 
 
+def start_state(problem, cfg: lm.LMConfig):
+    """The float64 BAState a run of ``cfg`` starts from: the problem's
+    state as the loop holds it (on df32, its points as DF pairs)."""
+    if cfg.geometry == "df32":
+        return problem_mod.from_fast(problem_mod.to_fast(problem.state),
+                                     dtype=torch.float64)
+    return lm._float64_state(problem.state)
+
+
 def control_run(problem, mode: str, cfg: lm.LMConfig, dev: torch.device,
-                warm: dict) -> dict:
-    """Gate (d3) of one workload: one more run of ``cfg`` on the timed
-    graph (the graph cache's key leaves out ``chunked``, ``lm._graph_key``)
-    with its iteration records observed, which routes it in chunks (a
-    replay and a read per chunk). Untimed. Its record: seconds, captured
-    (must be false), chunked, replays, reads, same_endpoint (status,
-    iterations, evaluations, energy and lambda equal the warm-up's ``warm``
-    bit for bit, tying the records to the route that was timed),
-    ``control_gate``'s keys with its ``ok`` as ``rules``, and ok."""
-    records = []
+                warm: dict) -> tuple:
+    """Gates (d3) and (e) of one workload: one more run of ``cfg`` on the
+    timed graph (the graph cache's key leaves out ``chunked``,
+    ``lm._graph_key``) with its states observed, each with its iteration
+    record, which routes it in chunks of one iteration (a replay and a
+    read per iteration). Untimed. Returns (control, ``numerics_gate``'s
+    record). Control: seconds, captured (must be false), chunked, replays,
+    reads, same_endpoint (status, iterations, evaluations, energy and
+    lambda equal the warm-up's ``warm`` bit for bit, tying the records and
+    states to the route that was timed), ``control_gate``'s keys with its
+    ``ok`` as ``rules``, and ok."""
+    states = []
     campaign._sync(dev)
     t0 = time.perf_counter()
-    res = lm.minimize(problem, mode, cfg, device=dev, records=records)
+    res = lm.minimize(problem, mode, cfg, device=dev,
+                      states=lambda *s: states.append(s))
     campaign._sync(dev)
     seconds = time.perf_counter() - t0
+    records = [record for _, _, record in states]
     jit = lm.LAST_JIT_RUN
     endpoint = {"status": lm.STATUS_STRINGS[res.status],
                 "iterations": res.iterations, "fun_evals": res.fun_evals,
@@ -528,18 +614,276 @@ def control_run(problem, mode: str, cfg: lm.LMConfig, dev: torch.device,
            **{k: jit.get(k) for k in ("captured", "chunked", "replays", "reads")},
            "same_endpoint": same, "rules": check.pop("ok"), **check}
     out["ok"] = out["rules"] and same and out["captured"] is False
+    problem = problem.to(dev)
+    numerics = numerics_gate(problem, start_state(problem, cfg), states, cfg,
+                             endpoint["status"])
+    return out, numerics
+
+
+#: Bounds on the error of a step recovered from two states, relative to
+#: the sum of their magnitudes: the update's rounding and the recovery's
+#: (float64 cameras: T, K00, k1, k2 added once, subtracted once; float64
+#: points; df32 points, DF + float32, to about 2^-48 of the point), and
+#: for a rotation (multiplied, multiplied by the transpose, its logarithm
+#: taken; entries at most 1) absolute.
+RECOVERY_ERR = {"cameras": 4 * 2.0 ** -53, "rotation": 16 * 2.0 ** -53,
+                "points": {"f64": 4 * 2.0 ** -53, "df32": 4 * 2.0 ** -48}}
+
+
+def log_rotation(R: torch.Tensor) -> torch.Tensor:
+    """The axis-angle vector of rotations R (..., 3, 3), accurate near the
+    identity: sin(t) a = vee(R - R^T) / 2, cos(t) = (tr R - 1) / 2, t by
+    atan2. ``rodrigues.log_rodrigues`` goes through the quaternion, whose
+    components are square roots of differences of order t^2: near the
+    identity it keeps about half of float64's digits of t."""
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1) / 2
+    s = torch.linalg.vector_norm(v, dim=-1)
+    c = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2] - 1) / 2
+    safe = torch.where(s > 0, s, torch.ones_like(s))
+    scale = torch.where(s > 0, torch.atan2(s, c) / safe, torch.ones_like(s))
+    return v * scale[..., None]
+
+
+def recover_step(prev, cur) -> tuple:
+    """(dx_points (M, 3), dx_cams (N, 9)) that took float64 BAState ``prev``
+    to ``cur``: the camera update of ``models/problem.py`` inverted (T +=
+    dT, R <- exp([dw]_x) R, K00 += df, k1, k2 += d), in its column order
+    [dT, dw, df, dk1, dk2], and the points' difference."""
+    dw = log_rotation(cur.R @ prev.R.transpose(-1, -2))
+    dxc = torch.cat([cur.T - prev.T, dw, (cur.K[:, 0, 0] - prev.K[:, 0, 0])[:, None],
+                     (cur.k1 - prev.k1)[:, None], (cur.k2 - prev.k2)[:, None]], dim=1)
+    return cur.points - prev.points, dxc
+
+
+def recovery_err(prev, cur, geometry: str) -> tuple:
+    """Componentwise bounds (points (M, 3), cameras (N, 9)) on the error of
+    ``recover_step``'s step from float64 BAState ``prev`` to ``cur``
+    (``RECOVERY_ERR``, relative to |prev| + |cur|; the rotation's
+    absolute)."""
+    e = RECOVERY_ERR
+
+    def cams(x):
+        return torch.cat([x.T.abs(), torch.zeros_like(x.T), x.K[:, 0, 0].abs()[:, None],
+                          x.k1.abs()[:, None], x.k2.abs()[:, None]], dim=1)
+
+    scale = cur.T.new_tensor([e["cameras"]] * 3 + [0.0] * 3 + [e["cameras"]] * 3)
+    rotation = cur.T.new_tensor([0.0] * 3 + [e["rotation"]] * 3 + [0.0] * 3)
+    return ((prev.points.abs() + cur.points.abs()) * e["points"][geometry],
+            (cams(prev) + cams(cur)) * scale + rotation)
+
+
+def _norm(*ts) -> torch.Tensor:
+    return torch.sqrt(sum(torch.linalg.vector_norm(t) ** 2 for t in ts))
+
+
+def block_products(problem, n: int, m: int) -> tuple:
+    """(jt, jtj) through ``problem``'s observations, for per-observation
+    blocks Bc (K, 2, 9) and Bp (K, 2, 3): jt(Bc, Bp, v) = B^T v, per camera
+    (N, 9) and per point (M, 3), of v (K, 2); jtj(Bc, Bp, xc, xp) = B^T B x
+    of x = (xc (N, 9), xp (M, 3))."""
+    cam, pt = problem.obs.cam_idx.long(), problem.obs.pt_idx.long()
+
+    def jt(Bc, Bp, v):
+        return (v.new_zeros((n, 9)).index_add_(0, cam, torch.einsum("kri,kr->ki", Bc, v)),
+                v.new_zeros((m, 3)).index_add_(0, pt, torch.einsum("kri,kr->ki", Bp, v)))
+
+    def jtj(Bc, Bp, xc, xp):
+        return jt(Bc, Bp, torch.einsum("kri,ki->kr", Bc, xc[cam])
+                  + torch.einsum("kri,ki->kr", Bp, xp[pt]))
+
+    return jt, jtj
+
+
+def step_residual(problem, blocks, dxp, dxc, lam: float, err=None) -> dict:
+    """How well the step (dxp, dxc) solves the damped normal equations
+    H dx = -g, H = J^T J + lam I, g = J^T f, of ``blocks`` (J's 2 x 9 and
+    2 x 3 blocks and f, a ``jacobian.JacobianBlocks``), in float64 through
+    the blocks and index sums: no matrix is formed but the diagonal blocks
+    U + lam I (9 x 9) and V + lam I (3 x 3). With r = H dx + g, D =
+    diag(H), S = D^-1/2 H D^-1/2 and y = D^1/2 dx:
+
+    - eta = ||D^-1/2 r|| / (||S|| ||y|| + ||D^-1/2 g||), the backward
+      error of the Jacobi-scaled system; ||S|| is bounded above by its
+      largest absolute row sum (S is symmetric, so its 2-norm is at most
+      that; an off-diagonal block's entries are summed in absolute value
+      per observation, which bounds a sum over repeated pairs too);
+    - allowance: the most that an error e of the step, bounded
+      componentwise by ``err`` = (points (M, 3), cameras (N, 9)), can add
+      to eta: ||D^-1/2 (|J|^T |J| e + lam e)|| over eta's denominator
+      (|J|^T |J| e + lam e bounds |H e| row by row); 0 without ``err``.
+
+    One host read."""
+    cam, pt = problem.obs.cam_idx.long(), problem.obs.pt_idx.long()
+    n, m = dxc.shape[0], dxp.shape[0]
+    Jc, Jp, f = (t.to(torch.float64) for t in blocks)
+    jt, jtj = block_products(problem, n, m)
+    gc, gp = jt(Jc, Jp, f)
+    hc, hp = jtj(Jc, Jp, dxc, dxp)
+    rc, rp = hc + lam * dxc + gc, hp + lam * dxp + gp
+    U = torch.zeros((n, 81), dtype=Jc.dtype, device=Jc.device).index_add_(
+        0, cam, torch.einsum("kri,krj->kij", Jc, Jc).reshape(-1, 81)).view(n, 9, 9)
+    V = torch.zeros((m, 9), dtype=Jc.dtype, device=Jc.device).index_add_(
+        0, pt, torch.einsum("kri,krj->kij", Jp, Jp).reshape(-1, 9)).view(m, 3, 3)
+    U = U + lam * torch.eye(9, dtype=U.dtype, device=U.device)
+    V = V + lam * torch.eye(3, dtype=V.dtype, device=V.device)
+    sc = torch.rsqrt(U.diagonal(dim1=-2, dim2=-1))
+    sp = torch.rsqrt(V.diagonal(dim1=-2, dim2=-1))
+    Ws = torch.einsum("kri,krj->kij", Jc, Jp).abs() * sc[cam][:, :, None] * sp[pt][:, None, :]
+    norm_s = torch.maximum(
+        ((U.abs() * sc[:, None, :]).sum(-1) * sc
+         + Ws.new_zeros((n, 9)).index_add_(0, cam, Ws.sum(-1))).max(),
+        ((V.abs() * sp[:, None, :]).sum(-1) * sp
+         + Ws.new_zeros((m, 3)).index_add_(0, pt, Ws.sum(-2))).max())
+    den = norm_s * _norm(dxc / sc, dxp / sp) + _norm(gc * sc, gp * sp)
+    if err is None:
+        allowance = den.new_zeros(())
+    else:
+        ec, ep = jtj(Jc.abs(), Jp.abs(), err[1], err[0])
+        allowance = _norm((ec + lam * err[1]) * sc, (ep + lam * err[0]) * sp) / den
+    eta, allowance = torch.stack([_norm(rc * sc, rp * sp) / den, allowance]).tolist()
+    return {"eta": eta, "allowance": allowance}
+
+
+def _trial_lambda(record, cfg: lm.LMConfig) -> float:
+    """The lambda an iteration's last trial solved at: lam0 grown by
+    lambda_increase_base, nu <- nu^1.5, once per rejected trial before it;
+    on df32 rounded to float32, as the df32 trial rounds it."""
+    lam, nu = record.lam0, float(cfg.lambda_increase_base)
+    for _ in range(int(record.n_trials) - 1):
+        lam *= nu
+        nu = _grown(nu)
+    if cfg.geometry == "df32":
+        lam = float(torch.tensor(lam, dtype=torch.float32))
+    return lam
+
+
+def run_blocks(problem, state, geometry: str):
+    """The Jacobian blocks and residuals that a run of ``geometry``
+    computes at float64 BAState ``state``: the float64 chain, or on df32
+    the plain df32 chain (the kernels' plain version, equal to them bit
+    for bit) on the state's DF split."""
+    if geometry == "df32":
+        return jacobian.residuals_and_jacobian_fast(
+            problem_mod.to_fast(state), problem.obs, problem.tau2)
+    return jacobian.residuals_and_jacobian(state, problem.obs, problem.tau2)
+
+
+def numerics_gate(problem, x0, states, cfg: lm.LMConfig, status: str) -> dict:
+    """Gate (e), "numerics": each accepted iteration of a run, from the
+    loop states that ``lm.minimize(..., states=...)`` handed over (a list
+    of (iteration, float64 BAState after it, its ``IterRecord``)) and the
+    float64 state ``x0`` the run started from (``start_state``):
+
+    - (e1) the step it applied, recovered from the states before and after
+      it (``recover_step``), with a bound on the recovery's own rounding
+      (``recovery_err``);
+    - (e2) that step held to the damped normal equations at the state
+      before it, at the lambda its accepted trial solved at
+      (``_trial_lambda``), of the Jacobian and residuals the run itself
+      computes there (``run_blocks``: on df32 the float32 chain), summed
+      in float64: ``step_residual``'s eta less the allowance for the
+      recovery's rounding (eta's excess) within NUMERICS_BOUNDS. An
+      iteration whose allowance alone exceeds the bound is loose: its step
+      lies under the states' rounding, so it is held only to that
+      rounding, not to the bound, and counts as unchecked;
+    - (e3) the accepted trial's energy (``energy_out``, summed by the
+      run's own chain) against the float64 energy of the state after it
+      (``projection.energy``), relative, within the bound energy_gap.
+
+    Rejected trials leave no state and are not checked, and neither is a
+    run's final accept where the flatline test discards its step
+    (``discard_final_step``: the state does not move). The checker runs
+    none of the solve's code (no ``schur``, no camera update): only the
+    port's chains and energy.
+
+    Returns {seconds, checked (accepted iterations checked), discarded,
+    loose (of those checked, the iterations held only to the recovery's
+    rounding), eta (eta's excess), allowance and energy_gap (each {max,
+    iteration, lam, rho}: the largest over the run; eta's with eta and
+    the allowance there), bounds, over (the first iteration over a bound:
+    {iteration, what, value, bound}, or None), ok}; with error (and ok
+    false) where the check cannot run, or where no iteration was
+    checked."""
+    t0 = time.perf_counter()
+    geometry = cfg.geometry or "f64"
+    bounds = NUMERICS_BOUNDS[geometry]
+    names = ("eta", "allowance", "energy_gap")
+    out = {"checked": 0, "discarded": 0, "loose": 0, "bounds": bounds, "over": None,
+           **{k: {"max": 0.0, "iteration": None} for k in names}}
+    discard = (status == lm.STATUS_STRINGS[lm.LMStatus.Success]
+               and cfg.discard_final_step)
+    try:
+        prev = x0
+        for i, (it, state, record) in enumerate(states):
+            if not record.accepted:
+                continue
+            if discard and i == len(states) - 1:
+                out["discarded"] += 1
+                continue
+            lam = _trial_lambda(record, cfg)
+            dxp, dxc = recover_step(prev, state)
+            res = step_residual(problem, run_blocks(problem, prev, geometry), dxp, dxc,
+                                lam, recovery_err(prev, state, geometry))
+            read = {"eta": res["eta"] - res["allowance"], "allowance": res["allowance"],
+                    "energy_gap": _rel(record.energy_out, float(
+                        projection.energy(state, problem.obs, problem.tau2)))}
+            out["checked"] += 1
+            out["loose"] += res["allowance"] > bounds["eta"]
+            for k in names:
+                if not read[k] <= out[k]["max"] or out[k]["iteration"] is None:
+                    out[k] = {"max": read[k], "iteration": it, "lam": lam,
+                              "rho": record.rho}
+                    if k == "eta":
+                        out[k].update(res)
+            for k, bound in bounds.items():
+                if out["over"] is None and not read[k] <= bound:
+                    out["over"] = {"iteration": it, "what": k, "value": read[k],
+                                   "bound": bound}
+            prev = state
+        if not out["checked"]:
+            out["error"] = "no accepted iteration to check"
+    except Exception as e:  # the gate fails, with its reason on the line
+        out["error"] = f"{type(e).__name__}: {e}"
+    out["seconds"] = time.perf_counter() - t0
+    out["ok"] = out["over"] is None and "error" not in out
     return out
 
 
-def planted_faults() -> dict:
-    """Faults of the LM rules that gate (d3) must catch, each a replacement
-    for one function of ``lm`` that both drives call: {name: (attribute,
-    replacement, the ``control_gate`` count that says a run reaches it)}.
-    Nielsen's middle range made linear, max(1/3, 1 - (2 rho - 1)), is
-    wrong at rho below 5/6 but 1/2; the growth nu <- nu^2 from a second
-    growth on; the factor inverted (lambda x 3 on a good step) at every
-    accept. On CUDA the graph that a run replays must be captured under
-    the fault (``lm.clear_graphs()`` first)."""
+#: The planted faults of gate (e): the factor on the reduced camera
+#: system's right-hand side (``step-scaled``), in float64 and at df32,
+#: where the smallest scaling of those measured at p257 cholesky (1e-3,
+#: 3e-3, 1e-2, 0.1, 0.3, 1, 3) that fails (e) is 0.3 (NUMERICS_BOUNDS),
+#: and on both chain entry points' energies (``energy-scaled``: 19x the
+#: largest clean df32 gap measured, 10x the df32 bound).
+STEP_FAULT = 1e-3
+STEP_FAULT_DF32 = 0.3
+ENERGY_FAULT = 1e-2
+
+
+class Fault(NamedTuple):
+    """A planted fault: the gate that must catch it, the patches that plant
+    it ((module, attribute, replacement), ...), and the count in that
+    gate's record that says a run reached it."""
+
+    gate: str
+    patches: tuple
+    reach: str
+
+
+def planted_faults(step: float = STEP_FAULT) -> dict:
+    """Faults that the gates must catch, {name: Fault}. Gate (d3)'s, in the
+    LM rules, each a replacement for one function of ``lm`` that both
+    drives call: Nielsen's middle range made linear, max(1/3, 1 - (2 rho -
+    1)), wrong at rho below 5/6 but 1/2; the growth nu <- nu^2 from a
+    second growth on; the factor inverted (lambda x 3 on a good step) at
+    every accept. Gate (e)'s move only the numbers, so that (d3) passes:
+    the reduced camera system's right-hand side scaled by 1 + ``step`` in
+    ``schur.assemble_reduced`` (the camera solver "chol": cholesky,
+    qrchol, moreqr), and both chain entry points' energies, kernel and
+    plain, scaled by 1 + ENERGY_FAULT (df32). On CUDA the graph that a run
+    replays must be captured under the fault (``lm.clear_graphs()``
+    first)."""
     nielsen = lm._nielsen
 
     def linear(rho):
@@ -557,9 +901,45 @@ def planted_faults() -> dict:
                 table.append(math.inf)
         return table
 
-    return {"middle-range": ("_nielsen", linear, "mid_accepts"),
-            "growth-squared": ("growth_table", squared, "second_growths"),
-            "inverted": ("_nielsen", lambda rho: 1.0 / nielsen(rho), "accepts")}
+    assemble = schur.assemble_reduced
+
+    def scaled_rhs(*args):
+        S, b = assemble(*args)
+        return S, b * (1.0 + step)
+
+    def scaled_energy(fn, blocks: bool):
+        def scaled(*args, **kw):
+            out = fn(*args, **kw)
+            if blocks:
+                return out[0], out[1] * (1.0 + ENERGY_FAULT)
+            return out * (1.0 + ENERGY_FAULT)
+        return scaled
+
+    energies = tuple(
+        (cuda_chain, name, scaled_energy(getattr(cuda_chain, name), "blocks" in name))
+        for name in ("fused_blocks_energy", "fused_energy",
+                     "fused_blocks_energy_plain", "fused_energy_plain"))
+    return {"middle-range": Fault("control", ((lm, "_nielsen", linear),), "mid_accepts"),
+            "growth-squared": Fault("control", ((lm, "growth_table", squared),),
+                                    "second_growths"),
+            "inverted": Fault("control", ((lm, "_nielsen", lambda rho: 1.0 / nielsen(rho)),),
+                              "accepts"),
+            "step-scaled": Fault("numerics", ((schur, "assemble_reduced", scaled_rhs),),
+                                 "checked"),
+            "energy-scaled": Fault("numerics", energies, "checked")}
+
+
+@contextlib.contextmanager
+def planted(fault: Fault):
+    """Plant ``fault``'s patches for the block, and take them out after."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in fault.patches]
+    try:
+        for mod, name, replacement in fault.patches:
+            setattr(mod, name, replacement)
+        yield
+    finally:
+        for mod, name, original in saved:
+            setattr(mod, name, original)
 
 
 def _same(a: dict, b: dict) -> bool:
@@ -568,7 +948,7 @@ def _same(a: dict, b: dict) -> bool:
 
 def workload(name: str, mode: str, cfg: lm.LMConfig, warm: dict, runs: list,
              e0: float, reserved, kernels, reference: dict,
-             control: dict) -> dict:
+             control: dict, numerics: dict) -> dict:
     """A workload's record: its rate over the timed runs and its gates."""
     rates = [r["it_per_s"] for r in runs]
     gates = {
@@ -580,6 +960,7 @@ def workload(name: str, mode: str, cfg: lm.LMConfig, warm: dict, runs: list,
                        for r in [warm] + runs),
         "reference": reference["within"],
         "control": control["ok"],
+        "numerics": numerics["ok"],
     }
     peaks = [r["peak_bytes"] for r in runs if r["peak_bytes"] is not None]
     return {
@@ -597,9 +978,11 @@ def workload(name: str, mode: str, cfg: lm.LMConfig, warm: dict, runs: list,
         "launches": [r["launches"] for r in runs],
         "peak_bytes": max(peaks) if peaks else None, "reserved_bytes": reserved,
         "gates": gates, "reference": reference, "control": control,
+        "numerics": numerics,
         "correct": (gates["replay"] and gates["no_capture_in_window"]
                     and gates["descent"] and (kernels is None or kernels["ok"])
-                    and gates["reference"] and gates["control"]),
+                    and gates["reference"] and gates["control"]
+                    and gates["numerics"]),
         "runs": runs,
     }
 
@@ -635,8 +1018,10 @@ def run_workloads(problem, name: str, modes, cfg: lm.LMConfig, repeats: int,
             out({"bench": "run", "problem": name, "round": round_,
                  **runs[mode][-1]})
     reserved = torch.cuda.memory_reserved(dev) if cuda else None
-    control = {mode: control_run(problem, mode, cfg, dev, warm[mode])
-               for mode in modes}
+    control, numerics = {}, {}
+    for mode in modes:
+        control[mode], numerics[mode] = control_run(problem, mode, cfg, dev,
+                                                    warm[mode])
     kernels = kernels_vs_plain(problem, modes, cfg, dev)
     geometry = cfg.geometry or "f64"
     reference = {mode: reference_gate(problem, name, mode, geometry, warm[mode],
@@ -645,7 +1030,7 @@ def run_workloads(problem, name: str, modes, cfg: lm.LMConfig, repeats: int,
     for mode in modes:
         records.append(workload(name, mode, cfg, warm[mode], runs[mode], e0,
                                 reserved, kernels[mode], reference[mode],
-                                control[mode]))
+                                control[mode], numerics[mode]))
         out({k: v for k, v in records[-1].items() if k != "runs"})
     return records
 

@@ -332,7 +332,10 @@ class RunLog:
     appended to ``trace`` (iter, energy: the accepted energy, lam: the
     lambda after the update, and phase when set), and one ``IterRecord``
     per iteration appended to ``records``, from the run's first iteration
-    on (a two-phase run appends both phases'). ``to_state`` maps the
+    on (a two-phase run appends both phases'), and ``states``, a callable,
+    called after every iteration with the iteration's number, a copy of
+    the loop state after it as a float64 BAState (``_float64_state``) and
+    its ``IterRecord``. ``to_state`` maps the
     loop state to the BAState a checkpoint holds. ``write=False`` (a
     sharded run's ranks other than 0) prints and writes nothing but still
     calls ``to_state`` where a checkpoint falls due, since on a shard that
@@ -350,7 +353,7 @@ class RunLog:
                  checkpoint_every: int = 0, to_state=None,
                  write: bool = True, trace: Optional[list] = None,
                  capture_s: Optional[float] = None,
-                 records: Optional[list] = None):
+                 records: Optional[list] = None, states=None):
         self.verbose = verbose and write
         self.metrics_path = metrics_path if write else None
         self.phase = phase
@@ -360,6 +363,7 @@ class RunLog:
         self.write = write
         self.trace = trace
         self.records = records
+        self.states = states
         self.capture_s = capture_s
         self._metrics = None
 
@@ -417,6 +421,11 @@ class RunLog:
         if self.records is not None:
             self.records.append(record)
 
+    def observed(self, it: int, x, record: "IterRecord") -> None:
+        """Hand ``states`` the loop state ``x`` after iteration ``it``."""
+        if self.states is not None:
+            self.states(it, _float64_state(x), record)
+
     def save(self, x, lam: float, it: int, fun_evals: int, hist) -> None:
         """Checkpoint ``x`` (the loop state) with the LM scalars."""
         from bundleadjustment_benchmarks_tpu_torch.utils import checkpoint
@@ -467,7 +476,8 @@ def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
     and the first-iteration lambda rule is skipped. ``run_log`` gets every
     trial's row (Elapsed: the host clock after the trial's one host read,
     from the start of the iteration or of the previous rejected trial),
-    every iteration's ``IterRecord`` and every accepted state. Lambda
+    every iteration's ``IterRecord``, every accepted state and the state
+    after every iteration (``RunLog.observed``). Lambda
     grows by ``growth_table``'s factors, as on the jit drive.
 
     Returns (x, status, iterations, fun_evals, energy, lam) with the
@@ -514,8 +524,8 @@ def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
                 lam = max(lam * _nielsen(rho), config.lambda_min)
                 if run_log:
                     run_log.trial(it, "Accepted", energy, rho, lam, elapsed)
-                    run_log.iteration(IterRecord(energy, rho, lam0, lam, trials,
-                                                 True, e_t))
+                    record = IterRecord(energy, rho, lam0, lam, trials, True, e_t)
+                    run_log.iteration(record)
                 energy = e_t
                 hist[it % size] = energy
                 break
@@ -528,21 +538,25 @@ def lm_loop(x0, prepare, trial, config: LMConfig, resume=None,
                     # The jit drive's rho of the last trial: IEEE division.
                     rho = (torch.tensor(energy - e_t, dtype=torch.float64)
                            / rho_scale).item()
-                    run_log.iteration(IterRecord(energy, rho, lam0, lam, trials,
-                                                 False, energy))
+                    record = IterRecord(energy, rho, lam0, lam, trials, False,
+                                        energy)
+                    run_log.iteration(record)
                 break
             lam *= growth[min(trials - 1, _GROWTH - 1)]
             t0 = time.perf_counter()
+        if status == LMStatus.Running:
+            if run_log:
+                run_log.accepted(it, x_t, lam, fun_evals, hist)
+            if it > size and abs(energy - max(hist)) < config.tol_fun * energy:
+                status = LMStatus.Success
+                if not config.discard_final_step:
+                    x = x_t
+            else:
+                x = x_t
+        if run_log:
+            run_log.observed(it, x, record)
         if status != LMStatus.Running:
             break
-        if run_log:
-            run_log.accepted(it, x_t, lam, fun_evals, hist)
-        if it > size and abs(energy - max(hist)) < config.tol_fun * energy:
-            status = LMStatus.Success
-            if not config.discard_final_step:
-                x = x_t
-            break
-        x = x_t
     if status == LMStatus.Running:
         it += 1
         status = (LMStatus.MaxItersReached if it > config.max_iter
@@ -594,6 +608,21 @@ def _from_leaves(like, leaves):
         return problem_mod.FastBAState(K=K, R=R, T=T, k1=k1, k2=k2,
                                        points=tf.DF(*pts))
     return problem_mod.BAState(K=K, R=R, T=T, k1=k1, k2=k2, points=pts[0])
+
+
+def _float64_state(x) -> problem_mod.BAState:
+    """A copy of loop state ``x`` as a float64 BAState: a df32 state's
+    points are its DF pairs summed in float64, exactly."""
+    x = _from_leaves(x, [t.clone() for t in _leaves(x)])
+    if isinstance(x, problem_mod.FastBAState):
+        return problem_mod.from_fast(x, dtype=torch.float64)
+    return _from_leaves(x, [t.to(torch.float64) for t in _leaves(x)])
+
+
+def _as_record(row) -> IterRecord:
+    """A row of the device's iteration record as an ``IterRecord``."""
+    f, rho, lam0, lam_out, n_trials, accepted, e_out = row
+    return IterRecord(f, rho, lam0, lam_out, int(n_trials), accepted > 0, e_out)
 
 
 def growth_table(base: float) -> list:
@@ -880,7 +909,8 @@ class DeviceLoop:
         chunked (default: the config the loop was built with; the rest of a
         config is fixed by the capture). It routes as JAX's ``minimize``:
         in chunks of ``chunk_size`` iterations where ``run_log`` observes
-        the run (verbose, metrics, checkpoints, a trace, records), where it
+        the run (verbose, metrics, checkpoints, a trace, records; of one
+        iteration where ``states`` observes it), where it
         resumes or where ``chunked`` is set, else as one chunk of
         ``max_iter``. On a shard ``chunked`` is ignored, as JAX's
         ``minimize_sharded`` has no chunks (``self.chunked`` says which
@@ -899,10 +929,13 @@ class DeviceLoop:
         max_iter = min(cfg.max_iter, 2**31 - 1)
         observe = run_log is not None and bool(
             run_log.verbose or run_log._metrics or run_log.trace is not None
-            or run_log.records is not None or run_log.checkpoint_path)
+            or run_log.records is not None or run_log.checkpoint_path
+            or run_log.states is not None)
         self.chunked = observe or bool(resume) or (
             cfg.chunked and not self.reduce.sharded)
         chunk = self.config.chunk_size if self.chunked else max_iter
+        if observe and run_log.states is not None:
+            chunk = 1
         it = 0
         if resume:
             it = int(resume.get("iteration", 0))
@@ -949,6 +982,8 @@ class DeviceLoop:
                 recs = [vals[len(self.sv) + i * n_rec:len(self.sv) + (i + 1) * n_rec]
                         for i in range(it - start)]
                 self._emit(run_log, start, recs, wall)
+                if recs:
+                    run_log.observed(it, self.x, _as_record(recs[-1]))
             if next_ckpt is not None and it >= next_ckpt:
                 run_log.save(self.x, vals[pos["lam"]], it, fun_evals, hist)
                 next_ckpt = (it // checkpoint_every + 1) * checkpoint_every
@@ -964,13 +999,13 @@ class DeviceLoop:
 
     def _emit(self, run_log: RunLog, start: int, recs, wall: float) -> None:
         per_trial = wall / max(1, int(sum(r[4] for r in recs)))
-        for i, (f, rho, lam0, lam_out, n_trials, accepted, e_out) in enumerate(recs):
+        for i, row in enumerate(recs):
             it = start + i + 1
-            accepted = accepted > 0
-            run_log.iteration(IterRecord(f, rho, lam0, lam_out, int(n_trials),
-                                         accepted, e_out))
+            record = _as_record(row)
+            f, rho, lam0, lam_out, n_trials, accepted, e_out = record
+            run_log.iteration(record)
             lam = lam0
-            for k in range(int(n_trials) - (1 if accepted else 0)):
+            for k in range(n_trials - (1 if accepted else 0)):
                 run_log.trial(it, "Rejected", f, None, lam, per_trial,
                               synthesized=True)
                 lam *= self.table[min(k, _GROWTH - 1)]
@@ -1069,7 +1104,7 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
              metrics_phase: Optional[str] = None,
              reduce: schur.Reduce = schur.LOCAL,
              trace: Optional[list] = None,
-             records: Optional[list] = None) -> LMResult:
+             records: Optional[list] = None, states=None) -> LMResult:
     """Run LM on a BA problem on ``device`` (CUDA unless the caller passes
     one, e.g. ``device="cpu"``; without CUDA and without ``device`` it
     raises). The problem and state are moved there first. ``mode`` is one
@@ -1081,7 +1116,11 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     writes the accepted state every that many iterations; ``metrics_path``
     appends one JSONL record per trial, tagged ``metrics_phase``;
     ``trace``, a list, gets one record per accepted iteration, and
-    ``records``, a list, one ``IterRecord`` per iteration (``RunLog``).
+    ``records``, a list, one ``IterRecord`` per iteration, and ``states``,
+    a callable, (iteration, a float64 copy of the state after it, its
+    ``IterRecord``) after every iteration (``RunLog``; on a shard the
+    rank's points): the port's own observer, for ``bench_torch.py``'s
+    gate (e), with no counterpart in the JAX package.
 
     With ``config.polish_iters`` and a df32 or float32-matmul config, the
     two-phase drive: the fast phase (records tagged "fast") to its own stop
@@ -1104,7 +1143,9 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     package's ``minimize``: a run with ``config.verbose``,
     ``checkpoint_path``, ``metrics_path``, ``resume``, ``trace``,
     ``records`` or ``config.chunked`` runs in chunks of ``chunk_size``
-    iterations, a host read after each (JAX's ``chunked_loop``; checkpoints
+    iterations (of one where ``states`` observes it: the same graph, a
+    replay and a read per iteration), a host read after each (JAX's
+    ``chunked_loop``; checkpoints
     fall at the first chunk end at or past each multiple of
     ``checkpoint_every``, 25 where 0 is given with a path); any other is
     one replay and one read. On a shard
@@ -1127,7 +1168,7 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
         observe = dict(checkpoint_path=checkpoint_path,
                        checkpoint_every=checkpoint_every,
                        metrics_path=metrics_path, reduce=reduce, trace=trace,
-                       records=records)
+                       records=records, states=states)
         fast = minimize(problem, mode, fast_cfg, state=state, device=device,
                         resume=resume, metrics_phase="fast", **observe)
         polish_cfg = dataclasses.replace(
@@ -1168,7 +1209,7 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
                 checkpoint_every, to_checkpoint,
                 write=reduce.rank == 0, trace=trace,
                 capture_s=None if reduce.sharded else capture_s,
-                records=records) as run_log:
+                records=records, states=states) as run_log:
         if loop is None:
             x, status, it, fun_evals, energy, lam = lm_loop(
                 x0, prepare, trial, config, resume=resume, run_log=run_log)

@@ -14,8 +14,9 @@ p16, p126 and p257 (``default_drive``), float64 cholesky on p126 and p257
 against the scipy oracle's logged prefix on both LM drives
 (``oracle_prefix``), ``bench_torch.py``'s default run, bench.py's workload
 on p257 at 3 repeats, gated, each workload held to the JAX package's
-campaign row and the scipy oracle's prefix and every iteration to the LM
-rules (``bench``), faults planted in those rules caught by the last gate
+campaign row and the scipy oracle's prefix, every iteration to the LM
+rules and every accepted step and energy to float64 (``bench``), faults
+planted in those rules and in the numbers caught by those two gates
 (``bench_planted``), then the other four solver modes
 (``modes_df32_p257``, ``modes_f64_p16``), every solve realization against cholesky's step (``modes_agree_p16``),
 qrkit's "rows" and "pair" forms (``qrkit_forms_p257``) and spqr's "gram"
@@ -2004,16 +2005,22 @@ def bench_phase(bench_torch, lm, smi) -> dict:
     p257 df32 cholesky and qrchol to 100 iterations on the jit drive) with
     3 timed runs each, through its ``main``; its lines pass on under the
     phase's name, its last one in ``bench_done``, a ``bench_reference``
-    line per workload gives its reads, replays and gate (d), and a
+    line per workload gives its reads, replays and gate (d), a
     ``bench_control`` line its gate (d3): the observed run's seconds,
     capture, route and endpoint, the iterations checked, the accepts, the
     rejected trials, the mid-range accepts and second growths, what the
-    run did not reach, the first rule broken and the largest gap per rule.
-    Gate: it exits 0 with ``correct`` true (gates (d) and (d3) included)
-    and both p257 fields, no timed run and no observed run captured, every
-    workload's control passed on every iteration, every timed run read and
-    replayed once and launched both chain kernels. Returns each mode's
-    launches in its first timed run."""
+    run did not reach, the first rule broken and the largest gap per rule,
+    and a ``bench_numerics`` line its gate (e) on the same run: the
+    accepted iterations checked and the loose ones (steps under the
+    states' rounding, not held to the bound), the largest eta excess (the
+    step's backward error less its recovery's allowance), allowance and
+    energy gap with its iteration, lambda and rho, the first iteration
+    over a bound and the checker's seconds.
+    Gate: it exits 0 with ``correct`` true (gates (d), (d3) and (e)
+    included) and both p257 fields, no timed run and no observed run
+    captured, every workload's control and numerics passed on every
+    iteration, every timed run read and replayed once and launched both
+    chain kernels. Returns each mode's launches in its first timed run."""
     t_phase = time.perf_counter()
     lines = []
 
@@ -2039,12 +2046,17 @@ def bench_phase(bench_torch, lm, smi) -> dict:
               "nvidia_smi": smi})
         emit({"phase": "bench_control", "mode": w["mode"], **w["control"],
               "nvidia_smi": smi})
+        emit({"phase": "bench_numerics", "mode": w["mode"], **w["numerics"],
+              "nvidia_smi": smi})
         control = w["control"]
         check(control["ok"] and control["captured"] is False
               and control["same_endpoint"],
               f"bench: {w['mode']}'s gate (d3) failed: captured "
               f"{control['captured']}, same endpoint {control['same_endpoint']}, "
               f"first rule broken {control['broken']}")
+        check(w["numerics"]["ok"],
+              f"bench: {w['mode']}'s gate (e) failed: over {w['numerics']['over']}, "
+              f"error {w['numerics'].get('error')}")
     emit({"phase": "bench_done", "rc": rc, "last_line": last, "nvidia_smi": smi,
           "phase_s": time.perf_counter() - t_phase})
     check(rc == 0 and last.get("correct") is True,
@@ -2066,61 +2078,80 @@ def bench_phase(bench_torch, lm, smi) -> dict:
             for m in bench_torch.MODES}
 
 
-def bench_planted_phase(bench_torch, campaign, lm, problem, smi) -> None:
-    """``bench_planted``: gate (d3) against the faults of
+def bench_planted_phase(bench_torch, campaign, lm, problems, smi) -> None:
+    """``bench_planted``: gates (d3) and (e) against the faults of
     ``bench_torch.planted_faults`` on bench.py's p257 df32 cholesky
-    workload (the jit drive, max_iter 100). A run is a warm-up that
+    workload (the jit drive, max_iter 100), and ``step-scaled`` also on
+    p16 float64 cholesky (a default float64 workload of
+    ``bench_torch.py``; ``energy-scaled`` lives in the df32 chain). The
+    step fault's size is the geometry's: ``STEP_FAULT_DF32`` at df32,
+    where a smaller one lies under the float32 solve's own error
+    (PERF.md), ``STEP_FAULT`` in float64. A run is a warm-up that
     captures a fresh graph (the graph cache cleared before and after, so
     that the capture takes the fault) and ``bench_torch.control_run`` on
-    that graph. Gate: the clean run passes control on every iteration;
-    each fault that the clean run reaches (its count in
-    ``planted_faults``) fails control's rules; a fault it does not reach is
-    printed as not reached, and does not pass."""
+    that graph. Gate: the clean runs pass (d3) and (e) on every
+    iteration; each (d3) fault that the clean p257 run reaches (its count
+    in ``planted_faults``) fails (d3)'s rules; each (e) fault passes (d3)
+    and fails (e), at both problems for ``step-scaled``. A fault a clean
+    run does not reach is printed as not reached, and does not pass."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
-    cfg = campaign.drive_config("df32", bench_torch.MAX_ITER)
     faults = bench_torch.planted_faults()
+    cells = {"p257": campaign.drive_config("df32", bench_torch.MAX_ITER),
+             "p16": campaign.drive_config("f64", bench_torch.MAX_ITER)}
 
-    def run(fault):
+    step = {"p257": bench_torch.STEP_FAULT_DF32, "p16": bench_torch.STEP_FAULT}
+
+    def run(name, fault):
         lm.clear_graphs()
-        if fault:
-            attr, replacement, _ = faults[fault]
-            saved = getattr(lm, attr)
-            setattr(lm, attr, replacement)
         try:
-            warm, _ = bench_torch.timed_run(problem, "cholesky", cfg, dev)
-            return warm, bench_torch.control_run(problem, "cholesky", cfg, dev, warm)
+            with (bench_torch.planted(bench_torch.planted_faults(step[name])[fault])
+                  if fault else contextlib.nullcontext()):
+                warm, _ = bench_torch.timed_run(problems[name], "cholesky",
+                                                cells[name], dev)
+                return (warm, *bench_torch.control_run(
+                    problems[name], "cholesky", cells[name], dev, warm))
         finally:
-            if fault:
-                setattr(lm, attr, saved)
             lm.clear_graphs()
 
     keys = ("rules", "broken", "iterations", "accepts", "rejected_trials",
             "mid_accepts", "second_growths", "unreached", "gaps", "seconds",
             "captured", "same_endpoint")
-    warm, clean = run(None)
-    emit({"phase": "bench_planted", "fault": None,
-          **{k: warm[k] for k in ("status", "iterations", "fun_evals", "captured")},
-          "control": {k: clean[k] for k in keys}, "nvidia_smi": smi})
-    check(warm["captured"] and clean["ok"],
-          f"bench_planted: the clean run captured {warm['captured']}, its "
-          f"control broke {clean['broken']}")
-    not_reached = []
-    for fault, (_, _, reach) in faults.items():
-        reached = clean[reach] > 0
-        warm, control = run(fault)
-        emit({"phase": "bench_planted", "fault": fault, "reached": reached,
-              "reached_by": reach, "failed_control": not control["rules"],
+
+    def line(name, fault, warm, control, numerics, **more):
+        emit({"phase": "bench_planted", "problem": name, "fault": fault, **more,
               **{k: warm[k] for k in ("status", "iterations", "fun_evals",
                                       "captured")},
-              "control": {k: control[k] for k in keys}, "nvidia_smi": smi})
-        check(warm["captured"], f"bench_planted: {fault}'s run did not capture")
-        if reached:
-            check(not control["rules"],
-                  f"bench_planted: fault {fault} passed gate (d3) on p257 df32 "
-                  "cholesky")
-        else:
-            not_reached.append(fault)
+              "control": {k: control[k] for k in keys}, "numerics": numerics,
+              "nvidia_smi": smi})
+
+    clean = {}
+    for name in cells:
+        warm, control, numerics = clean[name] = run(name, None)
+        line(name, None, warm, control, numerics)
+        check(warm["captured"] and control["ok"] and numerics["ok"],
+              f"bench_planted: the clean {name} run captured {warm['captured']}, "
+              f"its control broke {control['broken']}, its numerics went over "
+              f"{numerics['over']} ({numerics.get('error')})")
+    not_reached = []
+    for fault, (gate, _, reach) in faults.items():
+        for name in (("p257", "p16") if fault == "step-scaled" else ("p257",)):
+            reached = clean[name][1 if gate == "control" else 2][reach] > 0
+            warm, control, numerics = run(name, fault)
+            failed = {"control": not control["rules"], "numerics": not numerics["ok"]}
+            line(name, fault, warm, control, numerics, gate=gate, reached=reached,
+                 reached_by=reach, failed=failed,
+                 size=step[name] if fault == "step-scaled" else None)
+            check(warm["captured"], f"bench_planted: {fault}'s run did not capture")
+            if not reached:
+                not_reached.append([name, fault])
+            elif gate == "control":
+                check(failed["control"],
+                      f"bench_planted: fault {fault} passed gate (d3) on {name}")
+            else:
+                check(failed["numerics"] and not failed["control"],
+                      f"bench_planted: fault {fault} on {name}: failed {failed}, "
+                      "where gate (e) alone must fail")
     emit({"phase": "bench_planted_done", "not_reached": not_reached,
           "phase_s": time.perf_counter() - t_phase})
 
@@ -2507,7 +2538,7 @@ def main() -> None:
     for mode, launches in bench_phase(bench_torch, lm, smi).items():
         for which in kern:
             kern[which][f"launches_bench_p257_{mode}"] = launches[which]
-    bench_planted_phase(bench_torch, flatline_campaign, lm, problems["p257"], smi)
+    bench_planted_phase(bench_torch, flatline_campaign, lm, problems, smi)
 
     # -- the other solver modes ---------------------------------------------------
     modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi)

@@ -114,7 +114,8 @@ def test_workload_lines_and_gates(p16_f64):
     assert "runs" not in lines[-1]
     assert record["gates"] == {"replay": True, "no_capture_in_window": True,
                                "kernels_vs_plain": None, "descent": True,
-                               "reference": True, "control": True}
+                               "reference": True, "control": True,
+                               "numerics": True}
     assert record["correct"] and record["repeats"] == 1
     run = record["runs"][0]
     assert run["captured"] is False and run["reads"] == run["replays"] == 1
@@ -126,8 +127,9 @@ def test_workload_lines_and_gates(p16_f64):
 
 def test_workload_control_line(p16_f64):
     """Gate (d3) on the 3-iteration p16 workload: one more run through the
-    timed route's loop, observed, so chunked (one chunk of 16 holds its 3
-    iterations: one replay, one read), ending where the warm-up ended;
+    timed route's loop, observed, so chunked (its states observed too, so
+    one iteration a chunk: three replays, three reads), ending where the
+    warm-up ended;
     every iteration passes the rules, and the line says the run reached
     neither a rejected trial nor a mid-range accept (its rho stays above
     the clamp's 0.9368 over iterations 1-3)."""
@@ -135,7 +137,7 @@ def test_workload_control_line(p16_f64):
     control = record["control"]
     assert lines[-1]["control"] == control
     assert control["captured"] is False and control["chunked"] is True
-    assert control["replays"] == control["reads"] == 1
+    assert control["replays"] == control["reads"] == 3
     assert control["same_endpoint"] and control["rules"] and control["ok"]
     assert control["broken"] is None and control["seconds"] > 0
     assert (control["iterations"], control["accepts"]) == (3, 3)
@@ -195,6 +197,7 @@ FAULTS = {
     "bad-points": (dict(points_ok=False), "descent"),
     "off-reference": ({}, "reference"),
     "off-control": ({}, "control"),
+    "off-numerics": ({}, "numerics"),
 }
 
 
@@ -211,8 +214,9 @@ def test_gates_catch_each_fault(fault):
         warm, runs = _run(), [_run(), _run(**change)]
     reference = {"within": gate != "reference"}
     control = {"ok": gate != "control"}
+    numerics = {"ok": gate != "numerics"}
     rec = bench.workload("p16", "cholesky", cfg, warm, runs, 15.0, None, None,
-                         reference, control)
+                         reference, control, numerics)
     failed = [k for k, v in rec["gates"].items() if v is False]
     assert failed == ([gate] if gate else [])
     assert rec["correct"] is (gate is None)
@@ -224,7 +228,7 @@ def test_kernel_gate_fails_the_workload():
                "rel_gap": 0.0, "kernels_captured": False,
                "kernels_launches": {"chain_blocks": 1, "chain_energy": 1}, "ok": False}
     rec = bench.workload("p16", "cholesky", cfg, _run(), [_run()], 15.0, None,
-                         kernels, {"within": True}, {"ok": True})
+                         kernels, {"within": True}, {"ok": True}, {"ok": True})
     assert not rec["correct"]
     assert bench.kernels_vs_plain(None, ("cholesky", "qrchol"), cfg,
                                   torch.device("cpu")) == {"cholesky": None,
@@ -343,7 +347,8 @@ def test_missing_reference_fails_the_gate(monkeypatch, tmp_path, name, attr, how
     gate = bench.reference_gate(None, name, "cholesky", "df32", warm, None, "cpu")
     assert gate["within"] is False and str(path) in gate["error"]
     rec = bench.workload(name, "cholesky", campaign.drive_config("df32", 3),
-                         _run(), [_run()], 15.0, None, None, gate, {"ok": True})
+                         _run(), [_run()], 15.0, None, None, gate, {"ok": True},
+                         {"ok": True})
     assert rec["gates"]["reference"] is False and not rec["correct"]
 
 
@@ -376,7 +381,8 @@ def test_broken_damping_update_fails_only_the_reference_gate(monkeypatch, p16_f6
     print(f"broken damping: prefix gaps {record['reference']['prefix']['gaps']}")
     assert record["gates"] == {"replay": True, "no_capture_in_window": True,
                                "kernels_vs_plain": None, "descent": True,
-                               "reference": False, "control": False}
+                               "reference": False, "control": False,
+                               "numerics": True}
     assert record["control"]["broken"]["rule"] == "accept"
     assert record["control"]["broken"]["iteration"] == 1
     gaps = record["reference"]["prefix"]["gaps"]

@@ -13,7 +13,9 @@ holds every iteration of a run to the reference's LM rules
   problem. Both packages' runs of it take the same path at 2, 4 and 8
   threads (measured; on other problems the JAX run's path moves with
   ``OMP_NUM_THREADS``).
-- Each of ``bench_torch.planted_faults`` breaks control on both drives of
+- Each of ``bench_torch.planted_faults``' rule faults (gate "control";
+  its numeric faults are ``tests/test_torch_numerics.py``'s) breaks
+  control on both drives of
   that problem, and makes bench_torch.py's p16 float64 cholesky workload
   at ``max_iter`` P16_MAX_ITER incorrect on control, where the clean
   workload stays correct. p16 reaches its first mid-range accept at
@@ -279,7 +281,8 @@ def test_checker_passes_port_records(generated, runs, cfg, drive):
 # -- planted faults -------------------------------------------------------------
 
 
-FAULTS = bench.planted_faults()
+FAULTS = {name: fault for name, fault in bench.planted_faults().items()
+          if fault.gate == "control"}
 
 
 @pytest.mark.parametrize("drive", ["jit", "host"])
@@ -287,12 +290,12 @@ FAULTS = bench.planted_faults()
 def test_planted_fault_breaks_control(monkeypatch, generated, fault, drive):
     """Each planted fault, in the function both drives call, breaks control
     on the generated problem's float64 run on either drive."""
-    attr, replacement, reach = FAULTS[fault]
-    monkeypatch.setattr(lm, attr, replacement)
+    for module, attr, replacement in FAULTS[fault].patches:
+        monkeypatch.setattr(module, attr, replacement)
     records, endpoint = port_run(generated, F64, drive)
     check = bench.control_gate(records, F64, endpoint)
     print(f"{fault} on {drive}: {check['broken']}")
-    assert check[reach] >= 1 and not check["ok"]
+    assert check[FAULTS[fault].reach] >= 1 and not check["ok"]
 
 
 @pytest.mark.parametrize("fault", [None, *FAULTS])
@@ -300,14 +303,16 @@ def test_planted_fault_fails_the_p16_workload(monkeypatch, fault):
     """bench_torch.py's p16 float64 cholesky workload at P16_MAX_ITER
     iterations: clean, it reaches rejected trials, a second growth and
     mid-range accepts, and is correct; under each fault it is incorrect on
-    control. The middle-range factor and the squared growth pass every
-    other gate, (d2) included: its prefix's factors sit at the clamp. The
+    control. The middle-range factor passes every other gate, (d2)
+    included: its prefix's factors sit at the clamp. The squared growth
+    fails gate (e) too: its trials solve at the squared growth's lambda,
+    and the step does not solve the normal equations at the rule's. The
     inverted factor fails (d2) too."""
     problem = pm.load_bal_problem(os.path.join(ROOT, campaign.PROBLEMS["p16"]),
                                   device="cpu")
     if fault:
-        attr, replacement, _ = FAULTS[fault]
-        monkeypatch.setattr(lm, attr, replacement)
+        for module, attr, replacement in FAULTS[fault].patches:
+            monkeypatch.setattr(module, attr, replacement)
     (record,) = bench.run_workloads(problem, "p16", ("cholesky",),
                                     campaign.drive_config("f64", P16_MAX_ITER), 1,
                                     "cpu", out=lambda _: None)
@@ -324,5 +329,6 @@ def test_planted_fault_fails_the_p16_workload(monkeypatch, fault):
         assert_reaches_everything(control)
     else:
         assert not record["correct"] and not control["rules"]
-        assert failed == (["control", "reference"] if fault == "inverted"
-                          else ["control"])
+        assert failed == {"inverted": ["control", "reference"],
+                          "growth-squared": ["control", "numerics"]}.get(
+                              fault, ["control"])

@@ -26,6 +26,7 @@ CAMPAIGN = os.path.join(ROOT, "flatline_campaign.py")
 ELLIPSE = os.path.join(ROOT, "examples", "ellipse_fitting_torch.py")
 ORACLE = os.path.join(ROOT, "oracle_prefix.py")
 BENCH = os.path.join(ROOT, "bench_torch.py")
+PROBE = os.path.join(ROOT, "numerics_probe.py")
 THREADS_HELPER = os.path.join(ROOT, "tests", "torch_threads.py")
 P16 = os.path.join(ROOT, "data", "problem-16-22106-pre.txt.gz")
 
@@ -113,12 +114,12 @@ def _imported_names(path):
     return names
 
 
-@pytest.mark.parametrize("path", [CAMPAIGN, ELLIPSE, ORACLE, BENCH],
+@pytest.mark.parametrize("path", [CAMPAIGN, ELLIPSE, ORACLE, BENCH, PROBE],
                          ids=os.path.basename)
 def test_campaign_and_example_import_no_jax(path):
-    """The flatline campaign, the ellipse example, the oracle-prefix script
-    and the bench name no JAX module, and importing them (and the package
-    modules they reach) loads none."""
+    """The flatline campaign, the ellipse example, the oracle-prefix script,
+    the bench and the numerics probe name no JAX module, and importing
+    them (and the package modules they reach) loads none."""
     names = _imported_names(path)
     assert "bundleadjustment_benchmarks_tpu_torch.solvers" in names
     assert [n for n in names if _is_jax_side(n)] == []
@@ -142,7 +143,7 @@ PORT_FILES = sorted(
     for f in files if f.endswith(".py"))
 
 
-@pytest.mark.parametrize("path", [SMOKE, CAMPAIGN, ORACLE, BENCH, *PORT_FILES],
+@pytest.mark.parametrize("path", [SMOKE, CAMPAIGN, ORACLE, BENCH, PROBE, *PORT_FILES],
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_nothing_of_the_port_imports_jax_reference(path):
     """``jax_reference.py`` runs the JAX package to write the Ladybug
@@ -191,6 +192,17 @@ def test_bench_needs_cuda_unless_told():
         pytest.skip("a CUDA device is present")
     proc = subprocess.run([sys.executable, BENCH, "--problem", "p16",
                            "--modes", "cholesky", "--max-iter", "1"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2 and "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_numerics_probe_needs_cuda_unless_told():
+    """Without CUDA and without ``--device`` the numerics probe exits 2 and
+    prints nothing on its standard output."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, PROBE, "--runs", "p16-f64"],
                           cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2 and "no CUDA device" in proc.stderr
     assert proc.stdout == ""
