@@ -13,6 +13,15 @@
 // (child graph nodes) and these conditional nodes into one executable
 // graph; the host launches it and reads nothing until it chooses to.
 //
+// The marks: one-thread kernels that the LM drive puts on its stream at
+// the ends of its phases, and so into the captured graph, where they run at
+// every replay. Each reads the device's %globaltimer (ns) into one small
+// int64 record per device (ops/cuda_graph.py, ``record``): a begin mark
+// stores the time in its span's slot, an end mark adds the time since then
+// to the span's total and one to its count, a counter mark adds one to its
+// counter. Each mark is a kernel of its own name (``ba_mark_<mark>``), so
+// a profiler trace shows where each span begins and ends.
+//
 // Plain C interface, loaded with ctypes: every function returns a
 // cudaError_t as int (0 = success); graphs, nodes and executables travel as
 // opaque pointers.
@@ -26,9 +35,55 @@ __global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
 }
 
+// The record: begin times, totals (ns) and counts of CG_SPANS spans, then
+// the counters (cuda_graph.SPANS, COUNTERS).
+#define CG_SPANS 3
+
+__device__ __forceinline__ void mark(long long *record, int slot, int kind) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (kind == 0) {  // begin
+    record[slot] = (long long)now;
+  } else if (kind == 1) {  // end
+    record[CG_SPANS + slot] += (long long)now - record[slot];
+    record[2 * CG_SPANS + slot] += 1;
+  } else {  // counter
+    record[3 * CG_SPANS + slot] += 1;
+  }
+}
+
 }  // namespace
 
+#define CG_MARK(name, slot, kind) \
+  extern "C" __global__ void name(long long *record) { mark(record, slot, kind); }
+
+// In cuda_graph.MARKS' order (cg_mark's `which`).
+CG_MARK(ba_mark_prepare_begin, 0, 0)
+CG_MARK(ba_mark_prepare_end, 0, 1)
+CG_MARK(ba_mark_trial_begin, 1, 0)
+CG_MARK(ba_mark_trial_end, 1, 1)
+CG_MARK(ba_mark_camera_solve_begin, 2, 0)
+CG_MARK(ba_mark_camera_solve_end, 2, 1)
+CG_MARK(ba_mark_camera_fallback, 0, 2)
+
+static void (*const MARKS[])(long long *) = {
+    ba_mark_prepare_begin,      ba_mark_prepare_end,
+    ba_mark_trial_begin,        ba_mark_trial_end,
+    ba_mark_camera_solve_begin, ba_mark_camera_solve_end,
+    ba_mark_camera_fallback};
+
 extern "C" {
+
+// Launch mark `which` (an index of MARKS) on `stream` into `record`.
+int cg_mark(int which, void *record, void *stream) {
+  if (which < 0 || which >= (int)(sizeof(MARKS) / sizeof(MARKS[0])))
+    return (int)cudaErrorInvalidValue;
+  long long *r = static_cast<long long *>(record);
+  void *args[] = {&r};
+  return (int)cudaLaunchKernel(reinterpret_cast<const void *>(MARKS[which]),
+                               dim3(1), dim3(1), args, 0,
+                               static_cast<cudaStream_t>(stream));
+}
 
 int cg_graph_create(void **graph) {
   cudaGraph_t g = nullptr;

@@ -18,7 +18,10 @@ version beside it (``*_plain``). The wrappers take the plain version only for
 tensors on the CPU; on a CUDA tensor they launch the kernel or raise. Every
 launch adds one to ``LAUNCHES``; a launch captured into a CUDA graph (the
 device-resident LM drive) adds one on the device each time the graph runs
-it, and ``collect_graph_launches`` brings those counts into ``LAUNCHES``.
+it, into its slot of the device's in-graph record
+(``cuda_graph.counter``), and ``collect_graph_launches`` brings those
+counts into ``LAUNCHES`` (the LM drive's one host read brings them back
+with the LM state: ``credit_graph_launches``).
 The workspace (ticket + block partials) is one per (device, stream),
 allocated before any capture; each kernel resets its ticket itself, so every
 replay finds it at 0.
@@ -32,7 +35,7 @@ import threading
 
 import torch
 
-from bundleadjustment_benchmarks_tpu_torch.ops import jacobian, nvcc, projection
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph, jacobian, nvcc, projection
 
 SOURCES = ("chain_kernels.cu", "chain_math.cuh")
 NVCC_FLAGS = (
@@ -50,37 +53,45 @@ BUILD_INFO: dict = {}
 
 _lib = None
 _lock = threading.Lock()
-#: Per device, an int64 (2,) tensor that a captured launch's graph adds one
-#: to each time it runs the launch (chain_blocks, chain_energy).
-_graph_counts: dict = {}
+
+
+def _graph_counts(dev) -> torch.Tensor:
+    """The device's (chain_blocks, chain_energy) slots of its in-graph
+    record, which a captured launch's graph adds one to each time it runs
+    the launch."""
+    return cuda_graph.counter(dev, "chain_blocks", 2)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for counts in _graph_counts.values():
-        counts.zero_()
+    for dev in cuda_graph.cuda_devices():
+        _graph_counts(dev).zero_()
+
+
+def credit_graph_launches(dev, blocks: int, energy: int) -> None:
+    """Add ``blocks`` and ``energy`` launches, which a caller read from the
+    device's record, to ``LAUNCHES`` and zero their slots there."""
+    LAUNCHES["chain_blocks"] += blocks
+    LAUNCHES["chain_energy"] += energy
+    _graph_counts(dev).zero_()
 
 
 def collect_graph_launches() -> None:
     """Add the launches that CUDA graphs ran since the last call to
-    ``LAUNCHES`` (one host read per device that has captured launches)."""
-    for counts in _graph_counts.values():
-        blocks, energy = counts.tolist()
-        LAUNCHES["chain_blocks"] += blocks
-        LAUNCHES["chain_energy"] += energy
-        counts.zero_()
+    ``LAUNCHES`` (one host read per device that has a record)."""
+    for dev in cuda_graph.cuda_devices():
+        credit_graph_launches(dev, *_graph_counts(dev).tolist())
 
 
 def prepare_capture(dev: torch.device) -> None:
     """Before a CUDA graph captures launches on the current stream: build
     the library and allocate that stream's workspace and the device's
-    graph launch counters outside the capture (an allocation inside it
-    would be zeroed again on every replay)."""
+    in-graph record outside the capture (an allocation inside it would be
+    zeroed again on every replay)."""
     lib = load_library()
     _workspace(lib, dev, torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index not in _graph_counts:
-        _graph_counts[dev.index] = torch.zeros(2, dtype=torch.int64, device=dev)
+    cuda_graph.record(dev)
 
 
 def load_library():
@@ -191,11 +202,7 @@ def launch(which: str, operands, tau2: float, valid_count=None):
     _raise(lib, f"{which} launch", err)
     if torch.cuda.is_current_stream_capturing():
         # The graph counts the launch each time it runs it.
-        which_i = 0 if which == "chain_blocks" else 1
-        counts = _graph_counts.get(dev.index)
-        if counts is None:
-            raise RuntimeError("call cuda_chain.prepare_capture before capture")
-        counts[which_i:which_i + 1].add_(1)
+        cuda_graph.counter(dev, which).add_(1)
     else:
         LAUNCHES[which] += 1
     return rows, energy

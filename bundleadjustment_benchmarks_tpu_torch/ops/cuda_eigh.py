@@ -20,8 +20,9 @@ the LM loop's non-finite guard stops the run. Both LM drives call it on
 CUDA; a build or a launch that fails raises, with no fall-back to
 ``torch.linalg.eigh``. Every call of the kernels adds one to ``LAUNCHES``; a
 call captured into a CUDA graph adds one on the device each time the graph
-runs it, and ``collect_graph_launches`` brings those counts into
-``LAUNCHES`` (as ``cuda_chain`` counts its kernels).
+runs it, into its slot of the device's in-graph record
+(``cuda_graph.counter``), and ``collect_graph_launches`` brings those
+counts into ``LAUNCHES`` (as ``cuda_chain`` counts its kernels).
 
 ``eigh_plain`` (``torch.linalg.eigh`` and a zero info) is what ``eigh``
 takes for a CPU tensor, and the reference it is held to on the card.
@@ -38,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from bundleadjustment_benchmarks_tpu_torch.ops import nvcc
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph, nvcc
 
 SOURCES = ("eigh.cu",)
 NVCC_FLAGS = (
@@ -59,33 +60,34 @@ BUILD_INFO: dict = {}
 _lib = None
 _lock = threading.Lock()
 _DTYPES = (torch.float32, torch.float64)
-#: Per device, an int64 (1,) tensor that a captured call's graph adds one to
-#: each time it runs the call.
-_graph_counts: dict = {}
 
 
 def reset_launches() -> None:
     LAUNCHES["jacobi_eigh"] = 0
-    for counts in _graph_counts.values():
-        counts.zero_()
+    for dev in cuda_graph.cuda_devices():
+        cuda_graph.counter(dev, "jacobi_eigh").zero_()
+
+
+def credit_graph_launches(dev, calls: int) -> None:
+    """Add ``calls``, which a caller read from the device's record, to
+    ``LAUNCHES`` and zero their slot there."""
+    LAUNCHES["jacobi_eigh"] += calls
+    cuda_graph.counter(dev, "jacobi_eigh").zero_()
 
 
 def collect_graph_launches() -> None:
     """Add the calls that CUDA graphs ran since the last call to
-    ``LAUNCHES`` (one host read per device that has a counter)."""
-    for counts in _graph_counts.values():
-        LAUNCHES["jacobi_eigh"] += int(counts.item())
-        counts.zero_()
+    ``LAUNCHES`` (one host read per device that has a record)."""
+    for dev in cuda_graph.cuda_devices():
+        credit_graph_launches(dev, int(cuda_graph.counter(dev, "jacobi_eigh").item()))
 
 
 def prepare_capture(dev: torch.device) -> None:
     """Before a CUDA graph captures calls on the current stream: allocate
-    the device's graph launch counter outside the capture (an allocation
-    inside it would be zeroed again on every replay)."""
-    dev = torch.device(dev)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    if index not in _graph_counts:
-        _graph_counts[index] = torch.zeros(1, dtype=torch.int64, device=dev)
+    the device's in-graph record, which holds the graph's launch counter,
+    outside the capture (an allocation inside it would be zeroed again on
+    every replay)."""
+    cuda_graph.record(dev)
 
 
 def load_library():
@@ -159,10 +161,8 @@ def jacobi_eigh(S: torch.Tensor, stats: Optional[torch.Tensor] = None):
         raise RuntimeError(f"jacobi_eigh launch failed: "
                            f"{lib.jacobi_error_string(err).decode()}")
     if torch.cuda.is_current_stream_capturing():
-        counts = _graph_counts.get(dev.index)
-        if counts is None:
-            raise RuntimeError("call cuda_eigh.prepare_capture before capture")
-        counts.add_(1)  # the graph counts the call each time it runs it
+        # The graph counts the call each time it runs it.
+        cuda_graph.counter(dev, "jacobi_eigh").add_(1)
     else:
         LAUNCHES["jacobi_eigh"] += 1
     V = Vt[:n, :n].T

@@ -26,6 +26,18 @@ A tensor that ``body`` allocates keeps its memory while Python holds it, so
 a value made inside a conditional body and read after it is the value of
 the last replay that ran the body (the LM drive's Schur context, made once
 per outer iteration and read by every trial of it).
+
+The in-graph record (``record``) is what a replay counts and times on the
+device, read by the host only where it reads anyway: one small int64
+tensor per device, allocated outside any capture (``DeviceGraph``
+allocates its device's). ``mark`` puts a mark kernel of
+``csrc/graph_cond.cu`` on the current stream, so a capture records it: a
+begin or end mark of one of ``SPANS`` (the drive's prepare and trial, the
+reduced camera solve), timed by the device's clock, or the camera solve's
+fallback counter. The chain kernels' and the eigensolver's captured
+launch counters are ``counter`` slots of the same record. On the CPU,
+where nothing is captured, a mark records ``time.perf_counter_ns()`` and
+its count on the host, into a CPU record of the same layout.
 """
 
 from __future__ import annotations
@@ -75,7 +87,7 @@ def load_library():
                 ("cg_add_cond", [p, p, p, i, pp, pp,
                                  ctypes.POINTER(ctypes.c_ulonglong)]),
                 ("cg_instantiate", [p, pp]), ("cg_launch", [p, p]),
-                ("cg_exec_destroy", [p])):
+                ("cg_exec_destroy", [p]), ("cg_mark", [i, p, p])):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = i
@@ -184,16 +196,127 @@ def device_cond(pred: torch.Tensor, true_fn, false_fn, out: torch.Tensor):
     return out
 
 
+# -- the in-graph record -------------------------------------------------------
+
+#: The spans the marks time, in the record's order: the LM drive's prepare
+#: (``lm.DeviceLoop._begin``) and damped trial (``DeviceLoop._step``), and
+#: the reduced camera solve (``schur._camera_solve_chol``).
+SPANS = ("prepare", "trial", "camera_solve")
+#: The record's counters, after the spans' slots: the camera solve's QR
+#: fallbacks (a mark), then the launches a replay ran of the chain kernels
+#: (``cuda_chain``) and the eigensolver (``cuda_eigh``), each a captured
+#: add to its slot.
+COUNTERS = ("camera_fallback", "chain_blocks", "chain_energy", "jacobi_eigh")
+#: The marks, in csrc/graph_cond.cu's order; mark ``m`` is the kernel
+#: ``ba_mark_<m>`` in a profiler trace.
+MARKS = tuple(f"{s}_{end}" for s in SPANS for end in ("begin", "end")) + (
+    "camera_fallback",)
+#: The mark kernels' names. None holds a substring by which a trace reader
+#: finds another layer's kernels (``chain_``, cuSOLVER's and cuBLAS's
+#: factor and solve kernels).
+MARK_KERNELS = tuple(f"ba_mark_{m}" for m in MARKS)
+#: The record's layout: a begin time, a total (ns) and a count per span,
+#: then the counters. A host read brings back all but the begin times
+#: (``readable``).
+_TOTALS, _COUNTS = len(SPANS), 2 * len(SPANS)
+_COUNTER0 = 3 * len(SPANS)
+RECORD_LEN = _COUNTER0 + len(COUNTERS)
+#: The record of each device, by (device type, index).
+_records: dict = {}
+
+
+def _key(device) -> tuple:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device.type, device.index
+
+
+def record(device) -> torch.Tensor:
+    """The device's record (int64, ``RECORD_LEN``), allocated, zeroed, at
+    the first call, which has to come before any capture on the device: an
+    allocation inside a capture would be zeroed again at every replay."""
+    key = _key(device)
+    rec = _records.get(key)
+    if rec is None:
+        if key[0] == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the in-graph record of the capturing device does not exist; "
+                "allocate it (cuda_graph.record) before the capture")
+        rec = torch.zeros(RECORD_LEN, dtype=torch.int64, device=torch.device(*key))
+        _records[key] = rec
+    return rec
+
+
+def cuda_devices() -> list:
+    """The CUDA devices that have a record."""
+    return [torch.device(*k) for k in _records if k[0] == "cuda"]
+
+
+def counter(device, name: str, n: int = 1) -> torch.Tensor:
+    """The record's slots of counter ``name`` and the ``n - 1`` after it
+    (a view, in ``COUNTERS``' order)."""
+    i = _COUNTER0 + COUNTERS.index(name)
+    return record(device)[i:i + n]
+
+
+def mark(device, name: str) -> None:
+    """Mark ``name`` (one of ``MARKS``) on ``device``: on CUDA a mark
+    kernel on the current stream (captured, where a capture is open), on
+    the CPU the host's clock and count."""
+    which = MARKS.index(name)
+    rec = record(device)
+    if rec.device.type == "cuda":
+        lib = load_library()
+        stream = torch.cuda.current_stream(rec.device).cuda_stream
+        _call(lib, f"mark {name}", lib.cg_mark(which, rec.data_ptr(), stream))
+        return
+    if name == "camera_fallback":
+        rec[_COUNTER0] += 1
+        return
+    span = SPANS.index(name.rsplit("_", 1)[0])
+    now = time.perf_counter_ns()
+    if name.endswith("_begin"):
+        rec[span] = now
+    else:
+        rec[_TOTALS + span] += now - int(rec[span])
+        rec[_COUNTS + span] += 1
+
+
+def zero_marks(device) -> None:
+    """Zero the spans and the camera solve's fallback count of the device's
+    record (on its stream; the launch counters are their modules' to
+    zero)."""
+    record(device)[:_COUNTER0 + 1].zero_()
+
+
+def readable(device) -> torch.Tensor:
+    """The part of the record a host read brings back: the spans' totals
+    and counts, then the counters (a view); ``unpack`` reads it."""
+    return record(device)[_TOTALS:]
+
+
+def unpack(values) -> dict:
+    """``readable``'s values as {"device_s": {span: seconds}, "span_counts":
+    {span: count}, counter: count for each of ``COUNTERS``}."""
+    n = len(SPANS)
+    out = {"device_s": {s: values[i] / 1e9 for i, s in enumerate(SPANS)},
+           "span_counts": {s: int(values[n + i]) for i, s in enumerate(SPANS)}}
+    out.update({c: int(values[2 * n + i]) for i, c in enumerate(COUNTERS)})
+    return out
+
+
 class DeviceGraph:
     """One executable CUDA graph captured from Python code that branches
     with ``device_if``. ``capture(fn)`` runs ``fn`` once under capture on
     the graph's own stream and returns what it returns; ``replay()``
     launches the graph on the current stream without a host read.
     ``capture_s`` is the capture's wall time (segments, composition and
-    instantiation); ``replays`` counts launches; ``node_types`` counts the
-    nodes of the captured segments by type (``node_types()``), with the
-    conditional nodes and the kernels that set their conditions.
-    ``close()`` frees the graph and its memory pool."""
+    instantiation); ``node_types`` counts the nodes of the captured
+    segments by type (``node_types()``), with the conditional nodes and the
+    kernels that set their conditions. The device's in-graph record
+    (``record``) is allocated with the graph. ``close()`` frees the graph
+    and its memory pool."""
 
     def __init__(self, device):
         device = torch.device(device)
@@ -203,9 +326,9 @@ class DeviceGraph:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.stream = capture_stream(device)
+        record(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.capture_s = None
-        self.replays = 0
         self.node_types: dict = {}
         self._segments = []  # captured torch graphs: they hold the pool
         self._keep = []  # predicates the conditional nodes read
@@ -338,7 +461,6 @@ class DeviceGraph:
         lib = load_library()
         stream = torch.cuda.current_stream(self.device).cuda_stream
         _call(lib, "launch", lib.cg_launch(self._exec, stream))
-        self.replays += 1
 
     def close(self) -> None:
         lib = _lib

@@ -64,6 +64,7 @@ import time
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from bundleadjustment_benchmarks_tpu_torch import resolve_device
 from bundleadjustment_benchmarks_tpu_torch.models import problem as problem_mod
@@ -688,7 +689,15 @@ class DeviceLoop:
     others at the chunk's read, and only the caller's deadline (a
     ``multihost.run_ranks`` ``deadline``, a job's limit) ends the run. An
     unchunked run reads once, at its end, so that deadline is the only
-    bound on the whole run."""
+    bound on the whole run.
+
+    Every prepare and every trial is a span of the device's in-graph record
+    (``cuda_graph.mark``; the reduced camera solve inside a trial is one
+    too), zeroed by ``run`` and brought back by each read with the state:
+    ``marks`` holds the last read's totals and counts
+    (``cuda_graph.unpack``). The host's steps are ``torch.profiler``
+    ranges: ``ba.warmup`` and ``ba.capture`` in ``capture``, ``ba.replay``
+    and ``ba.read`` per chunk."""
 
     def __init__(self, x0, prepare, trial, config: LMConfig, device,
                  reduce: schur.Reduce = schur.LOCAL):
@@ -714,8 +723,12 @@ class DeviceLoop:
         self.x = _from_leaves(x0, [t.clone() for t in _leaves(x0)])
         self.ctx = None
         self.graph = None
+        self.warmup_s = 0.0
         self.reads = self.replays = self.slots = self.prepares = 0
         self.chunked = False
+        # The part of the in-graph record each read brings back.
+        self.marked = cuda_graph.readable(self.device)
+        self.marks: dict = {}
 
     def _v(self, name):
         return self.sv[self.pos[name]]
@@ -762,6 +775,7 @@ class DeviceLoop:
 
     def _begin(self):
         v = self._v
+        cuda_graph.mark(self.device, "prepare_begin")
         self.ctx, energy, lam0_rule = self._tallied("prepare", self.prepare,
                                                     self.x)
         it = v("it") + 1
@@ -769,12 +783,15 @@ class DeviceLoop:
         zero = self.sv.new_zeros(())
         self._write("begin", (it, v("fun_evals") + 1, energy, lam0, lam0, zero,
                               zero))
+        cuda_graph.mark(self.device, "prepare_end")
 
     def _step(self):
         v, cfg, f64 = self._v, self.config, torch.float64
         lam, f, it, trials = v("lam"), v("f"), v("it"), v("trials")
+        cuda_graph.mark(self.device, "trial_begin")
         x_t, e_t, rho_scale = self._tallied("trial", self.trial, self.ctx,
                                             self.x, lam)
+        cuda_graph.mark(self.device, "trial_end")
         e_t, rho_scale = e_t.to(f64), rho_scale.to(f64)
         lam_inc = torch.index_select(
             self.table_dev, 0,
@@ -830,22 +847,26 @@ class DeviceLoop:
     def capture(self, kernels: bool) -> float:
         """Capture ``chunk`` into a CUDA graph after one eager prepare and
         trial on the capture stream (cuBLAS/cuSOLVER handles and
-        workspaces, the chain kernels' workspace and launch counters, the
-        eigensolver's launch counter, the per-device index tables; on a shard the NCCL communicator and its
+        workspaces, the chain kernels' workspace, the in-graph record, the
+        per-device index tables; on a shard the NCCL communicator and its
         stream, which must not start inside a capture). Returns the
-        capture's seconds, warm-up excluded. A failed capture raises."""
+        capture's seconds, warm-up excluded; ``warmup_s`` keeps the
+        warm-up's. A failed capture raises."""
         graph = cuda_graph.DeviceGraph(self.device)
-        with torch.cuda.stream(graph.stream):
+        t0 = time.perf_counter()
+        with record_function("ba.warmup"), torch.cuda.stream(graph.stream):
             if kernels:
                 cuda_chain.prepare_capture(self.device)
-            cuda_eigh.prepare_capture(self.device)
             ctx, _, lam0 = self.prepare(self.x)
             self.trial(ctx, self.x, lam0.to(torch.float64))
             del ctx
+            torch.cuda.synchronize(self.device)
+        self.warmup_s = time.perf_counter() - t0
         # The warm-up's memory goes back to the device before the graph's
         # pool takes its own.
         torch.cuda.empty_cache()
-        graph.capture(self.chunk)
+        with record_function("ba.capture"):
+            graph.capture(self.chunk)
         self.graph = graph
         return graph.capture_s
 
@@ -878,16 +899,26 @@ class DeviceLoop:
         init[pos["max_fun_ev"]] = min(cfg.max_fun_ev, i32max)
         init[pos["tol_fun"]] = cfg.tol_fun
         self.sv.copy_(torch.tensor(init, dtype=torch.float64))
+        cuda_graph.zero_marks(self.device)
 
     def _chunk(self) -> None:
-        (self.graph.replay if self.graph is not None else self.chunk)()
+        with record_function("ba.replay"):
+            (self.graph.replay if self.graph is not None else self.chunk)()
         self.replays += 1
 
     def _read(self, observe: bool) -> list:
+        """The state vector (and with ``observe`` the iteration records
+        after it), in one host read that also brings back the in-graph
+        record into ``marks``."""
         self.reads += 1
-        if observe:
-            return torch.cat([self.sv, self.rec.view(-1)]).tolist()
-        return self.sv.tolist()
+        n, m = len(self.sv), len(self.marked)
+        with record_function("ba.read"):
+            parts = [self.sv, self.marked.to(torch.float64)]
+            if observe:
+                parts.append(self.rec.view(-1))
+            vals = torch.cat(parts).tolist()
+        self.marks = cuda_graph.unpack(vals[n:n + m])
+        return vals[:n] + vals[n + m:]
 
     def first_trial(self, x0, lam: float) -> float:
         """The energy of one slot from ``x0`` at ``lam``: a prepare and one
@@ -1021,14 +1052,8 @@ class DeviceLoop:
 #: device and group: capturing another problem's frees the older problem's
 #: entries (``_device_loop``).
 _GRAPHS: dict = {}
-#: What the last jit-drive run did: capture_s (0 where the capture was
-#: cached or on the CPU), captured (this run captured), chunked (it ran in
-#: chunks of chunk_size, else as one), replays (chunks run: graph replays on
-#: CUDA), reads (host reads of the LM state), slots (trials
-#: run, counted on the device), prepares (iterations started), the size of
-#: the graph cache, and on a shard the collectives: allreduce_per_prepare
-#: and allreduce_per_trial ({"calls", "bytes"} of one, from the capture on
-#: CUDA) and their totals over the run, allreduce_calls and allreduce_bytes.
+#: What the last jit-drive run did (``minimize``'s docstring lists the
+#: entries).
 LAST_JIT_RUN: dict = {}
 
 
@@ -1156,7 +1181,36 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
     iteration table: one dispatch, or chunks where a ``trace`` or
     ``records`` asks (``config.chunked`` is ignored there: JAX's sharded
     drive has no chunks). A collective in a replay has no timeout of its
-    own (see ``DeviceLoop``)."""
+    own (see ``DeviceLoop``).
+
+    After a jit-drive run ``LAST_JIT_RUN`` says what it did:
+
+    * ``capture_s``: the capture's seconds, its eager warm-up excluded, and
+      ``warmup_s`` the warm-up's (both 0 where the capture was cached or on
+      the CPU); ``captured``: this run captured;
+    * ``chunked``: it ran in chunks of ``chunk_size`` (else as one);
+      ``replays``: chunks run (graph replays on CUDA); ``reads``: host reads
+      of the LM state, one a chunk;
+    * ``slots``: trials run and ``prepares``: iterations started, both
+      counted on the device;
+    * ``device_s``: {"prepare", "trial", "camera_solve"}, the seconds each
+      span took in all, by the device's clock between its in-graph marks
+      (the host's on the CPU), and ``span_counts`` the count of each:
+      ``prepares``, ``slots`` and ``slots`` (a trial holds one camera
+      solve; with ``refine_steps`` one more per pass);
+      ``camera_fallbacks``: float32 camera solves that broke down and took
+      the QR fallback; all brought back by the reads above;
+    * ``graphs_cached``: the size of the graph cache;
+    * on a shard, the collectives: ``allreduce_per_prepare`` and
+      ``allreduce_per_trial`` ({"calls", "bytes"} of one, from the capture
+      on CUDA) and their totals over the run, ``allreduce_calls`` and
+      ``allreduce_bytes``.
+
+    The host's steps are ``torch.profiler`` ranges on the profiler's clock,
+    beside the device's operations and marks: ``ba.enter`` (the move to the
+    device, ``step_functions``, the loop state), ``ba.warmup`` and
+    ``ba.capture`` where the run captures, ``ba.replay`` and ``ba.read``
+    per chunk."""
     schur.check_mode(mode)
     config = config or LMConfig()
     if config.drive not in ("host", "jit"):
@@ -1186,16 +1240,17 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
 
     dev = resolve_device(device)
     given = problem
-    problem = problem.to(dev)
-    state = problem.state if state is None else state.to(dev)
-    prepare, trial, to_loop, to_state = step_functions(problem, mode, config,
-                                                       dev, reduce)
+    with record_function("ba.enter"):
+        problem = problem.to(dev)
+        state = problem.state if state is None else state.to(dev)
+        prepare, trial, to_loop, to_state = step_functions(problem, mode, config,
+                                                           dev, reduce)
+        x0 = to_loop(state)
 
     def to_checkpoint(x):
         s = to_state(x)
         return dataclasses.replace(s, points=reduce.points(s.points))
 
-    x0 = to_loop(state)
     capture_s = loop = None
     verbose = config.verbose
     observed = bool(checkpoint_path or metrics_path or resume)
@@ -1217,15 +1272,21 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
             loop.reads = loop.replays = loop.slots = loop.prepares = 0
             x, status, it, fun_evals, energy, lam = loop.run(
                 x0, resume, run_log, checkpoint_every, config=config)
+            marks = loop.marks
             if loop.graph is not None:
-                if config.use_kernels(dev):
-                    cuda_chain.collect_graph_launches()
-                cuda_eigh.collect_graph_launches()
+                # The launch counters came back with the last read.
+                cuda_chain.credit_graph_launches(dev, marks["chain_blocks"],
+                                                 marks["chain_energy"])
+                cuda_eigh.credit_graph_launches(dev, marks["jacobi_eigh"])
             LAST_JIT_RUN.clear()
             LAST_JIT_RUN.update(
-                capture_s=capture_s, captured=capture_s > 0, chunked=loop.chunked,
-                replays=loop.replays, reads=loop.reads, slots=loop.slots,
-                prepares=loop.prepares, graphs_cached=len(_GRAPHS))
+                capture_s=capture_s, captured=capture_s > 0,
+                warmup_s=loop.warmup_s if capture_s > 0 else 0.0,
+                chunked=loop.chunked, replays=loop.replays, reads=loop.reads,
+                slots=loop.slots, prepares=loop.prepares,
+                device_s=marks["device_s"], span_counts=marks["span_counts"],
+                camera_fallbacks=marks["camera_fallback"],
+                graphs_cached=len(_GRAPHS))
             if reduce.sharded:
                 per = {k: loop.collectives.get(k, {"calls": 0, "bytes": 0})
                        for k in ("prepare", "trial")}

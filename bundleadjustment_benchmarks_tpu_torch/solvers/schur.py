@@ -619,7 +619,14 @@ def _camera_solve_chol(S, b):
     info == 0 and a finite factor) is a device predicate: the host drive on
     CUDA reads it once per float32 solve; under a CUDA graph capture both
     branches become conditional nodes (the JAX package's lax.cond), and on
-    the CPU the predicate is read. Returns x in S's dtype."""
+    the CPU the predicate is read. Returns x in S's dtype.
+
+    The solve is the ``camera_solve`` span of the device's in-graph record
+    (``cuda_graph.mark``: from its first operation to the end of the QR
+    solve or of both branches), and the QR fallback adds one to its
+    ``camera_fallback`` counter."""
+    dev = S.device
+    cuda_graph.mark(dev, "camera_solve_begin")
     in_dtype = S.dtype
     f64 = torch.float64
     S64, b64 = S.to(f64), b.to(f64)
@@ -631,7 +638,9 @@ def _camera_solve_chol(S, b):
 
     if in_dtype == f64:
         Q, R = torch.linalg.qr(Ss64)
-        return linalg.solve_upper_triangular(R, Q.T @ (b64 * dinv)) * dinv
+        x = linalg.solve_upper_triangular(R, Q.T @ (b64 * dinv)) * dinv
+        cuda_graph.mark(dev, "camera_solve_end")
+        return x
 
     Ss32 = Ss64.to(in_dtype)
     L, info = torch.linalg.cholesky_ex(Ss32)
@@ -649,14 +658,18 @@ def _camera_solve_chol(S, b):
             r64.to(in_dtype)[:, None], L)[:, 0].to(f64))
 
     def by_qr():
+        cuda_graph.mark(dev, "camera_fallback")
         Q, R = torch.linalg.qr(Ss32)
         return refined(lambda r64: linalg.solve_upper_triangular(
             R, Q.T @ r64.to(in_dtype)).to(f64))
 
     if S.is_cuda and not cuda_graph.capturing():
-        return by_cholesky() if bool(ok) else by_qr()
-    return cuda_graph.device_cond(ok, by_cholesky, by_qr,
-                                  torch.empty_like(b, dtype=in_dtype))
+        x = by_cholesky() if bool(ok) else by_qr()
+    else:
+        x = cuda_graph.device_cond(ok, by_cholesky, by_qr,
+                                   torch.empty_like(b, dtype=in_dtype))
+    cuda_graph.mark(dev, "camera_solve_end")
+    return x
 
 
 def _point_factor_inv(ctx: SchurContext, lam, mode: str, dtype):

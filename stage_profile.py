@@ -1,23 +1,16 @@
-"""Where the LM's time goes on the GPU, for one solver mode and drive.
+"""The chain kernels on the GPU: their times and what limits them, and
+their one-operation gate.
 
-    python3 stage_profile.py [BAL file] [--mode M] [--drive df32|f64|both]
-                             [--lm-drive host|jit|both] [--iters N] [--chain]
-                             [--one-op N]
+    python3 stage_profile.py [BAL file] --chain
+    python3 stage_profile.py [BAL file] --one-op N
 
-Loads the problem (default: the in-repo p257 stand-in) onto CUDA. For the
-df32 drive (kernels on) and then the float64 drive (or the one named) it
-runs a two-iteration warm-up and traces ``lm.minimize(mode=M,
-max_iter=N)`` (default cholesky, 6) with ``torch.profiler``, printing one
-JSON line per drive, for the host LM drive, the device-resident one
-(``--lm-drive jit``: the warm-up captures its CUDA graph, the traced run
-replays it) or both: the card, the traced wall time, the
-device-busy share (the sum of kernel times over the wall time), the kernels
-and the PyTorch operators with the most device time, and the count of
-``torch.linalg.qr`` calls (in cholesky's float32 reduced solve, its
-fallbacks from a broken-down Cholesky). The profiler slows the host,
-so the busy share it reports is a lower bound of the untraced run's.
+Loads the problem (default: the in-repo p257 stand-in) onto CUDA.
+Where the LM's time goes is the benchmark's to say: ``python3
+portbench/run.py --workload <cell> --seed <n> --seconds 30 --trace 1``
+reads it from a ``torch.profiler`` trace of whole solves, by the port's
+in-graph spans (PERF.md).
 
-``--chain`` instead prints one line on the chain kernels at the problem's
+``--chain`` prints one line on the chain kernels at the problem's
 loaded state: per kernel its device time, its entry point's device time, the
 host time to issue one call and the device operations one call issues, as
 ``chip_smoke.py`` measures them (``time_entry_points``); then what limits a
@@ -28,7 +21,7 @@ kernel's own duration as ``torch.profiler`` records it; and each kernel with
 its cameras staged in shared memory against the same work unstaged (the
 cameras padded to 2,500, which do not fit), in turns.
 
-``--one-op N`` instead profiles each chain entry point N times, one call a
+``--one-op N`` profiles each chain entry point N times, one call a
 profile, with ``chip_smoke.py``'s one-operation gate
 (``device_ops_per_call``), and prints the device operations counted per
 profile and the empty profiles. To compare two
@@ -43,68 +36,18 @@ import argparse
 import dataclasses
 import json
 import sys
-import time
 from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
 from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
-from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 from chip_smoke import (P257 as DEFAULT, device_ops_per_call, nvidia_smi,
                         time_entry_points, time_ms)
 
 SLEEP = int(2e7)  # ~10 ms: longer than the host's enqueue
 UNSTAGED_CAMERAS = 2500  # 2,500 x 27 floats exceed a block's shared memory
-
-
-def _top(events, n=15):
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
-    return [{"name": e.key[:90], "calls": e.count,
-             "device_ms": e.self_device_time_total / 1e3} for e in top[:n]]
-
-
-def profile_drives(prob, card: str, path: str, mode: str, drive: str,
-                   iters: int, lm_drive: str = "host") -> None:
-    for name, lm_name in [(d, ld) for d in ("df32", "f64")
-                          for ld in ("host", "jit")]:
-        if drive not in ("both", name) or lm_drive not in ("both", lm_name):
-            continue
-        kw = dict(matmul_dtype="float32", geometry="df32") if name == "df32" else {}
-
-        def run(max_iter):
-            return lm.minimize(prob, mode=mode, config=lm.LMConfig(
-                max_iter=max_iter, drive=lm_name, **kw))
-
-        run(2)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = run(iters)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        ops = [e for e in events if e.device_type == DeviceType.CPU
-               and e.key.startswith("aten::") and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        qr = sum(e.count for e in events if e.key == "aten::linalg_qr")
-        print(json.dumps({
-            "card": card, "problem": Path(path).name, "mode": mode,
-            "drive": name, "lm_drive": lm_name,
-            "jit": dict(lm.LAST_JIT_RUN) if lm_name == "jit" else None,
-            "K": prob.n_observations, "N": prob.n_cameras, "M": prob.n_points,
-            "iterations": res.iterations, "fun_evals": res.fun_evals,
-            "energy": res.energy, "wall_ms": wall * 1e3,
-            "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / (wall * 1e3),
-            "linalg_qr_calls": qr, "top_kernels": _top(kernels),
-            "top_ops": _top(ops),
-        }), flush=True)
 
 
 def profiled_us(fn, flush, reps: int = 20) -> dict:
@@ -202,21 +145,11 @@ def one_op_line(prob, card: str, profiles: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path", nargs="?", default=str(DEFAULT), help="BAL file")
-    ap.add_argument("--mode", default="cholesky", choices=schur.MODES,
-                    help="solver mode to trace (default cholesky)")
-    ap.add_argument("--drive", default="both", choices=("df32", "f64", "both"),
-                    help="drive(s) to trace (default both)")
-    ap.add_argument("--lm-drive", default="host",
-                    choices=("host", "jit", "both"),
-                    help="LM drive(s) to trace: the host loop, the "
-                    "device-resident graph, or both (default host)")
-    ap.add_argument("--iters", type=int, default=6,
-                    help="LM iterations traced (default 6)")
-    ap.add_argument("--chain", action="store_true",
-                    help="time the chain kernels instead of tracing the LM")
-    ap.add_argument("--one-op", type=int, default=0, metavar="N",
-                    help="profile each chain entry point N times instead "
-                    "of tracing the LM")
+    what = ap.add_mutually_exclusive_group(required=True)
+    what.add_argument("--chain", action="store_true",
+                      help="time the chain kernels")
+    what.add_argument("--one-op", type=int, default=0, metavar="N",
+                      help="profile each chain entry point N times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("stage_profile: needs a CUDA device")
@@ -224,11 +157,8 @@ def main() -> None:
     prob = pm.load_bal_problem(args.path, device="cuda")
     if args.one_op:
         one_op_line(prob, card, args.one_op)
-    elif args.chain:
-        chain_line(prob, card, args.path)
     else:
-        profile_drives(prob, card, args.path, args.mode, args.drive,
-                       args.iters, args.lm_drive)
+        chain_line(prob, card, args.path)
 
 
 if __name__ == "__main__":

@@ -171,10 +171,13 @@ def assert_trial(port, ref, label):
 
 
 def assert_ranks_identical(outs):
-    """Every rank's results equal rank 0's bit for bit."""
+    """Every rank's results equal rank 0's bit for bit, but the seconds of
+    ``LAST_JIT_RUN``'s spans (``device_s``), which each rank's own clock
+    reads; their counts (``span_counts``) are held."""
     def same(a, b):
         if isinstance(a, dict):
-            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a
+                                                 if k != "device_s")
         if isinstance(a, np.ndarray):
             return a.dtype == b.dtype and np.array_equal(a, b)
         return a == b
