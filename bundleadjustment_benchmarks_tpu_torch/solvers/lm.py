@@ -1198,8 +1198,9 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
       (the host's on the CPU), and ``span_counts`` the count of each:
       ``prepares``, ``slots`` and ``slots`` (a trial holds one camera
       solve; with ``refine_steps`` one more per pass);
-      ``camera_fallbacks``: float32 camera solves that broke down and took
-      the QR fallback; all brought back by the reads above;
+      ``camera_fallbacks``: camera solves (float32 or float64) whose
+      Cholesky broke down and took the QR fallback; all brought back by
+      the reads above;
     * ``graphs_cached``: the size of the graph cache;
     * on a shard, the collectives: ``allreduce_per_prepare`` and
       ``allreduce_per_trial`` ({"calls", "bytes"} of one, from the capture

@@ -610,21 +610,31 @@ def initial_lambda(ctx: SchurContext, mode: str) -> torch.Tensor:
 def _camera_solve_chol(S, b):
     """Solve the reduced camera system S x = b (the SimplicialLDLT analog).
 
-    Jacobi scaling D S D with D = diag(S)^-1/2. A float64 system is solved
-    by QR. A float32 system is factored once by Cholesky in float32 and
-    refined twice with float64 residuals b - S x (S promoted to float64);
-    if the Cholesky breaks down (the Schur subtraction can leave S
-    indefinite at the 1e-10 level for tiny lambda) the refinement runs on a
-    QR of the scaled system instead. The breakdown test (``cholesky_ex``'s
-    info == 0 and a finite factor) is a device predicate: the host drive on
-    CUDA reads it once per float32 solve; under a CUDA graph capture both
-    branches become conditional nodes (the JAX package's lax.cond), and on
-    the CPU the predicate is read. Returns x in S's dtype.
+    Jacobi scaling D S D with D = diag(S)^-1/2, then one Cholesky of the
+    scaled system in S's dtype, and a QR only where the Cholesky breaks
+    down (the Schur subtraction can leave S indefinite at the level of the
+    dtype's rounding for tiny lambda). A float64 system's Cholesky solve is
+    refined once with a float64 residual of the scaled system; its QR
+    fallback reduces [D S D | D b] to R alone, whose last column is
+    Q^T D b, so neither branch forms Q. A float32 system is refined twice
+    with float64 residuals b - S x (S promoted to float64), through its
+    Cholesky factor or its QR. The breakdown test
+    (``cholesky_ex``'s info == 0 and a finite factor) is a device
+    predicate: the host drive on CUDA reads it once per solve; under a CUDA
+    graph capture both branches become conditional nodes (the JAX
+    package's lax.cond), and on the CPU the predicate is read. Returns x in
+    S's dtype.
+
+    The JAX package solves a float64 system by QR alone (on the TPU a
+    plain Cholesky turns an S indefinite at float32's rounding into NaN,
+    and float64 LU is not implemented). On CUDA float64 is native and the
+    Schur subtraction cancels at float64's rounding, so the Cholesky serves
+    both dtypes and the QR runs only on breakdown.
 
     The solve is the ``camera_solve`` span of the device's in-graph record
-    (``cuda_graph.mark``: from its first operation to the end of the QR
-    solve or of both branches), and the QR fallback adds one to its
-    ``camera_fallback`` counter."""
+    (``cuda_graph.mark``: from its first operation to the end of both
+    branches), and the QR fallback adds one to its ``camera_fallback``
+    counter."""
     dev = S.device
     cuda_graph.mark(dev, "camera_solve_begin")
     in_dtype = S.dtype
@@ -634,34 +644,48 @@ def _camera_solve_chol(S, b):
     dinv = torch.where(
         d > 0, torch.rsqrt(d.abs() + torch.finfo(f64).tiny),
         torch.ones_like(d))
-    Ss64 = S64 * dinv[:, None] * dinv[None, :]
 
     if in_dtype == f64:
-        Q, R = torch.linalg.qr(Ss64)
-        x = linalg.solve_upper_triangular(R, Q.T @ (b64 * dinv)) * dinv
-        cuda_graph.mark(dev, "camera_solve_end")
-        return x
+        # [D S D | D b] written into one buffer (no n x n temporary): the
+        # Cholesky factors its left part, the fallback's QR all of it.
+        n = S.shape[0]
+        Ssb = S64.new_empty((n, n + 1))
+        Ss64 = torch.mul(S64, dinv[:, None], out=Ssb[:, :n]).mul_(dinv)
+        torch.mul(b64, dinv, out=Ssb[:, n])
+        L, info = torch.linalg.cholesky_ex(Ss64)
+        ok = (info == 0) & torch.isfinite(L).all()
 
-    Ss32 = Ss64.to(in_dtype)
-    L, info = torch.linalg.cholesky_ex(Ss32)
-    ok = (info == 0) & torch.isfinite(L).all()
+        def by_cholesky():
+            y = torch.cholesky_solve(Ssb[:, n:], L)
+            y = y + torch.cholesky_solve(Ssb[:, n:] - Ss64 @ y, L)
+            return y[:, 0] * dinv
 
-    def refined(solve32):
-        x = solve32(b64 * dinv) * dinv
-        for _ in range(2):
-            r = b64 - S64 @ x
-            x = x + solve32(r * dinv) * dinv
-        return x.to(in_dtype)
+        def by_qr():
+            cuda_graph.mark(dev, "camera_fallback")
+            R = torch.linalg.qr(Ssb, mode="r")[1]
+            return linalg.solve_upper_triangular(R[:, :n], R[:, n]) * dinv
+    else:
+        Ss64 = S64 * dinv[:, None] * dinv[None, :]
+        Ss32 = Ss64.to(in_dtype)
+        L, info = torch.linalg.cholesky_ex(Ss32)
+        ok = (info == 0) & torch.isfinite(L).all()
 
-    def by_cholesky():
-        return refined(lambda r64: torch.cholesky_solve(
-            r64.to(in_dtype)[:, None], L)[:, 0].to(f64))
+        def refined(solve32):
+            x = solve32(b64 * dinv) * dinv
+            for _ in range(2):
+                r = b64 - S64 @ x
+                x = x + solve32(r * dinv) * dinv
+            return x.to(in_dtype)
 
-    def by_qr():
-        cuda_graph.mark(dev, "camera_fallback")
-        Q, R = torch.linalg.qr(Ss32)
-        return refined(lambda r64: linalg.solve_upper_triangular(
-            R, Q.T @ r64.to(in_dtype)).to(f64))
+        def by_cholesky():
+            return refined(lambda r64: torch.cholesky_solve(
+                r64.to(in_dtype)[:, None], L)[:, 0].to(f64))
+
+        def by_qr():
+            cuda_graph.mark(dev, "camera_fallback")
+            Q, R = torch.linalg.qr(Ss32)
+            return refined(lambda r64: linalg.solve_upper_triangular(
+                R, Q.T @ r64.to(in_dtype)).to(f64))
 
     if S.is_cuda and not cuda_graph.capturing():
         x = by_cholesky() if bool(ok) else by_qr()

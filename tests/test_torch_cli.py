@@ -8,8 +8,10 @@ table and in the records (Elapsed is not compared):
 
 - f within 1e-7 relative and lambda within 1e-8. The packages' damped
   steps differ by ~1e-10 relative (ROADMAP Queue 3), and a step that lowers
-  the energy 100-fold carries that into the next f 100-fold: measured 2.9e-8
-  (tiny file, cholesky, iteration 3), 1.5e-8 on p16. lambda moves by rho's
+  the energy 100-fold carries that into the next f 100-fold: measured 5.9e-8
+  (tiny file, cholesky, iteration 3, where the port's float64 reduced solve
+  is a once-refined Cholesky and JAX's a QR; 1.4e-7 unrefined), 1.5e-8 on
+  p16. lambda moves by rho's
   gap through the Nielsen factor (8.3e-10 measured) and is exact through
   its 1/3 clamp.
 - rho within 1e-7 relative on the steps that lower the energy by at least

@@ -8,11 +8,11 @@ holds every iteration of a run to the reference's LM rules
   JSONL, converted) and on the port's jit and host records of the same
   generated problem (``balgen`` 12 x 300, seed 2: float64 cholesky to its
   flatline stop, with rejected trials, second growths and accepts in the
-  factor's middle range; and with ``lambda_max`` 1, where it stops on
-  lambda-max), and on the port's df32 records (plain chain) of that
-  problem. Both packages' runs of it take the same path at 2, 4 and 8
-  threads (measured; on other problems the JAX run's path moves with
-  ``OMP_NUM_THREADS``).
+  factor's middle range; and with a low ``lambda_max``, the port's 1e-9
+  and JAX's 1, where it stops on lambda-max), and on the port's df32
+  records (plain chain) of that problem. Both packages' runs of it take
+  the same path at 2, 4 and 8 threads (measured; on other problems the JAX
+  run's path moves with ``OMP_NUM_THREADS``).
 - Each of ``bench_torch.planted_faults``' rule faults (gate "control";
   its numeric faults are ``tests/test_torch_numerics.py``'s) breaks
   control on both drives of
@@ -55,11 +55,16 @@ import flatline_campaign as campaign  # noqa: E402
 #: The generated problem: (cameras, points) and its keywords.
 GEN = (12, 300)
 GEN_KW = dict(seed=2, mean_degree=4.3)
-#: Float64 cholesky on it, to its flatline stop (the port after 51
-#: iterations, JAX after 63); and with a lambda_max that iteration 10's
-#: climb of 9 trials crosses at its 8th, to a lambda-max stop there.
+#: Float64 cholesky on it, to its flatline stop (the port after 48
+#: iterations, JAX after 63); and with a lambda_max that a climb of
+#: rejected trials crosses, to a lambda-max stop there: the port's
+#: iteration 33 climb of 5 trials (from lambda_min) at its 4th, JAX's
+#: iteration 10 climb of 9 trials at its 8th. The port's float64 reduced
+#: solve (a refined Cholesky) and JAX's (a QR) part at rounding level from
+#: iteration 2 on, and the climbs sit where the two paths have parted.
 F64 = lm.LMConfig(max_iter=200)
-LOW_MAX = dataclasses.replace(F64, lambda_max=1.0)
+LOW_MAX = dataclasses.replace(F64, lambda_max=1e-9)
+JAX_LOW_MAX = dataclasses.replace(F64, lambda_max=1.0)
 DF32 = dataclasses.replace(F64, geometry="df32", matmul_dtype="float32")
 #: The p16 bench workload that reaches both a rejection and a mid-range accept.
 P16_MAX_ITER = 20
@@ -239,7 +244,7 @@ def jax_records(rows, lam_rule, energy):
     return records
 
 
-@pytest.mark.parametrize("cfg", [F64, LOW_MAX], ids=["flatline", "lambda-max"])
+@pytest.mark.parametrize("cfg", [F64, JAX_LOW_MAX], ids=["flatline", "lambda-max"])
 def test_checker_passes_jax_host_records(tmp_path, cfg):
     """The JAX package's float64 cholesky on its host drive, on the JAX
     package's copy of the generated problem, its metrics JSONL converted."""

@@ -414,6 +414,43 @@ def test_device_while_on_card():
         cuda_graph.device_while(lambda: x < bound, body)
 
 
+@pytest.mark.parametrize("n", [144, 2313])
+def test_f64_camera_solve_replay_equals_eager(n):
+    """The float64 camera solve (Cholesky, QR on breakdown) captured in a
+    DeviceGraph and replayed on a positive definite and on an indefinite
+    S gives the eager solve's x bit for bit, and its fallback counter
+    reads 0 and 1."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(n)
+    A = torch.randn((n, n), generator=gen, dtype=f64)
+    cases = {"definite": (A @ A.T + n * torch.eye(n, dtype=f64)).to(dev),
+             "indefinite": (A + A.T).to(dev)}
+    b = torch.randn(n, generator=gen, dtype=f64).to(dev)
+    graph = cuda_graph.DeviceGraph(dev)
+    # Eagerly on the capture stream first: both branches' cuSOLVER
+    # handles and workspaces exist before the capture.
+    with torch.cuda.stream(graph.stream):
+        eager = {k: schur._camera_solve_chol(S, b) for k, S in cases.items()}
+    torch.cuda.synchronize()
+    S = cases["definite"].clone()
+    x = graph.capture(lambda: schur._camera_solve_chol(S, b))
+    for name in ("definite", "indefinite", "definite"):
+        S.copy_(cases[name])
+        cuda_graph.zero_marks(dev)
+        graph.replay()
+        torch.cuda.synchronize()
+        got = cuda_graph.unpack(cuda_graph.readable(dev).tolist())
+        assert got["camera_fallback"] == (name == "indefinite"), name
+        assert got["span_counts"]["camera_solve"] == 1, name
+        assert torch.equal(x, eager[name]), name
+    graph.close()
+
+
 # -- the capturable eigensolver and the sharded jit drive ------------------------
 
 

@@ -330,29 +330,50 @@ def test_lambda_tensor_bit_for_bit(df32, pairs):
             assert all(torch.equal(x, y) for x, y in zip(ra, rb)), mode
 
 
-def test_breakdown_branch_is_a_device_predicate():
-    """The float32 Cholesky breakdown test decides on the predicate: an
-    indefinite S takes the refined QR fallback (equal to it computed
-    eagerly), a positive definite one the refined Cholesky solve."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_breakdown_branch_is_a_device_predicate(dtype):
+    """The Cholesky breakdown test decides on the predicate, in either
+    dtype: an indefinite S takes the QR fallback (equal to it computed
+    eagerly; float32 refined, float64 the R-only QR of [D S D | D b]) and
+    counts it, a positive definite one the Cholesky solve (refined twice
+    in float32, once in float64) and counts nothing."""
     rng = np.random.default_rng(0)
     n = 18
     A = rng.normal(size=(n, n))
-    b = torch.from_numpy(rng.normal(size=n))
+    b = torch.from_numpy(rng.normal(size=n)).to(dtype)
+    f64 = torch.float64
     for name, S64 in (("indefinite", A + A.T), ("definite", A @ A.T + n * np.eye(n))):
-        S = torch.from_numpy(S64).to(torch.float32)
-        x = schur._camera_solve_chol(S, b.to(torch.float32))
+        S = torch.from_numpy(S64).to(dtype)
+        cuda_graph.zero_marks("cpu")
+        x = schur._camera_solve_chol(S, b)
+        marks = cuda_graph.unpack(cuda_graph.readable("cpu").tolist())
         # The two branches, eagerly.
-        f64 = torch.float64
-        S64t, b64 = S.to(f64), b.to(torch.float32).to(f64)
+        S64t, b64 = S.to(f64), b.to(f64)
         d = torch.diagonal(S64t)
         dinv = torch.where(d > 0, torch.rsqrt(d.abs() + torch.finfo(f64).tiny),
                            torch.ones_like(d))
-        Ss32 = (S64t * dinv[:, None] * dinv[None, :]).to(torch.float32)
-        L, info = torch.linalg.cholesky_ex(Ss32)
+        Ss = (S64t * dinv[:, None] * dinv[None, :]).to(dtype)
+        L, info = torch.linalg.cholesky_ex(Ss)
         broke = bool(info != 0) or not bool(torch.isfinite(L).all())
         assert broke == (name == "indefinite")
+        assert marks["camera_fallback"] == int(broke), name
+        assert marks["span_counts"]["camera_solve"] == 1
+        if dtype == f64:
+            bs = (b64 * dinv)[:, None]
+            if broke:
+                R = torch.linalg.qr(torch.cat([Ss, bs], dim=1), mode="r")[1]
+                ref = torch.linalg.solve_triangular(R[:, :n], R[:, n:], upper=True)
+            else:
+                # One refinement pass on the scaled system, as the solve
+                # holds it: the left part of [D S D | D b].
+                Ss = torch.cat([Ss, bs], dim=1)[:, :n]
+                ref = torch.cholesky_solve(bs, L)
+                ref = ref + torch.cholesky_solve(bs - Ss @ ref, L)
+            assert torch.equal(x, ref[:, 0] * dinv), name
+            continue
         if broke:
-            Q, R = torch.linalg.qr(Ss32)
+            Q, R = torch.linalg.qr(Ss)
             solve = lambda r: torch.linalg.solve_triangular(  # noqa: E731
                 R, (Q.T @ r.to(torch.float32))[:, None], upper=True)[:, 0].to(f64)
         else:

@@ -89,14 +89,17 @@ def test_chunked_run_reads_once_a_chunk(small):
     _held_to_counts(jit)
 
 
-def test_indefinite_float32_system_takes_the_counted_fallback():
-    """An indefinite float32 reduced system: one camera solve span, one
-    fallback, and the refined QR solve's answer."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_indefinite_system_takes_the_counted_fallback(dtype):
+    """An indefinite reduced system, float32 or float64: one camera solve
+    span, one fallback, and the QR branch's answer (float32: the refined
+    QR solve; float64: the R-only QR of [D S D | D b])."""
     rng = np.random.default_rng(3)
     n = 18
     A = rng.normal(size=(n, n))
-    S = torch.from_numpy(A + A.T).to(torch.float32)
-    b = torch.from_numpy(rng.normal(size=n)).to(torch.float32)
+    S = torch.from_numpy(A + A.T).to(dtype)
+    b = torch.from_numpy(rng.normal(size=n)).to(dtype)
     cuda_graph.zero_marks("cpu")
     x = schur._camera_solve_chol(S, b)
     got = cuda_graph.unpack(cuda_graph.readable("cpu").tolist())
@@ -108,9 +111,15 @@ def test_indefinite_float32_system_takes_the_counted_fallback():
     d = torch.diagonal(S64)
     dinv = torch.where(d > 0, torch.rsqrt(d.abs() + torch.finfo(f64).tiny),
                        torch.ones_like(d))
-    Ss32 = (S64 * dinv[:, None] * dinv[None, :]).to(torch.float32)
-    assert int(torch.linalg.cholesky_ex(Ss32)[1]) != 0
-    Q, R = torch.linalg.qr(Ss32)
+    Ss = (S64 * dinv[:, None] * dinv[None, :]).to(dtype)
+    assert int(torch.linalg.cholesky_ex(Ss)[1]) != 0
+    if dtype == f64:
+        R = torch.linalg.qr(torch.cat([Ss, (b64 * dinv)[:, None]], dim=1),
+                            mode="r")[1]
+        ref = linalg.solve_upper_triangular(R[:, :n], R[:, n]) * dinv
+        assert torch.equal(x, ref)
+        return
+    Q, R = torch.linalg.qr(Ss)
 
     def solve(r64):
         return linalg.solve_upper_triangular(R, Q.T @ r64.to(torch.float32)).to(f64)
