@@ -35,9 +35,11 @@ Each workload (problem, mode) is gated, and the line says ``correct``:
 and final energy, bit for bit, and no run captured inside its window;
 (b) with df32 on CUDA, the whole workload on the timed graph itself (the
 graph cache's key leaves out the limits and the observers, so it replays
-without a capture) and once more with the chain kernels' plain versions
-take the same trials and accepts on every iteration, with energies within
-1e-9 (untimed; ``kernels_vs_plain``); (c) every run
+without a capture), its states observed, and each of its iterations once
+more with the chain kernels' plain versions, from that run's own state
+and lambda before it, take the same trials, accept and stop, with the
+prepare's and the accepted energies within 1e-9 (untimed;
+``kernels_vs_plain``); (c) every run
 descends: its energy is
 finite and below the initial one, it stopped on a success or on the
 iteration budget, and its points are finite, of shape (M, 3); (d) the
@@ -261,68 +263,120 @@ def timed_run(problem, mode: str, cfg: lm.LMConfig, dev: torch.device) -> tuple:
 
 
 def records_parting(kern: list, plain: list) -> dict:
-    """Two runs' iteration records compared from the first: bitwise_to
+    """Two lists of iteration records compared from the first: bitwise_to
     (the last iteration up to which they are equal bit for bit),
     within_to (the last up to which every iteration takes the same trials
-    and accept with energy_out within KERNELS_RTOL) and parted (the first
-    iteration past within_to with both runs' records there, a record None
-    where that run had ended; None where they stay within to the end of
-    both)."""
+    and accept with the prepare's energy f and energy_out within
+    KERNELS_RTOL), largest_gap (the largest of those energy gaps up to
+    within_to) and parted (the first iteration past within_to with both
+    lists' records there, a record None where that list had ended or holds
+    None; None where they stay within to the end of both)."""
     bitwise = within = 0
+    largest = 0.0
     for k, (a, b) in enumerate(zip(kern, plain), 1):
         if a == b and bitwise == k - 1:
             bitwise = k
-        if (a.n_trials, a.accepted) != (b.n_trials, b.accepted) or not _rel(
-                a.energy_out, b.energy_out) <= KERNELS_RTOL:
+        if None in (a, b) or (a.n_trials, a.accepted) != (b.n_trials, b.accepted):
             break
-        within = k
+        gap = max(_rel(a.f, b.f), _rel(a.energy_out, b.energy_out))
+        if not gap <= KERNELS_RTOL:
+            break
+        within, largest = k, max(largest, gap)
     parted = None
     if within < max(len(kern), len(plain)):
         parted = {"iteration": within + 1, "records": [
             r[within] if within < len(r) else None for r in (kern, plain)]}
-    return {"bitwise_to": bitwise, "within_to": within, "parted": parted}
+    return {"bitwise_to": bitwise, "within_to": within, "largest_gap": largest,
+            "parted": parted}
+
+
+def resume_at(records: list, k: int, cfg: lm.LMConfig) -> dict:
+    """``lm.minimize``'s ``resume`` (a checkpoint's meta) that starts
+    iteration ``k`` (from 1) of the run that wrote ``records``: the first
+    trial's lambda, the iterations and evaluations before it (a prepare
+    and its trials each) and the flatline history they left."""
+    size = cfg.energy_history_size
+    hist, fun_evals = [0.0] * size, 0
+    for j, r in enumerate(records[:k - 1], 1):
+        fun_evals += 1 + r.n_trials
+        if r.accepted:
+            hist[j % size] = r.energy_out
+    return {"lam": records[k - 1].lam0, "iteration": k - 1,
+            "fun_evals": fun_evals, "energy_history": hist}
+
+
+def rerun_iterations(problem, mode: str, cfg: lm.LMConfig, dev: torch.device,
+                     states: list) -> tuple:
+    """Each iteration of an observed run (``states``: ``lm.minimize``'s
+    (iteration, float64 state after it, record) of every iteration) run
+    again alone under ``cfg``: from the state before it (the problem's own
+    before the first) with ``resume_at``'s lambda and counts, to
+    ``max_iter`` k. Returns (the records, one an iteration, None where a
+    rerun recorded none; the status each rerun stopped with; the last
+    rerun's ``LMResult``)."""
+    records = [r for _, _, r in states]
+    before = [None] + [s for _, s, _ in states[:-1]]
+    rerun, stops, res = [], [], None
+    for k, state in enumerate(before, 1):
+        got = []
+        res = lm.minimize(problem, mode, dataclasses.replace(cfg, max_iter=k),
+                          state=state, device=dev,
+                          resume=resume_at(records, k, cfg), records=got)
+        rerun.append(got[0] if len(got) == 1 else None)
+        stops.append(res.status)
+    return rerun, stops, res
 
 
 def kernels_vs_plain(problem, modes, cfg: lm.LMConfig, dev: torch.device) -> dict:
     """Gate (b) for each of ``modes`` ({mode: record}; None off CUDA or off
-    df32): the whole workload run with its iteration records, first with
-    the chain kernels: the graph cache's key leaves out the limits and the
+    df32): the whole workload run with the chain kernels, its states
+    observed: the graph cache's key leaves out the limits and the
     observers (``lm._graph_key``), so it replays the timed graph itself,
     which it must (``captured`` false) with both chain kernels launched.
-    Then those graphs are freed and each mode's run with the chain's plain
-    versions captures its own, freed after it: a Ladybug pool holds
-    11.62 GB, and no more than the timed pools are ever resident. Every
-    iteration of the two must take the same trials and accept, with
-    energies within KERNELS_RTOL (``records_parting``): measured on an
-    H100 they stay so to the stop at p257 cholesky and qrchol and on the
-    Ladybug stand-in, within 5.5e-15 and not bit for bit (PERF.md)."""
+    Then those graphs are freed and each mode's iterations are run again
+    with the chain's plain versions (``rerun_iterations``: each alone,
+    from the kernel run's own state and lambda before it), on a graph of
+    their own, freed after it: a Ladybug pool holds 11.62 GB, and no more
+    than the timed pools are ever resident. Every iteration of the two
+    must take the same trials, accept and stop, with the prepare's and the
+    accepted energies within KERNELS_RTOL (``records_parting``). Each
+    iteration starts from the same state and lambda in both, so a gap is
+    the chain's own on that iteration: two whole runs would each carry
+    their own lambda, which parts by ~1e-9 through rho late in a run (the
+    chain's energies differ by ~1e-15: summation order) and, where the two
+    round to different float32 values, parts the float32 reduced systems
+    and with them the energies (PERF.md)."""
     if cfg.geometry != "df32" or dev.type != "cuda":
         return {mode: None for mode in modes}
     kern = {}
     for mode in modes:
         cuda_chain.reset_launches()
-        records = []
-        res = lm.minimize(problem, mode, cfg, device=dev, records=records)
-        kern[mode] = (res, records, lm.LAST_JIT_RUN["captured"],
+        states = []
+        res = lm.minimize(problem, mode, cfg, device=dev,
+                          states=lambda *s: states.append(s))
+        kern[mode] = (res, states, lm.LAST_JIT_RUN["captured"],
                       dict(cuda_chain.LAUNCHES))
     lm.clear_graphs()
     gates = {}
     for mode in modes:
-        records = []
-        plain = lm.minimize(problem, mode, dataclasses.replace(cfg, kernels=False),
-                            device=dev, records=records)
+        k, states, captured, launches = kern[mode]
+        k_records = [r for _, _, r in states]
+        rerun, stops, plain = rerun_iterations(
+            problem, mode, dataclasses.replace(cfg, kernels=False), dev, states)
         lm.clear_graphs()
-        k, k_records, captured, launches = kern[mode]
+        want = [lm.LMStatus.MaxItersReached] * (len(stops) - 1) + [k.status]
         gap = _rel(k.energy, plain.energy)
-        parting = records_parting(k_records, records)
+        parting = records_parting(k_records, rerun)
         gates[mode] = {
             "iterations": [k.iterations, plain.iterations],
             "fun_evals": [k.fun_evals, plain.fun_evals],
             "energy": [k.energy, plain.energy], "rel_gap": gap, **parting,
+            "same_stops": stops == want,
             "kernels_captured": captured, "kernels_launches": launches,
             "ok": (k.iterations, k.fun_evals) == (plain.iterations, plain.fun_evals)
             and gap <= KERNELS_RTOL and parting["parted"] is None
-            and captured is False and min(launches.values()) > 0}
+            and stops == want and captured is False
+            and min(launches.values()) > 0}
     return gates
 
 

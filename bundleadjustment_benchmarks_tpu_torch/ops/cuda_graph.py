@@ -202,7 +202,7 @@ def device_cond(pred: torch.Tensor, true_fn, false_fn, out: torch.Tensor):
 #: (``lm.DeviceLoop._begin``) and damped trial (``DeviceLoop._step``), and
 #: the reduced camera solve (``schur._camera_solve_chol``).
 SPANS = ("prepare", "trial", "camera_solve")
-#: The record's counters, after the spans' slots: the camera solve's QR
+#: The record's counters, after the spans' slots: the camera solve's
 #: fallbacks (a mark), then the launches a replay ran of the chain kernels
 #: (``cuda_chain``) and the eigensolver (``cuda_eigh``), each a captured
 #: add to its slot.

@@ -1199,7 +1199,7 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
       ``prepares``, ``slots`` and ``slots`` (a trial holds one camera
       solve; with ``refine_steps`` one more per pass);
       ``camera_fallbacks``: camera solves (float32 or float64) whose
-      Cholesky broke down and took the QR fallback; all brought back by
+      Cholesky broke down and took the fallback; all brought back by
       the reads above;
     * ``graphs_cached``: the size of the graph cache;
     * on a shard, the collectives: ``allreduce_per_prepare`` and

@@ -616,9 +616,12 @@ def _camera_solve_chol(S, b):
     dtype's rounding for tiny lambda). A float64 system's Cholesky solve is
     refined once with a float64 residual of the scaled system; its QR
     fallback reduces [D S D | D b] to R alone, whose last column is
-    Q^T D b, so neither branch forms Q. A float32 system is refined twice
-    with float64 residuals b - S x (S promoted to float64), through its
-    Cholesky factor or its QR. The breakdown test
+    Q^T D b, so neither branch forms Q. A float32 system falls back to a
+    partially pivoted LU of the scaled system (getrf: a third of the QR's
+    flops, and no orthogonal factor, which the square system does not
+    need), and either factor is refined twice with float64 residuals
+    b - S x (S promoted to float64). A zero pivot leaves x non-finite, as
+    a singular R did, and the drive rejects that trial. The breakdown test
     (``cholesky_ex``'s info == 0 and a finite factor) is a device
     predicate: the host drive on CUDA reads it once per solve; under a CUDA
     graph capture both branches become conditional nodes (the JAX
@@ -633,8 +636,8 @@ def _camera_solve_chol(S, b):
 
     The solve is the ``camera_solve`` span of the device's in-graph record
     (``cuda_graph.mark``: from its first operation to the end of both
-    branches), and the QR fallback adds one to its ``camera_fallback``
-    counter."""
+    branches), and either dtype's fallback adds one to its
+    ``camera_fallback`` counter."""
     dev = S.device
     cuda_graph.mark(dev, "camera_solve_begin")
     in_dtype = S.dtype
@@ -681,16 +684,18 @@ def _camera_solve_chol(S, b):
             return refined(lambda r64: torch.cholesky_solve(
                 r64.to(in_dtype)[:, None], L)[:, 0].to(f64))
 
-        def by_qr():
+        def by_lu():
             cuda_graph.mark(dev, "camera_fallback")
-            Q, R = torch.linalg.qr(Ss32)
-            return refined(lambda r64: linalg.solve_upper_triangular(
-                R, Q.T @ r64.to(in_dtype)).to(f64))
+            LU, piv, _ = torch.linalg.lu_factor_ex(Ss32)
+            return refined(lambda r64: torch.linalg.lu_solve(
+                LU, piv, r64.to(in_dtype)[:, None])[:, 0].to(f64))
+
+    by_fallback = by_qr if in_dtype == f64 else by_lu
 
     if S.is_cuda and not cuda_graph.capturing():
-        x = by_cholesky() if bool(ok) else by_qr()
+        x = by_cholesky() if bool(ok) else by_fallback()
     else:
-        x = cuda_graph.device_cond(ok, by_cholesky, by_qr,
+        x = cuda_graph.device_cond(ok, by_cholesky, by_fallback,
                                    torch.empty_like(b, dtype=in_dtype))
     cuda_graph.mark(dev, "camera_solve_end")
     return x

@@ -235,6 +235,61 @@ def test_kernel_gate_fails_the_workload():
                                                            "qrchol": None}
 
 
+#: Runs that gate (b)'s reruns must reproduce: p16 df32 to the iteration
+#: budget (iterations 1 and 5 reject a trial), to a flatline stop at
+#: iteration 3, and to a lambda-max stop at iteration 1's rejected trial.
+RERUN_STOPS = {
+    "budget": (dict(max_iter=6), lm.LMStatus.MaxItersReached),
+    "flatline": (dict(max_iter=6, tol_fun=0.5), lm.LMStatus.Success),
+    "lambda-max": (dict(max_iter=6, lambda_max=0.01), lm.LMStatus.ExceededLambdaMax),
+}
+
+
+def _observed(problem, cfg):
+    states = []
+    res = lm.minimize(problem, "cholesky", cfg, device="cpu",
+                      states=lambda *s: states.append(s))
+    return res, states
+
+
+@pytest.mark.parametrize("drive", ["host", "jit"])
+@pytest.mark.parametrize("stop", RERUN_STOPS)
+def test_reruns_reproduce_the_run(p16_f64, drive, stop):
+    """Gate (b)'s reruns (``rerun_iterations``) where the chain is the same
+    on both sides (the plain one, on the CPU): each iteration of a p16
+    df32 run, run again alone from that run's state and lambda before it
+    (``resume_at``), gives that iteration's record bit for bit and stops
+    as the run did, and the last rerun ends at the run's endpoint. So a
+    part in gate (b) is the chain's, not the reruns'."""
+    limits, status = RERUN_STOPS[stop]
+    cfg = dataclasses.replace(campaign.drive_config("df32", 1), drive=drive, **limits)
+    res, states = _observed(p16_f64[0], cfg)
+    assert res.status == status
+    records = [r for _, _, r in states]
+    rerun, stops, last = bench.rerun_iterations(p16_f64[0], "cholesky", cfg,
+                                                torch.device("cpu"), states)
+    parting = bench.records_parting(records, rerun)
+    assert parting["bitwise_to"] == len(records) and parting["parted"] is None
+    assert stops == [lm.LMStatus.MaxItersReached] * (len(records) - 1) + [status]
+    assert (last.status, last.iterations, last.fun_evals, last.energy, last.lam) == (
+        res.status, res.iterations, res.fun_evals, res.energy, res.lam)
+
+
+@pytest.mark.parametrize("fault", ["energy-scaled", "step-scaled"])
+def test_reruns_part_on_a_fault_of_the_chain(p16_f64, fault):
+    """A fault in the reruns' chain alone (both chain energies x (1 +
+    ENERGY_FAULT), or the reduced right-hand side x (1 + STEP_FAULT)) parts
+    gate (b)'s comparison at the first iteration, on the prepare's energy
+    or on the accepted one."""
+    cfg = dataclasses.replace(campaign.drive_config("df32", 2), drive="host")
+    _, states = _observed(p16_f64[0], cfg)
+    with bench.planted(bench.planted_faults()[fault]):
+        rerun, _, _ = bench.rerun_iterations(p16_f64[0], "cholesky", cfg,
+                                             torch.device("cpu"), states)
+    parting = bench.records_parting([r for _, _, r in states], rerun)
+    assert parting["within_to"] == 0 and parting["parted"]["iteration"] == 1
+
+
 def test_last_line_baseline():
     recs = [{"mode": "cholesky", "it_per_s": {"median": 2.0}, "correct": True},
             {"mode": "qrchol", "it_per_s": {"median": 1.0}, "correct": False}]

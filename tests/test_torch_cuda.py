@@ -414,12 +414,10 @@ def test_device_while_on_card():
         cuda_graph.device_while(lambda: x < bound, body)
 
 
-@pytest.mark.parametrize("n", [144, 2313])
-def test_f64_camera_solve_replay_equals_eager(n):
-    """The float64 camera solve (Cholesky, QR on breakdown) captured in a
-    DeviceGraph and replayed on a positive definite and on an indefinite
-    S gives the eager solve's x bit for bit, and its fallback counter
-    reads 0 and 1."""
+def _camera_solve_replay_equals_eager(n, dtype):
+    """The camera solve of ``dtype`` captured in a DeviceGraph and replayed
+    on a positive definite and on an indefinite S gives the eager solve's
+    x bit for bit, and its fallback counter reads 0 and 1."""
     from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph
 
     if not torch.cuda.is_available():
@@ -428,9 +426,9 @@ def test_f64_camera_solve_replay_equals_eager(n):
     f64 = torch.float64
     gen = torch.Generator().manual_seed(n)
     A = torch.randn((n, n), generator=gen, dtype=f64)
-    cases = {"definite": (A @ A.T + n * torch.eye(n, dtype=f64)).to(dev),
-             "indefinite": (A + A.T).to(dev)}
-    b = torch.randn(n, generator=gen, dtype=f64).to(dev)
+    cases = {"definite": (A @ A.T + n * torch.eye(n, dtype=f64)).to(dev, dtype),
+             "indefinite": (A + A.T).to(dev, dtype)}
+    b = torch.randn(n, generator=gen, dtype=f64).to(dev, dtype)
     graph = cuda_graph.DeviceGraph(dev)
     # Eagerly on the capture stream first: both branches' cuSOLVER
     # handles and workspaces exist before the capture.
@@ -447,8 +445,23 @@ def test_f64_camera_solve_replay_equals_eager(n):
         got = cuda_graph.unpack(cuda_graph.readable(dev).tolist())
         assert got["camera_fallback"] == (name == "indefinite"), name
         assert got["span_counts"]["camera_solve"] == 1, name
-        assert torch.equal(x, eager[name]), name
+        assert x.dtype == dtype and torch.equal(x, eager[name]), name
     graph.close()
+
+
+@pytest.mark.parametrize("n", [144, 2313])
+def test_f64_camera_solve_replay_equals_eager(n):
+    """The float64 camera solve (Cholesky, QR on breakdown) replayed
+    equals the eager solve (``_camera_solve_replay_equals_eager``)."""
+    _camera_solve_replay_equals_eager(n, torch.float64)
+
+
+@pytest.mark.parametrize("n", [144, 2313])
+def test_f32_camera_solve_replay_equals_eager(n):
+    """The float32 camera solve (Cholesky, pivoted LU on breakdown, each
+    refined twice) replayed equals the eager solve
+    (``_camera_solve_replay_equals_eager``)."""
+    _camera_solve_replay_equals_eager(n, torch.float32)
 
 
 # -- the capturable eigensolver and the sharded jit drive ------------------------

@@ -334,8 +334,8 @@ def test_lambda_tensor_bit_for_bit(df32, pairs):
                          ids=["float32", "float64"])
 def test_breakdown_branch_is_a_device_predicate(dtype):
     """The Cholesky breakdown test decides on the predicate, in either
-    dtype: an indefinite S takes the QR fallback (equal to it computed
-    eagerly; float32 refined, float64 the R-only QR of [D S D | D b]) and
+    dtype: an indefinite S takes the fallback (equal to it computed
+    eagerly; float32 the refined LU, float64 the R-only QR of [D S D | D b]) and
     counts it, a positive definite one the Cholesky solve (refined twice
     in float32, once in float64) and counts nothing."""
     rng = np.random.default_rng(0)
@@ -373,9 +373,9 @@ def test_breakdown_branch_is_a_device_predicate(dtype):
             assert torch.equal(x, ref[:, 0] * dinv), name
             continue
         if broke:
-            Q, R = torch.linalg.qr(Ss)
-            solve = lambda r: torch.linalg.solve_triangular(  # noqa: E731
-                R, (Q.T @ r.to(torch.float32))[:, None], upper=True)[:, 0].to(f64)
+            LU, piv, _ = torch.linalg.lu_factor_ex(Ss)
+            solve = lambda r: torch.linalg.lu_solve(  # noqa: E731
+                LU, piv, r.to(torch.float32)[:, None])[:, 0].to(f64)
         else:
             solve = lambda r: torch.cholesky_solve(  # noqa: E731
                 r.to(torch.float32)[:, None], L)[:, 0].to(f64)
@@ -383,6 +383,70 @@ def test_breakdown_branch_is_a_device_predicate(dtype):
         for _ in range(2):
             ref = ref + solve((b64 - S64t @ ref) * dinv) * dinv
         assert torch.equal(x, ref.to(torch.float32)), name
+
+
+def test_singular_camera_system_is_a_non_finite_trial(monkeypatch):
+    """An exactly singular float32 reduced system (a camera whose row and
+    column of S are zero) takes the fallback, whose LU meets a zero pivot:
+    x comes out non-finite, as the QR's singular R made it. Both drives
+    treat that trial as any non-finite trial: each run equals, bit for bit,
+    the one whose first camera solve returns NaN outright, and debug_nans
+    raises at the jit drive's read of iteration 1."""
+    _, tp = _pair(0, n_cameras=6, n_points=40, obs_per_point=4,
+                  inlier_threshold=2.0)
+    kw = dict(max_iter=4, matmul_dtype="float32", geometry="df32")
+    assemble, solve = schur.assemble_reduced, schur._camera_solve_chol
+
+    def on_first_call(fn):
+        calls = [0]
+
+        def wrapped(*args):
+            calls[0] += 1
+            return fn(calls[0] == 1, *args)
+        return wrapped
+
+    def singular(first, *args):
+        S, b = assemble(*args)
+        if first:
+            S = S.clone()
+            S[0, :] = 0
+            S[:, 0] = 0
+        return S, b
+
+    def nan_solve(first, S, b):
+        x = solve(S, b)
+        return torch.full_like(x, math.nan) if first else x
+
+    xs = []
+
+    def watched(S, b):
+        xs.append(solve(S, b))
+        return xs[-1]
+
+    for drive in ("jit", "host"):
+        cfg = lm.LMConfig(drive=drive, **kw)
+        xs.clear()
+        with monkeypatch.context() as m:
+            m.setattr(schur, "assemble_reduced", on_first_call(singular))
+            m.setattr(schur, "_camera_solve_chol", watched)
+            got = lm.minimize(tp, "cholesky", cfg, device="cpu")
+        assert xs[0].dtype == torch.float32
+        assert not bool(torch.isfinite(xs[0]).any()), drive
+        assert all(bool(torch.isfinite(x).all()) for x in xs[1:]), drive
+        with monkeypatch.context() as m:
+            m.setattr(schur, "_camera_solve_chol", on_first_call(nan_solve))
+            ref = lm.minimize(tp, "cholesky", cfg, device="cpu")
+        print(f"singular camera system, {drive}: {_counts(got)} {got.energy!r}; "
+              f"NaN solve {_counts(ref)} {ref.energy!r}")
+        assert _counts(got) == _counts(ref), drive
+        assert math.isfinite(got.energy) and got.energy == ref.energy, drive
+        assert got.lam == ref.lam, drive
+        assert torch.equal(got.state.points, ref.state.points), drive
+    with monkeypatch.context() as m:
+        m.setattr(schur, "assemble_reduced", on_first_call(singular))
+        with pytest.raises(FloatingPointError, match="LM iteration 1"):
+            lm.minimize(tp, "cholesky", lm.LMConfig(
+                drive="jit", debug_nans=True, **kw), device="cpu")
 
 
 def test_growth_table_and_reads():

@@ -223,7 +223,7 @@ def test_df32_step_as_good_as_jax(monkeypatch):
     chain, ``jlm._prepare_fast(..., pallas=False)``) at the same states:
     numpy-made synthetic problems (6 x 40, tau 2 px, seeds 0-3) at 1, 2 and
     8 times the first lambda, where the float32 Cholesky breaks down and
-    the refined QR fallback runs (``test_torch_schur.py::
+    the refined LU fallback runs (``test_torch_schur.py::
     test_float32_step_as_accurate_as_jax``). Both steps' eta against the
     port's df32 chain lie under the df32 bound, and the port's largest is
     within 2x of JAX's largest."""

@@ -1,6 +1,6 @@
 """The spans and the counter of the port's in-graph record
 (``ops/cuda_graph.py``): the LM drive's prepares and trials and the reduced
-camera solve, timed between marks, and the camera solve's QR fallbacks,
+camera solve, timed between marks, and the camera solve's fallbacks,
 brought back by the drive's one host read into ``lm.LAST_JIT_RUN``.
 
 On the CPU the same marks record the host's clock, so the layout of the
@@ -93,8 +93,8 @@ def test_chunked_run_reads_once_a_chunk(small):
                          ids=["float32", "float64"])
 def test_indefinite_system_takes_the_counted_fallback(dtype):
     """An indefinite reduced system, float32 or float64: one camera solve
-    span, one fallback, and the QR branch's answer (float32: the refined
-    QR solve; float64: the R-only QR of [D S D | D b])."""
+    span, one fallback, and the fallback branch's answer (float32: the
+    refined LU solve; float64: the R-only QR of [D S D | D b])."""
     rng = np.random.default_rng(3)
     n = 18
     A = rng.normal(size=(n, n))
@@ -105,7 +105,7 @@ def test_indefinite_system_takes_the_counted_fallback(dtype):
     got = cuda_graph.unpack(cuda_graph.readable("cpu").tolist())
     assert got["camera_fallback"] == 1
     assert got["span_counts"] == {"prepare": 0, "trial": 0, "camera_solve": 1}
-    # The QR branch, eagerly.
+    # The fallback branch, eagerly.
     f64 = torch.float64
     S64, b64 = S.to(f64), b.to(f64)
     d = torch.diagonal(S64)
@@ -119,10 +119,11 @@ def test_indefinite_system_takes_the_counted_fallback(dtype):
         ref = linalg.solve_upper_triangular(R[:, :n], R[:, n]) * dinv
         assert torch.equal(x, ref)
         return
-    Q, R = torch.linalg.qr(Ss)
+    LU, piv, _ = torch.linalg.lu_factor_ex(Ss)
 
     def solve(r64):
-        return linalg.solve_upper_triangular(R, Q.T @ r64.to(torch.float32)).to(f64)
+        return torch.linalg.lu_solve(
+            LU, piv, r64.to(torch.float32)[:, None])[:, 0].to(f64)
 
     ref = solve(b64 * dinv) * dinv
     for _ in range(2):
