@@ -1,27 +1,30 @@
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Checks of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--jit-only]
 
-Builds the chain kernels from ``bundleadjustment_benchmarks_tpu_torch/ops/
-csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
-in-repo BAL stand-ins, drives ``lm.minimize(mode="cholesky")`` on the df32
-drive (kernels on, p257 stand-in) and on the float64 drive (p16 stand-in),
-both on the host LM drive, then ``lm.minimize`` with ``LMConfig()``'s
-defaults, whose LM drive is the device-resident one (one replay and one
-host read a run, as JAX's one dispatch), against explicit jit
-and host runs on p257, float64 and df32, and the graph cache's bound over
-p16, p126 and p257 (``default_drive``), float64 cholesky on p126 and p257
-against the scipy oracle's logged prefix on both LM drives
-(``oracle_prefix``), ``bench_torch.py``'s default run, bench.py's workload
-on p257 at 3 repeats, gated, each workload held to the JAX package's
-campaign row and the scipy oracle's prefix, every iteration to the LM
-rules and every accepted step and energy to float64 (``bench``), faults
-planted in those rules and in the numbers caught by those two gates
-(``bench_planted``), then the other four solver modes
-(``modes_df32_p257``, ``modes_f64_p16``), every solve realization against cholesky's step (``modes_agree_p16``),
-qrkit's "rows" and "pair" forms (``qrkit_forms_p257``) and spqr's "gram"
-and "tsqr" forms (``spqr_forms_p257``), then the command line in-process
-(``cli.main``): p257 with ``--precision mixed``, a checkpoint and its resume
+Builds the kernels from ``bundleadjustment_benchmarks_tpu_torch/ops/csrc``
+with nvcc, holds each chain kernel against its plain PyTorch version on the
+in-repo BAL stand-ins and each of its entry points to one device operation
+(in a CUDA graph of one call and in ``torch.profiler`` profiles), drives
+``lm.minimize(mode="cholesky")`` on the df32 drive (kernels on, p257
+stand-in) and on the float64 drive (p16 stand-in), both on the host LM
+drive, then ``lm.minimize`` with ``LMConfig()``'s defaults, whose LM drive
+is the device-resident one (one replay and one host read a run, as JAX's
+one dispatch), against explicit jit and host runs on p257, float64 and
+df32, and the graph cache's bound over p16, p126 and p257
+(``default_drive``), float64 cholesky on p126 and p257 against the scipy
+oracle's logged prefix on both LM drives (``oracle_prefix``),
+``bench_torch.py``'s default run, bench.py's workload on p257 at 3
+repeats, gated, each workload held to the JAX package's campaign row and
+the scipy oracle's prefix, every iteration to the LM rules and every
+accepted step and energy to float64 (``bench``), faults planted in those
+rules and in the numbers caught by those two gates (``bench_planted``),
+then the other four solver modes (``modes_df32_p257``, ``modes_f64_p16``),
+every solve realization against cholesky's step (``modes_agree_p16``),
+qrkit's "rows" and "pair" forms with their peak memory
+(``qrkit_forms_p257``) and spqr's "gram" and "tsqr" forms
+(``spqr_forms_p257``), then the command line in-process (``cli.main``):
+p257 with ``--precision mixed``, a checkpoint and its resume
 (``cli_mixed_p257``), p16 in float64 with every solver and a two-phase
 ``--polish`` run (``cli_f64_p16``), and a generated stand-in of BAL's
 Ladybug problem-1723-156502 whose 1,723 cameras the kernels do not stage in
@@ -33,11 +36,11 @@ mode at 2 ranks on p257 df32 and on p16 float64 (``sharded_gloo_p257``,
 (``sharded_ladybug_df32``), a checkpoint written at 2 ranks resumed on one
 device, the command line's ``--shards`` (``cli_shards``) and the dry run at
 1 and 2 ranks (``dryrun_multichip``; the NCCL rank replays its captured
-step), then every mode on p16 float64 to the
-reference's flatline stop, each held to the JAX campaign's f64 budget
-against the scipy oracle (``flatline_p16_f64``), the ellipse-fitting example
-on the card (``ellipse``) and the blocked Cholesky pair against cuSOLVER's
-at the p257 and Ladybug reduced-system sizes (``blocked_chol``), then the
+step), then every mode on p16 float64 to the reference's flatline stop,
+each held to the JAX campaign's f64 budget against the scipy oracle
+(``flatline_p16_f64``), the ellipse-fitting example on the card
+(``ellipse``) and the blocked Cholesky pair against cuSOLVER's at the p257
+and Ladybug reduced-system sizes (``blocked_chol``), then the
 device-resident LM drive (``drive="jit"``): both kernels replayed from a
 captured graph (``jit_kernels_replayed``), p257 df32 cholesky on both
 drives alternated (``jit_p257_df32``), the chunk loop with no
@@ -46,9 +49,8 @@ synchronization between its reads (``jit_no_sync``), every mode
 block Jacobi eigensolver that pair-less qrkit's prepare runs, on its p16
 and p257 grams and on rank-deficient and clustered matrices of 10 and
 1,000 rows, against ``torch.linalg.eigh`` and replayed from a graph, with
-each of its kernels' device time and its sweep counters
-(``eigh_capture``), qrkit without pair tables on both drives, one
-eigensolver call a prepare (``jit_qrkit_rows_p257``), and the
+its sweep counters (``eigh_capture``), qrkit without pair tables on both
+drives, one eigensolver call a prepare (``jit_qrkit_rows_p257``), and the
 sharded jit drive: NCCL at world size 1 against the sharded host drive and
 the single-device jit drive (``jit_sharded_nccl_p257``,
 ``jit_sharded_no_sync``, ``jit_sharded_modes``), two NCCL ranks where the
@@ -56,19 +58,16 @@ machine has two GPUs (``jit_sharded_nccl_d2``; on one GPU a line says it
 did not run), and the refusal of two gloo ranks on the card
 (``jit_sharded_gloo_refused``, in the sharded gloo group), and fails on any
 disagreement. ``--jit-only`` runs the build and the jit, eigensolver and
-sharded jit phases alone; ``--eigh-only`` runs the build and the
-eigensolver's phases (``eigh_phases``) alone, and, copied into a ``git
-archive`` of an older checkout, times that checkout's eigensolver there.
-Each phase prints JSON lines with its wall time; then come one line of
-per-kernel numbers (the kernel's and its entry point's device
-time, the host time to issue one call, the device operations one call
-issues, which must be 1 in a CUDA graph of one call and in every profile
-of 10 that records any, the launch shape, and the
-launches of the default drive's df32 run; the eigensolver's entry beside
-them), and last
-``{"ok": true, "device": {"platform": "gpu", ...}}``. Without a CUDA device,
-or without the package beside it, it exits non-zero before printing any
-result. Imports nothing of JAX.
+sharded jit phases alone. Each phase prints JSON lines with its wall time
+(``phase_s``), the script's own cost; then come one line of per-kernel
+results (the device operations one entry-point call issues, which must be
+1 in a CUDA graph of one call and in every profile of 10 that records any,
+the launch shape, the errors against the plain version and the launches
+counted in the phases; the eigensolver's entry beside them), and last
+``{"ok": true, "device": {"platform": "gpu", ...}}``. It times nothing:
+``stage_profile.py`` times the kernels and ``portbench/`` the solves.
+Without a CUDA device, or without the package beside it, it exits non-zero
+before printing any result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -83,7 +82,6 @@ import io
 import json
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -99,24 +97,6 @@ PACKAGE = HERE / "bundleadjustment_benchmarks_tpu_torch"
 P16 = HERE / "data" / "problem-16-22106-pre.txt.gz"
 P257 = HERE / "data" / "problem-257-65132-pre.txt.gz"
 
-#: Published device-memory rate (bytes/s) and float32 peak (FLOP/s, outside
-#: the tensor cores, an FMA counted as two) by card name (NVIDIA data sheets).
-CARDS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H200", 4.8e12, 67e12),
-    ("H100", 3.35e12, 67e12),
-)
-#: float32 instructions per observation, counted from csrc/chain_math.cuh
-#: (two_prod = mul + fma; df_mul 9, df_add 11). Built with --fmad=false, they
-#: issue as separate adds and multiplies (two_prod's one fma counts once), at
-#: half the FMA-counting peak (SMs x 128 lanes x clock). The DF transform
-#: 180, the residual 18, the robust factor 12; blocks then add the Jacobian
-#: rows and the robust product (166) and the DF square sum (15), energy adds
-#: its DF square (15); each adds one DF add into its running sum (11). The
-#: camera split into DF halves is per camera (N-sized) and is not counted.
-OPS_PER_OBS = {"chain_blocks": 180 + 18 + 12 + 166 + 15 + 11,
-               "chain_energy": 180 + 18 + 12 + 15 + 11}
 #: The kernel rows must equal the plain version's bit for bit: both round
 #: every operation alike (no contraction, IEEE division and square root).
 ENERGY_RTOL = 1e-12  # DF trees of different shapes sum in different orders
@@ -137,47 +117,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def card_rates(name: str):
-    for key, bw, fp32 in CARDS:
-        if key in name:
-            return bw, fp32
-    raise SystemExit(f"chip_smoke: no published rates for card {name!r}")
-
-
-def time_ms(fn, reps: int, sleep_cycles: int, flush: torch.Tensor) -> float:
-    """Median device time of ``fn`` by CUDA events, cold L2: before each rep
-    a buffer larger than L2 is rewritten and the stream is held busy
-    (``torch.cuda._sleep``) while the host queues the rep, so the events
-    time the device work and not the host's launch overhead."""
-    pairs = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(sleep_cycles)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
-
-
-def host_us(fn, calls: int = 100) -> float:
-    """Median host time (µs) to issue one call of ``fn``, with no
-    synchronize inside the timing; the stream is drained every 10 calls,
-    outside it, so the launch queue never fills."""
-    times = []
-    for i in range(calls):
-        if i % 10 == 0:
-            torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t)
-    torch.cuda.synchronize()
-    return statistics.median(times) * 1e6
 
 
 #: Host time kept inside each profile before the call and after its
@@ -292,76 +231,36 @@ def graph_ops_per_call(fn, which: str) -> dict:
             "graph_ops_per_call": sum(f"{which}_kernel" in n for n in names)}
 
 
-def time_entry_points(cuda_chain, fast, obs, tau2, flush) -> dict:
-    """Per kernel: ``ms``, the kernel alone (``launch`` on operands built
-    beforehand); ``entry_ms``, the entry point a caller uses
-    (``fused_blocks_energy`` / ``fused_energy`` on a FastBAState), both by
-    ``time_ms``; ``host_us`` of the entry point; ``kernels_per_call``, the
-    device operations one entry-point call issues, and ``empty_profiles``
-    (``device_ops_per_call``); the call in a CUDA graph
+def entry_points(cuda_chain, fast, obs, tau2) -> dict:
+    """Each chain kernel's entry point on a FastBAState, called as the LM
+    calls it: ``fused_blocks_energy`` / ``fused_energy``."""
+    return {"chain_blocks": lambda: cuda_chain.fused_blocks_energy(fast, obs, tau2),
+            "chain_energy": lambda: cuda_chain.fused_energy(fast, obs, tau2)}
+
+
+def entry_point_ops(cuda_chain, fast, obs, tau2) -> dict:
+    """Per chain kernel, the device operations one call of its entry point
+    issues: ``kernels_per_call`` and ``empty_profiles``
+    (``device_ops_per_call``) and the call in a CUDA graph
     (``graph_ops_per_call``)."""
-    sleep = int(2e7)  # ~10 ms: longer than the host's enqueue
-    ops = cuda_chain.chain_operands(fast, obs)
-    entry = {"chain_blocks": lambda: cuda_chain.fused_blocks_energy(fast, obs, tau2),
-             "chain_energy": lambda: cuda_chain.fused_energy(fast, obs, tau2)}
-    out = {}
-    for which, fn in entry.items():
-        out[which] = {
-            "ms": time_ms(lambda: cuda_chain.launch(which, ops, tau2), 20,
-                          sleep, flush),
-            "entry_ms": time_ms(fn, 20, sleep, flush),
-            "host_us": host_us(fn),
-            **device_ops_per_call(fn),
-            **graph_ops_per_call(fn, which),
-        }
-    return out
+    return {which: {**device_ops_per_call(fn), **graph_ops_per_call(fn, which)}
+            for which, fn in entry_points(cuda_chain, fast, obs, tau2).items()}
 
 
-def stage_ms(lm, prob, mode, x, lam, df32: bool, reps: int):
-    """Medians (ms) of ``reps`` prepares and of ``reps`` trials at loop
-    state ``x`` (a FastBAState on the df32 drive) and ``lam``, each ending
-    in a synchronize."""
-    times = {"prepare": [], "trial": []}
-    for _ in range(reps):
-        t = time.perf_counter()
-        if df32:
-            ctx, _, _ = lm._prepare_fast(x, prob, mode, "float32", kernels=True)
-        else:
-            ctx, _, _ = lm._prepare(x, prob, mode)
-        torch.cuda.synchronize()
-        times["prepare"].append(time.perf_counter() - t)
-        t = time.perf_counter()
-        if df32:
-            lm._trial_fast(ctx, x, lam, prob, mode, "float32", kernels=True)
-        else:
-            lm._trial(ctx, x, lam, prob, mode)
-        torch.cuda.synchronize()
-        times["trial"].append(time.perf_counter() - t)
-    return {f"{k}_ms_median": statistics.median(v) * 1e3 for k, v in times.items()}
-
-
-def drive_mode(pm, lm, cuda_chain, prob, mode: str, max_iter: int,
-               df32: bool, reps: int) -> tuple:
-    """``lm.minimize(mode)`` after a one-iteration warm-up, timed, with the
-    chain kernels' launches and the peak device memory of the run, then the
-    stage medians at its final state and lambda. Returns (line, result)."""
+def drive_mode(lm, cuda_chain, prob, mode: str, max_iter: int,
+               df32: bool) -> tuple:
+    """``lm.minimize(mode)`` on the host drive with the chain kernels'
+    launches and the peak device memory of the run. Returns (line,
+    result)."""
     kw = dict(drive="host", **(DF32 if df32 else {}))
-    lm.minimize(prob, mode=mode, config=lm.LMConfig(max_iter=1, **kw))
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_chain.reset_launches()
-    t0 = time.perf_counter()
     res = lm.minimize(prob, mode=mode, config=lm.LMConfig(max_iter=max_iter, **kw))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     line = {"mode": mode, "iterations": res.iterations,
             "fun_evals": res.fun_evals, "status": res.status.name,
-            "final_energy": res.energy, "wall_s": wall,
-            "lm_iter_per_s": res.iterations / wall,
+            "final_energy": res.energy,
             "launches": dict(cuda_chain.LAUNCHES),
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    x = pm.to_fast(res.state) if df32 else res.state
-    line.update(stage_ms(lm, prob, mode, x, res.lam, df32, reps))
     return line, res
 
 
@@ -402,15 +301,15 @@ def modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi) -> None:
     """The solver modes on the card: qrchol, moreqr, qrkit and spqr on the
     p257 df32 drive with the kernels; all five on p16 float64; every
     realization's step against cholesky's on one p16 context; qrkit's
-    "rows" and "pair" trial times and peak memory on p257, both drives;
-    spqr's "gram" and "tsqr" camera steps on p257 df32."""
+    "rows" and "pair" forms' peak memory over one prepare and one trial on
+    p257, both drives; spqr's "gram" and "tsqr" camera steps on p257
+    df32."""
     p257, p16 = problems["p257"], problems["p16"]
     t_phase = time.perf_counter()
     e0 = cuda_chain.fused_energy(pm.to_fast(p257.state), p257.obs, p257.tau2).item()
     lines = []
     for mode in ("qrchol", "moreqr", "qrkit", "spqr"):
-        line, res = drive_mode(pm, lm, cuda_chain, p257, mode, max_iter=5,
-                               df32=True, reps=5)
+        line, res = drive_mode(lm, cuda_chain, p257, mode, max_iter=5, df32=True)
         line["initial_energy"] = e0
         lines.append(line)
         emit({"phase": "modes_df32_p257", **line, "nvidia_smi": smi})
@@ -426,8 +325,7 @@ def modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi) -> None:
     t_phase = time.perf_counter()
     e0 = float(lm._prepare(p16.state, p16, "cholesky")[1])
     for mode in ("cholesky", "qrchol", "moreqr", "qrkit", "spqr"):
-        line, res = drive_mode(pm, lm, cuda_chain, p16, mode, max_iter=10,
-                               df32=False, reps=5)
+        line, res = drive_mode(lm, cuda_chain, p16, mode, max_iter=10, df32=False)
         emit({"phase": "modes_f64_p16", **line, "initial_energy": e0,
               "nvidia_smi": smi})
         check(np.isfinite(res.energy) and res.energy < e0,
@@ -463,15 +361,18 @@ def modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi) -> None:
             torch.cuda.reset_peak_memory_stats()
             x = pm.to_fast(prob.state) if df32 else prob.state
             if df32:
-                _, _, lam0 = lm._prepare_fast(x, prob, "qrkit", "float32",
-                                              kernels=True)
+                ctx, _, lam0 = lm._prepare_fast(x, prob, "qrkit", "float32",
+                                                kernels=True)
+                lm._trial_fast(ctx, x, float(lam0), prob, "qrkit", "float32",
+                               kernels=True)
             else:
-                _, _, lam0 = lm._prepare(x, prob, "qrkit")
-            line = stage_ms(lm, prob, "qrkit", x, float(lam0), df32, reps=5)
+                ctx, _, lam0 = lm._prepare(x, prob, "qrkit")
+                lm._trial(ctx, x, float(lam0), prob, "qrkit")
             emit({"phase": "qrkit_forms_p257", "drive": "df32" if df32 else "f64",
-                  "form": form, "lambda": float(lam0), **line,
+                  "form": form, "lambda": float(lam0),
                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
                   "nvidia_smi": smi})
+            del ctx
     emit({"phase": "qrkit_forms_p257_done", "phase_s": time.perf_counter() - t_phase})
 
     # spqr's camera step at p257 df32, the loaded state and spqr's initial
@@ -483,24 +384,18 @@ def modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi) -> None:
     lam = float(torch.tensor(float(lam0), dtype=torch.float32))
     Linv = schur._point_factor_inv(ctx, lam, "spqr", ctx.U.dtype)
     steps = {}
-    for form, reps in (("gram", 5), ("tsqr", 3)):
+    for form in ("gram", "tsqr"):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(reps):
-            t = time.perf_counter()
-            if form == "gram":
-                dxc = schur.camera_solve_qr(ctx, lam, p257)
-            else:
-                dxc = schur._camera_solve_tsqr(ctx, lam, p257, Linv,
-                                               mm_dtype=torch.float32)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
+        if form == "gram":
+            dxc = schur.camera_solve_qr(ctx, lam, p257)
+        else:
+            dxc = schur._camera_solve_tsqr(ctx, lam, p257, Linv,
+                                           mm_dtype=torch.float32)
         steps[form] = dxc.double()
         emit({"phase": "spqr_forms_p257", "drive": "df32", "form": form,
-              "lambda": lam, "camera_step_ms": [v * 1e3 for v in times],
-              "camera_step_ms_median": statistics.median(times) * 1e3,
+              "lambda": lam,
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "nvidia_smi": smi})
     gap = ((steps["gram"] - steps["tsqr"]).abs().max()
@@ -516,6 +411,12 @@ LADYBUG = (1723, 156502, 678718)
 CLI_ROW = re.compile(r"^\s*(\d+)\s+(Accepted|Rejected)\s")
 
 
+def ladybug_standin(balgen):
+    """The generated stand-in of BAL's Ladybug problem (a BalDataset)."""
+    n, m, k = LADYBUG
+    return balgen.generate_bal_like(n, m, seed=n, mean_degree=k / m)
+
+
 def run_cli(cli, args) -> tuple:
     """``cli.main(args)`` in this process; returns (return code, stdout)."""
     buf = io.StringIO()
@@ -525,52 +426,32 @@ def run_cli(cli, args) -> tuple:
 
 
 def cli_summary(out: str, metrics: Path) -> dict:
-    """What a CLI run printed: header, pre and post "True objective", LM
-    seconds and status, iteration-table rows, and its JSONL records.
-    ``lm_iter_per_s`` is the iterations that ran a trial over the printed
-    LM time (the iteration that only finds the limit is not counted)."""
+    """What a CLI run printed: header, pre and post "True objective", status,
+    iteration-table rows, and its JSONL records (``iterations_run``: the
+    iterations that ran a trial)."""
     lines = out.splitlines()
     objective = [float(ln.split()[-1]) for ln in lines
                  if ln.startswith("True objective:")]
-    lm_s = float(next(ln for ln in lines
-                      if ln.startswith("lm.minimize(params)")).split()[-1][:-1])
     rows = [int(m[1]) for m in map(CLI_ROW.match, lines) if m]
     records = ([json.loads(ln) for ln in metrics.read_text().splitlines()]
                if metrics.exists() else [])
     iterations = len({(r.get("phase"), r["iter"]) for r in records})
     return {"header": lines[0], "objective_pre": objective[0],
-            "objective_post": objective[-1], "lm_s": lm_s,
+            "objective_post": objective[-1],
             "status": next(ln.split(": ", 1)[1] for ln in lines
                            if ln.startswith("LM finished with status")),
             "table_rows": len(rows), "first_row_iter": rows[0] if rows else None,
             "records": len(records), "iterations_run": iterations,
-            "lm_iter_per_s": iterations / lm_s,
             "resumed": any(ln.startswith("Resuming from") for ln in lines)}
 
 
-def kernel_bounds(n: int, m: int, k_obs: int, bw: float, op_rate: float) -> dict:
-    """Per kernel (bound_ms, bound_by): each input read once, each output
-    written once (the float64 cameras R, T, K(0, 0), k1, k2; the DF points,
-    every point observed; the measurements and both indices; the energy,
-    and the rows), and OPS_PER_OBS float32 instructions per observation."""
-    inputs = 8 * 15 * n + 4 * (6 * m + 2 * k_obs + 2 * k_obs)
-    out = {}
-    for which, outputs in (("chain_blocks", 8 + 4 * 26 * k_obs),
-                           ("chain_energy", 8)):
-        t_bytes = (inputs + outputs) / bw * 1e3
-        t_ops = OPS_PER_OBS[which] * k_obs / op_rate * 1e3
-        out[which] = (max(t_bytes, t_ops),
-                      "bytes" if t_bytes >= t_ops else "operations")
-    return out
-
-
-def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
-               bw, op_rate, ladybug) -> dict:
+def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi,
+               ladybug) -> dict:
     """The command line on the card, in-process, its log, metrics and
     checkpoints in a temporary directory. Each run's chain-kernel launches
-    are counted from 0. ``ladybug`` is the generated stand-in's
-    (BalDataset, seconds to generate). Returns per kernel the CLI phases'
-    launch counts and the Ladybug stand-in's kernel numbers."""
+    are counted from 0. ``ladybug`` is the generated stand-in's BalDataset.
+    Returns per kernel the CLI phases' launch counts and the Ladybug
+    stand-in's kernel numbers."""
     extra = {"chain_blocks": {}, "chain_energy": {}}
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
@@ -578,7 +459,7 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
 
         # -- p257, mixed: 10 iterations, checkpoint every 5, then resume; the
         # same 10 iterations without the table and the checkpoints, and with
-        # the table alone; then one checkpoint of the p257 state timed alone --
+        # the table alone ----------------------------------------------------
         t_phase = time.perf_counter()
         ck = tmp / "p257.ckpt.npz"
         base = [P257, "--precision", "mixed", "--solver", "cholesky"] + log
@@ -604,22 +485,6 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
                   "phase_s": time.perf_counter() - t_phase})
         first, resume = runs["first"], runs["resume"]
         meta = first["checkpoint"]
-        state, saved = checkpoint.load_checkpoint(str(ck), device="cuda")
-        saved.pop("extra")
-        copy_s, save_s = [], []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for k in ("K", "R", "T", "k1", "k2", "points"):
-                getattr(state, k).cpu()
-            copy_s.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            checkpoint.save_checkpoint(str(tmp / "timed.npz"), state, **saved)
-            save_s.append(time.perf_counter() - t0)
-        emit({"phase": "cli_mixed_p257", "run": "save_checkpoint",
-              "copy_s": sorted(copy_s), "save_s": sorted(save_s),
-              "bytes": (tmp / "timed.npz").stat().st_size, "nvidia_smi": smi,
-              "phase_s": time.perf_counter() - t_phase})
         check(first["header"] == "N(cameras) = 257, M(points) = 65132, "
               "K(measurements) = 238476", f"cli_mixed_p257: header {first['header']!r}")
         check(first["objective_post"] < first["objective_pre"],
@@ -683,12 +548,9 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
         # -- Ladybug stand-in, mixed: cameras past the shared-memory stage ------
         t_phase = time.perf_counter()
         n, m, _ = LADYBUG
-        ds, gen_s = ladybug
         path = tmp / "problem-1723-156502-pre-standin.txt.gz"
-        t0 = time.perf_counter()
-        balgen.write_bal_gz(str(path), ds)
-        write_s = time.perf_counter() - t0
-        k_obs = ds.n_observations
+        balgen.write_bal_gz(str(path), ladybug)
+        k_obs = ladybug.n_observations
         shape = cuda_chain.launch_shape("chain_blocks", n, k_obs)
         check(not shape["staged_cameras"],
               "cli_ladybug_df32: the kernels stage 1,723 cameras")
@@ -709,7 +571,7 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
             check(count > 0, f"cli_ladybug_df32: {which} not launched")
             extra[which]["launches_cli_ladybug_df32"] = count
 
-        # Both kernels at this K against their plain versions, and timed.
+        # Both kernels at this K against their plain versions.
         prob = pm.load_bal_problem(str(path), device="cuda")
         fast = pm.to_fast(prob.state)
         ops = cuda_chain.chain_operands(fast, prob.obs)
@@ -723,22 +585,12 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi, flush,
         gaps = {"chain_blocks": abs(eb_k.item() - eb_p.item()) / abs(eb_p.item()),
                 "chain_energy": abs(ee_k.item() - ee_p.item()) / abs(ee_p.item())}
         del rows_k, rows_p
-        sleep = int(2e7)
-        bounds = kernel_bounds(n, m, k_obs, bw, op_rate)
-        plain = {"chain_blocks": lambda: cuda_chain.chain_blocks_plain(
-                     fast, prob.obs, prob.tau2),
-                 "chain_energy": lambda: cuda_chain.fused_energy_plain(
-                     fast, prob.obs, prob.tau2)}
         for which in extra:
             extra[which]["ladybug"] = {
                 "n_cameras": n, "K": k_obs,
-                "ms": time_ms(lambda: cuda_chain.launch(which, ops, prob.tau2),
-                              20, sleep, flush),
-                "plain_ms": time_ms(plain[which], 10, int(2e8), flush),
-                "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
                 "max_abs_err": errs[which], "energy_rel_err": gaps[which],
                 **cuda_chain.launch_shape(which, n, k_obs)}
-        emit({"phase": "cli_ladybug_df32", "generate_s": gen_s, "write_s": write_s,
+        emit({"phase": "cli_ladybug_df32",
               "file_bytes": path.stat().st_size, **line, "launches": launches,
               "rows_equal": rows_equal,
               "kernels": {w: extra[w]["ladybug"] for w in extra},
@@ -793,8 +645,9 @@ def sharded_rank(rank, device, problems, runs, checkpoint_path=None) -> list:
     """One rank of a sharded group on the card: each run of ``runs`` (name,
     problem, mode, iters, config; optionally warmup, bytes, checkpoint,
     refused: the run must raise ValueError, whose message is its line)
-    through ``sharded.minimize_sharded``, timed after an optional
-    one-iteration warm-up, with this rank's chain-kernel launches and peak
+    through ``sharded.minimize_sharded``, after an optional one-iteration
+    warm-up (where the jit drive captures), with this rank's chain-kernel
+    launches and peak
     device memory and a digest of its final cameras and points (all ranks
     must agree). With ``bytes``, one prepare and one trial at the loaded
     state and AGREE_LAMBDA_FACTOR x lambda0: their energies and all-reduce
@@ -808,12 +661,10 @@ def sharded_rank(rank, device, problems, runs, checkpoint_path=None) -> list:
     n = dist.get_world_size()
     shards, out = {}, []
     for run in runs:
-        t0 = time.perf_counter()
         if run["problem"] not in shards:
             shards[run["problem"]] = sharded.shard_problem(
                 problems[run["problem"]], n, rank, device=device)
         sp = shards[run["problem"]]
-        shard_s = time.perf_counter() - t0
         cfg = lm.LMConfig(max_iter=run["iters"],
                           **{"drive": "host", **run.get("config", {})})
         if run.get("refused"):  # a run that must raise ValueError
@@ -828,22 +679,17 @@ def sharded_rank(rank, device, problems, runs, checkpoint_path=None) -> list:
             sharded.minimize_sharded(sp, run["mode"], dataclasses.replace(cfg, max_iter=1))
         observe = (dict(checkpoint_path=checkpoint_path, checkpoint_every=2)
                    if run.get("checkpoint") else {})
-        torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         cuda_chain.reset_launches()
-        t0 = time.perf_counter()
         res = sharded.minimize_sharded(sp, run["mode"], cfg, **observe)
-        torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
         line = {"run": run["name"], "rank": rank, "shards": n,
                 "backend": dist.get_backend(), "problem": run["problem"],
                 "mode": run["mode"], "drive": "df32" if cfg.geometry else "f64",
                 "observations": sp.problem.n_observations,
-                "points": sp.problem.n_points, "shard_s": shard_s,
+                "points": sp.problem.n_points,
                 "iterations": res.iterations, "fun_evals": res.fun_evals,
                 "status": res.status.name, "final_energy": res.energy,
-                "lam": res.lam, "wall_s": wall,
-                "lm_iter_per_s": res.iterations / wall,
+                "lam": res.lam,
                 "launches": dict(cuda_chain.LAUNCHES),
                 "max_memory_allocated": torch.cuda.max_memory_allocated(device),
                 "digest": digest(res.state.T) + digest(res.state.points)}
@@ -914,7 +760,7 @@ def summarize(lines: list, single: dict, e0: dict) -> dict:
         run = {
             **{k: lead[k] for k in ("shards", "backend", "problem", "mode", "drive",
                                     "iterations", "fun_evals", "status",
-                                    "final_energy", "wall_s", "lm_iter_per_s")},
+                                    "final_energy")},
             **{k: lead[k] for k in ("allreduce_per_prepare", "allreduce_per_trial")
                if k in lead},
             "initial_energy": e0.get(lead["problem"]),
@@ -924,7 +770,6 @@ def summarize(lines: list, single: dict, e0: dict) -> dict:
             "observations_per_rank": [r["observations"] for r in per_rank],
             "max_memory_allocated_per_rank": [r["max_memory_allocated"]
                                               for r in per_rank],
-            "shard_s_per_rank": [r["shard_s"] for r in per_rank],
             "single": {"iterations": it, "fun_evals": ev, "status": status,
                        "final_energy": energy},
             "rel_gap": None if energy is None
@@ -956,7 +801,7 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
     # -- NCCL, world size 1: p257 df32 cholesky, 10 iterations ---------------
     t_phase = time.perf_counter()
     nccl = dict(name="cholesky_10", problem="p257", mode="cholesky", iters=10,
-                config=DF32, warmup=True, bytes=True)
+                config=DF32, bytes=True)
     single = single_runs(lm, problems, [nccl])
     lines = multihost.run_ranks(sharded_rank, ["cuda:0"],
                                 args=({"p257": p257}, [nccl]))
@@ -975,19 +820,15 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
 
     # -- gloo: 2 and 4 ranks on the one card ------------------------------------
     t_phase = time.perf_counter()
-    n, m, _ = LADYBUG
-    ds, _ = ladybug
-    t0 = time.perf_counter()
-    lady = pm.from_bal_dataset(ds, device="cuda")
-    load_s = time.perf_counter() - t0
+    lady = pm.from_bal_dataset(ladybug, device="cuda")
     e0["ladybug"] = cuda_chain.fused_energy(pm.to_fast(lady.state), lady.obs,
                                             lady.tau2).item()
     local = {"p257": portable(p257), "p16": portable(problems["p16"]),
              "ladybug": portable(lady)}
     five = dict(name="cholesky_5", problem="p257", mode="cholesky", iters=5,
-                config=DF32, warmup=True, bytes=True)
+                config=DF32, bytes=True)
     modes = [dict(name=f"{mode}_3", problem="p257", mode=mode, iters=3,
-                  config=DF32, warmup=True) for mode in MODES]
+                  config=DF32) for mode in MODES]
     f64 = [dict(name=f"{mode}_f64", problem="p16", mode=mode, iters=5)
            for mode in MODES]
     ck_run = dict(name="checkpoint", problem="p257", mode="cholesky", iters=4,
@@ -1005,7 +846,6 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
         ck = str(Path(tmp_name) / "d2.ckpt.npz")
         for d, runs in ((2, [refused, five] + modes + f64 + [ck_run, lady_run]),
                         (4, [five])):
-            t0 = time.perf_counter()
             lines = multihost.run_ranks(sharded_rank, ["cuda:0"] * d,
                                         args=(local, runs, ck), timeout=600)
             refusals = [ln["refused"] for rank_lines in lines for ln in rank_lines
@@ -1018,15 +858,12 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
             lines = [[ln for ln in rank_lines if "refused" not in ln]
                      for rank_lines in lines]
             groups[d] = summarize(lines, single, e0)
-            groups[d]["group_s"] = time.perf_counter() - t0
         state, meta = checkpoint.load_checkpoint(ck, device="cuda")
     resumed = lm.minimize(p257, "cholesky",
                           lm.LMConfig(drive="host", max_iter=6, **DF32),
                           state=state, resume=meta)
     for d, group in groups.items():
         for name, run in group.items():
-            if name == "group_s":
-                continue
             phase = {"p257": "sharded_gloo_p257", "p16": "sharded_f64_p16",
                      "ladybug": "sharded_ladybug_df32"}[run["problem"]]
             tol = SHARDED_F64_RTOL if run["drive"] == "f64" else SHARDED_DF32_RTOL
@@ -1035,7 +872,7 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
                                           "lambda0": SHARDED_LAMBDA_RTOL,
                                           "trial_energy": tol}})
             emit({"phase": phase, "run": name, **run, **tolerances,
-                  "group_s": group["group_s"], "nvidia_smi": smi})
+                  "nvidia_smi": smi})
             where = f"{phase} {name} D={d}"
             check(run["backend"] == "gloo", f"{where}: backend {run['backend']}")
             check(run["ranks_agree"], f"{where}: the ranks disagree")
@@ -1064,7 +901,7 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
                 r[which] for r in groups[d]["cholesky_5"]["launches_per_rank"]]
         extra[which]["launches_sharded_ladybug_d2"] = [
             r[which] for r in groups[2]["ladybug"]["launches_per_rank"]]
-    emit({"phase": "sharded_gloo_done", "ladybug_load_s": load_s,
+    emit({"phase": "sharded_gloo_done",
           "checkpoint_d2_resumed_on_one_device": {
               "checkpoint_iteration": meta["iteration"],
               "iterations": resumed.iterations, "fun_evals": resumed.fun_evals,
@@ -1124,18 +961,14 @@ JIT_RTOL = 1e-9
 JIT_TRIAL_RTOL = 2e-3
 
 
-def timed_minimize(lm, cuda_chain, prob, mode, cfg, minimize=None) -> dict:
-    """One lm.minimize (or ``minimize(prob, mode, cfg)``), synchronized:
-    result, wall, peak allocated bytes, reserved bytes after, chain launches
-    and (jit) the drive's counters."""
-    torch.cuda.synchronize()
+def counted_minimize(lm, cuda_chain, prob, mode, cfg, minimize=None) -> dict:
+    """One lm.minimize (or ``minimize(prob, mode, cfg)``): result, peak
+    allocated bytes, reserved bytes after, chain launches and (jit) the
+    drive's counters."""
     cuda_chain.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     res = (minimize or lm.minimize)(prob, mode, cfg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return {"res": res, "wall_s": wall, "it_per_s": res.iterations / wall,
+    return {"res": res,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "reserved_bytes": torch.cuda.memory_reserved(),
             "launches": dict(cuda_chain.LAUNCHES),
@@ -1225,8 +1058,7 @@ def summary(run: dict) -> dict:
     res = run["res"]
     out = {"iterations": res.iterations, "fun_evals": res.fun_evals,
            "status": res.status.name, "energy": res.energy,
-           **{k: run[k] for k in ("wall_s", "it_per_s", "peak_bytes",
-                                  "reserved_bytes", "launches")}}
+           **{k: run[k] for k in ("peak_bytes", "reserved_bytes", "launches")}}
     if run["jit"]:
         out.update(run["jit"])
     return out
@@ -1307,14 +1139,14 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
     kw = dict(matmul_dtype="float32", geometry="df32")
     e0 = cuda_chain.fused_energy(pm.to_fast(p257.state), p257.obs, p257.tau2).item()
     reserved0 = torch.cuda.memory_reserved()
-    warm = {d: timed_minimize(lm, cuda_chain, p257, "cholesky",
+    warm = {d: counted_minimize(lm, cuda_chain, p257, "cholesky",
                               lm.LMConfig(drive=d, max_iter=2, **kw))
             for d in ("host", "jit")}
     capture = dict(warm["jit"]["jit"],
                    reserved_by_capture=torch.cuda.memory_reserved() - reserved0)
     runs = {"host": [], "jit": []}
     for drive in ("host", "jit", "jit", "host", "host", "jit"):
-        runs[drive].append(timed_minimize(
+        runs[drive].append(counted_minimize(
             lm, cuda_chain, p257, "cholesky",
             lm.LMConfig(drive=drive, max_iter=20, **kw)))
     gate = hold_jit(lm, p257, "cholesky", lm.LMConfig(max_iter=20, **kw),
@@ -1322,8 +1154,6 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
     jit_launches = runs["jit"][0]["launches"]
     emit({"phase": "jit_p257_df32", "mode": "cholesky", "initial_energy": e0,
           "capture": capture, **gate,
-          "host_it_per_s": [r["it_per_s"] for r in runs["host"]],
-          "jit_it_per_s": [r["it_per_s"] for r in runs["jit"]],
           "host": [summary(r) for r in runs["host"]],
           "jit": [summary(r) for r in runs["jit"]],
           "nvidia_smi": smi, "phase_s": time.perf_counter() - t_phase})
@@ -1380,8 +1210,8 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
             lm.minimize(prob, mode, dataclasses.replace(cfg, drive="jit",
                                                         max_iter=1))
             capture = dict(lm.LAST_JIT_RUN)
-            host = timed_minimize(lm, cuda_chain, prob, mode, cfg)
-            jit = timed_minimize(lm, cuda_chain, prob, mode,
+            host = counted_minimize(lm, cuda_chain, prob, mode, cfg)
+            jit = counted_minimize(lm, cuda_chain, prob, mode,
                                  dataclasses.replace(cfg, drive="jit"))
             gate = hold_jit(lm, prob, mode, cfg, host, jit, e0_m,
                             f"jit_modes {name} {mode}")
@@ -1403,16 +1233,15 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
 
     # -- jit_ladybug_df32 ------------------------------------------------------------
     t_phase = time.perf_counter()
-    ds, _ = ladybug
-    lady = pm.from_bal_dataset(ds, device=dev)
+    lady = pm.from_bal_dataset(ladybug, device=dev)
     e0 = cuda_chain.fused_energy(pm.to_fast(lady.state), lady.obs, lady.tau2).item()
     reserved0 = torch.cuda.memory_reserved()
     lm.minimize(lady, "cholesky", lm.LMConfig(drive="jit", max_iter=1, **kw))
     capture = dict(lm.LAST_JIT_RUN,
                    reserved_by_capture=torch.cuda.memory_reserved() - reserved0)
     cfg = lm.LMConfig(drive="host", max_iter=3, **kw)
-    host = timed_minimize(lm, cuda_chain, lady, "cholesky", cfg)
-    jit = timed_minimize(lm, cuda_chain, lady, "cholesky",
+    host = counted_minimize(lm, cuda_chain, lady, "cholesky", cfg)
+    jit = counted_minimize(lm, cuda_chain, lady, "cholesky",
                          dataclasses.replace(cfg, drive="jit"))
     gate = hold_jit(lm, lady, "cholesky", cfg, host, jit, e0, "jit_ladybug_df32")
     emit({"phase": "jit_ladybug_df32", "N": lady.n_cameras, "M": lady.n_points,
@@ -1441,10 +1270,6 @@ EIGH_RTOL_F32 = 1e-5
 #: pair): a 7-dimensional null space under noise of 1e-16 of the norm, and a
 #: quarter of the eigenvalues within 1e-10 of 1 (``gram_like``).
 EIGH_SYNTHETIC = (("null7", 10), ("null7", 1000), ("cluster", 1000))
-#: The least time of an eigendecomposition of order n: ~10/3 n^3 flops
-#: (LAPACK's tridiagonal route) at the H100's FP64 tensor-core peak, or S
-#: read and V written once at the memory rate, whichever is larger.
-FP64_TENSOR_FLOP_PER_S = 67e12
 
 
 @contextlib.contextmanager
@@ -1461,6 +1286,21 @@ def recorded_grams(cuda_eigh, grams: list):
         yield
     finally:
         cuda_eigh.eigh = eigh
+
+
+def qrkit_gram(pm, lm, cuda_eigh, prob, df32: bool) -> torch.Tensor:
+    """The camera gram that qrkit's prepare hands the eigensolver on
+    ``prob`` without its pair tables: float64, or on the df32 drive the
+    float32 one."""
+    prob = no_pairs(prob)
+    grams = []
+    with recorded_grams(cuda_eigh, grams):
+        if df32:
+            lm._prepare_fast(pm.to_fast(prob.state), prob, "qrkit", "float32",
+                             kernels=True)
+        else:
+            lm._prepare(prob.state, prob, "qrkit")
+    return grams[0]
 
 
 def eigh_gaps(S, w, V) -> dict:
@@ -1497,38 +1337,6 @@ def gram_like(case: str, n: int) -> torch.Tensor:
     return torch.from_numpy((S + S.T) / 2).to("cuda")
 
 
-def device_kernels(fn, sweeps: Optional[int] = None) -> dict:
-    """Device ms and launches of each kernel one call of ``fn`` runs, by
-    short name, from ``torch.profiler`` (after a warm-up call). With the
-    eigensolver's ``sweeps``, "after_convergence" has the ms and launches
-    of its sweeps after the ``sweeps``-th (``sweep_end`` to ``sweep_end``),
-    whose launches return at once."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    names = [e.name.replace("(anonymous namespace)::", "").replace("void ", "")
-             .split("(")[0].split("<")[0] for e in events]
-    split = {}
-    for name, e in zip(names, events):
-        ms, count = split.get(name, (0.0, 0))
-        split[name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    out = {k: {"ms": v[0], "launches": v[1]} for k, v in split.items()}
-    ends = [i for i, name in enumerate(names) if name == "sweep_end"]
-    if sweeps is not None and len(ends) > sweeps:
-        tail = events[ends[sweeps - 1] + 1:ends[-1] + 1]
-        out["after_convergence"] = {
-            "ms": sum(e.time_range.elapsed_us() for e in tail) / 1e3,
-            "launches": len(tail), "sweeps": len(ends) - sweeps}
-    return out
-
-
 def eigh_counts(cuda_eigh, S) -> dict:
     """The kernels' counters of one call, per outer sweep: pair solves that
     rotated, inner sweeps run and rotations."""
@@ -1539,39 +1347,26 @@ def eigh_counts(cuda_eigh, S) -> dict:
             "rotations": [r[2] for r in rows]}
 
 
-def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
+def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems,
                 smi) -> dict:
     """``eigh_capture``: the block Jacobi eigensolver on the grams that
-    qrkit's prepare factors without pair tables (p16: n = 145, p257: n =
-    2,314, float64; p257's float32 gram of the df32 drive) and on the
-    ``EIGH_SYNTHETIC`` matrices, against ``torch.linalg.eigh``, both timed
-    by CUDA events (median of 20, cold L2; 5 for float32), and replayed from
-    a graph inside a conditional body (equal to the eager call bit for
-    bit); per case the device time of each kernel and of the sweeps after
-    convergence (``device_kernels``), the counters per outer sweep
-    (``eigh_counts``) and the bound. ``jit_qrkit_rows_p257``: qrkit on p257
-    without its pair tables on the jit drive takes the host drive's path,
-    df32 and float64, and calls the kernels once a prepare on both drives.
-    An older checkout's ``cuda_eigh``, from before its launch counter and
-    sweep statistics, is timed and checked without them. Returns the
-    eigensolver's entry of the ``kernels`` line: the p257 float64 gram's
-    numbers, and the calls the jit drive made in ``jit_qrkit_rows_p257``
-    at float64."""
+    qrkit's prepare factors without pair tables (``qrkit_gram``; p16: n =
+    145, p257: n = 2,314, float64; p257's float32 gram of the df32 drive)
+    and on the ``EIGH_SYNTHETIC`` matrices, against ``torch.linalg.eigh``,
+    and replayed from a graph inside a conditional body (equal to the eager
+    call bit for bit); per case the counters per outer sweep
+    (``eigh_counts``). ``jit_qrkit_rows_p257``: qrkit on p257 without its
+    pair tables on the jit drive takes the host drive's path, df32 and
+    float64, and calls the kernels once a prepare on both drives. A
+    ``cuda_eigh`` without its launch counter and sweep statistics (an older
+    checkout's) is checked without them. Returns the eigensolver's entry of
+    the ``kernels`` line: the p257 float64 gram's numbers, and the calls the
+    jit drive made in ``jit_qrkit_rows_p257`` at float64."""
     counted = hasattr(cuda_eigh, "LAUNCHES")
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
-    bw = card_rates(torch.cuda.get_device_name(0))[0]
-    matrices = []
-    for name, df32 in (("p16", False), ("p257", False), ("p257", True)):
-        prob = no_pairs(problems[name])
-        grams = []
-        with recorded_grams(cuda_eigh, grams):
-            if df32:
-                lm._prepare_fast(pm.to_fast(prob.state), prob, "qrkit", "float32",
-                                 kernels=True)
-            else:
-                lm._prepare(prob.state, prob, "qrkit")
-        matrices.append((name, df32, grams[0]))
+    matrices = [(name, df32, qrkit_gram(pm, lm, cuda_eigh, problems[name], df32))
+                for name, df32 in (("p16", False), ("p257", False), ("p257", True))]
     matrices += [(f"{case} n={n}", False, gram_like(case, n))
                  for case, n in EIGH_SYNTHETIC]
     cases = []
@@ -1597,18 +1392,8 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
                 "plain": eigh_gaps(S, *torch.linalg.eigh(S)),
                 "replay_equal_eager": torch.equal(out["w"], w) and torch.equal(out["V"], V)
                 and int(out["info"]) == int(info),
-                "capture_s": graph.capture_s, "graph_node_types": graph.node_types}
+                "graph_node_types": graph.node_types}
         graph.close()
-        reps = 20 if not df32 else 5
-        case["jacobi_ms"] = time_ms(lambda: cuda_eigh.jacobi_eigh(S), reps, int(2e7), flush)
-        case["plain_ms"] = time_ms(lambda: torch.linalg.eigh(S), reps, int(2e7), flush)
-        case["timing"] = f"median of {reps}, CUDA events, cold L2"
-        n = S.shape[0]
-        ops_ms, bytes_ms = 10 / 3 * n ** 3 / FP64_TENSOR_FLOP_PER_S * 1e3, 2 * n * n * 8 / bw * 1e3
-        case.update(bound_ms=max(ops_ms, bytes_ms),
-                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                    kernels=device_kernels(lambda: cuda_eigh.jacobi_eigh(S),
-                                           case["sweeps"]))
         if counted:
             case["per_sweep"] = eigh_counts(cuda_eigh, S)
         cases.append(case)
@@ -1634,7 +1419,7 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
         for drive in ("host", "jit"):
             if counted:
                 cuda_eigh.reset_launches()
-            runs[drive] = timed_minimize(lm, cuda_chain, prob, "qrkit",
+            runs[drive] = counted_minimize(lm, cuda_chain, prob, "qrkit",
                                          dataclasses.replace(cfg, drive=drive))
             if counted:
                 eigh_calls[drive] = cuda_eigh.LAUNCHES["jacobi_eigh"]
@@ -1663,9 +1448,7 @@ def eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
             "source": "bundleadjustment_benchmarks_tpu_torch/ops/csrc/eigh.cu",
             "replaces": "bundleadjustment_benchmarks_tpu/solvers/schur.py:938",
             "launches": eigh_calls.get("jit"),
-            "max_abs_err": gram["eigenvalue_abs_err"], "ms": gram["jacobi_ms"],
-            "plain_ms": gram["plain_ms"], "bound_ms": gram["bound_ms"],
-            "bound_by": gram["bound_by"], "library_ms": gram["plain_ms"],
+            "max_abs_err": gram["eigenvalue_abs_err"],
             "n": gram["n"], "gram_gap": gram["gram_gap"]}
 
 
@@ -1716,10 +1499,10 @@ def sharded_jit_rank(rank, device, problems, smi) -> dict:
 
     def run(kind, name, mode, cfg):
         if kind == "single_jit":
-            return timed_minimize(lm, cuda_chain, problems[name], mode,
+            return counted_minimize(lm, cuda_chain, problems[name], mode,
                                   dataclasses.replace(cfg, drive="jit"))
         drive = "jit" if kind == "sharded_jit" else "host"
-        return timed_minimize(
+        return counted_minimize(
             lm, cuda_chain, shards[name], mode, dataclasses.replace(cfg, drive=drive),
             minimize=lambda sp, m, c: sharded.minimize_sharded(sp, m, c))
 
@@ -1747,9 +1530,7 @@ def sharded_jit_rank(rank, device, problems, smi) -> dict:
             runs[k].append(run(k, "p257", "cholesky", cfg))
         kinds = kinds[::-1]
     out["p257"] = {"capture": capture,
-                   **{k: [summary(r) for r in v] for k, v in runs.items()},
-                   **{f"{k}_it_per_s": [r["it_per_s"] for r in v]
-                      for k, v in runs.items()}}
+                   **{k: [summary(r) for r in v] for k, v in runs.items()}}
     x0 = pm.to_fast(shards["p257"].problem.state)
     loop.reads = loop.replays = 0
     _, status, it, fun_evals, energy, _ = loop.run(x0, sync_debug=True, config=cfg)
@@ -1884,7 +1665,7 @@ def flatline_phase(campaign, cuda_chain, smi) -> None:
         verdict = campaign.budget_gaps(row["post"], oracle, budget)
         emit({"phase": "flatline_p16_f64",
               **{k: row[k] for k in ("mode", "status", "iterations", "fun_evals",
-                                     "energy", "wall_s", "it_per_s", "peak_bytes",
+                                     "energy", "peak_bytes",
                                      "launches", "post")},
               "oracle": oracle, "budget": budget, **verdict, "nvidia_smi": smi})
         check(row["status"] in ("Success (Energy Flatlined)",
@@ -1911,8 +1692,8 @@ def default_drive_phase(pm, lm, cuda_chain, problems, p126, smi) -> dict:
     warm-up captures, every later run replays), equals an explicit
     ``drive="jit"`` run bit for bit and an explicit ``drive="host"`` run
     (float64: the same counts and energy, gap 0.0; df32: ``hold_jit``'s
-    gate); LM it/s of the default and of the host drive, alternated (D, H,
-    H, D, D, H). Then the graph cache's bound: the default float64 config
+    gate), the default and the host drive alternated (D, H, H, D, D, H).
+    Then the graph cache's bound: the default float64 config
     (2 iterations) on p16, p126, p257 and p16 again, the cached entries and
     ``torch.cuda.memory_reserved()`` after each. Returns the df32 default
     run's chain-kernel launches: the main path's."""
@@ -1930,15 +1711,13 @@ def default_drive_phase(pm, lm, cuda_chain, problems, p126, smi) -> dict:
         lm.minimize(p257, "cholesky", dataclasses.replace(host_cfg, max_iter=2))
         runs = {"default": [], "host": []}
         for d in ("default", "host", "host", "default", "default", "host"):
-            runs[d].append(timed_minimize(lm, cuda_chain, p257, "cholesky",
+            runs[d].append(counted_minimize(lm, cuda_chain, p257, "cholesky",
                                           default if d == "default" else host_cfg))
-        explicit = timed_minimize(lm, cuda_chain, p257, "cholesky",
+        explicit = counted_minimize(lm, cuda_chain, p257, "cholesky",
                                   dataclasses.replace(default, drive="jit"))
         d0, h0, j = runs["default"][0]["res"], runs["host"][0]["res"], explicit["res"]
         line = {"phase": "default_drive", "problem": "p257", "mode": "cholesky",
                 "drive": name, "capture": capture,
-                "default_it_per_s": [r["it_per_s"] for r in runs["default"]],
-                "host_it_per_s": [r["it_per_s"] for r in runs["host"]],
                 "default": [summary(r) for r in runs["default"]],
                 "host": [summary(r) for r in runs["host"]],
                 "default_equals_explicit_jit": all(
@@ -2036,7 +1815,7 @@ def bench_phase(bench_torch, lm, smi) -> dict:
     for w in (x for x in lines if x.get("bench") == "workload"):
         ref = w["reference"]
         emit({"phase": "bench_reference", "mode": w["mode"], "reads": w["reads"],
-              "replays": w["replays"], "it_per_s": w["it_per_s"],
+              "replays": w["replays"],
               "iterations": w["iterations"], "status": w["status"],
               "within": ref["within"], "error": ref.get("error"),
               "endpoint": ref["endpoint"] and {k: ref["endpoint"][k] for k in (
@@ -2115,8 +1894,8 @@ def bench_planted_phase(bench_torch, campaign, lm, problems, smi) -> None:
             lm.clear_graphs()
 
     keys = ("rules", "broken", "iterations", "accepts", "rejected_trials",
-            "mid_accepts", "second_growths", "unreached", "gaps", "seconds",
-            "captured", "same_endpoint")
+            "mid_accepts", "second_growths", "unreached", "gaps", "captured",
+            "same_endpoint")
 
     def line(name, fault, warm, control, numerics, **more):
         emit({"phase": "bench_planted", "problem": name, "fault": fault, **more,
@@ -2168,7 +1947,7 @@ def oracle_prefix_phase(oracle_prefix, loaded, smi) -> None:
     for row in rows:
         emit({"phase": "oracle_prefix", **{k: row[k] for k in (
             "key", "mode", "lm_drive", "iterations", "fun_evals", "energy",
-            "wall_s", "jit", "gaps", "budget", "within", "matched")},
+            "jit", "gaps", "budget", "within", "matched")},
             "nvidia_smi": smi})
         check(row["within"], f"oracle_prefix {row['key']} {row['lm_drive']}: "
               f"{row['gaps']} outside {row['budget']}")
@@ -2191,14 +1970,12 @@ def ellipse_phase(lm, smi) -> None:
     import ellipse_fitting_torch as example
 
     samples = example.sample_ellipse(center=(1.0, -2.0), axes=(3.0, 1.5), phi=0.6)
-    t0 = time.perf_counter()
     res = example.fit_ellipse(samples, device="cuda")
-    wall = time.perf_counter() - t0
     cpu = example.fit_ellipse(samples, device="cpu")
     cx, cy, a, b, phi = res.state.tolist()
     emit({"phase": "ellipse", "status": res.status.name,
           "iterations": res.iterations, "fun_evals": res.fun_evals,
-          "energy": res.energy, "params": [cx, cy, a, b, phi], "wall_s": wall,
+          "energy": res.energy, "params": [cx, cy, a, b, phi],
           "cpu": {"status": cpu.status.name, "iterations": cpu.iterations,
                   "params_max_abs_gap": (res.state.cpu() - cpu.state).abs().max().item()},
           "device": str(res.state.device), "nvidia_smi": smi,
@@ -2218,17 +1995,15 @@ def ellipse_phase(lm, smi) -> None:
 BLOCKED_SIZES = (2313, 15507)
 
 
-def blocked_chol_phase(linalg, flush, smi) -> None:
+def blocked_chol_phase(linalg, smi) -> None:
     """``blocked_chol``: ``ops/linalg.blocked_cholesky`` against float32
     ``torch.linalg.cholesky_ex``, and the two products through
     ``blocked_tril_inv`` against ``torch.cholesky_solve``, on a
     Jacobi-scaled SPD matrix (G G^T / 2n for a normal (n, 2n) G, scaled to
-    a unit diagonal) at each of BLOCKED_SIZES: median of 20 by CUDA events,
-    cold L2, and each float32 result's relative error against the float64
-    factor and solve."""
+    a unit diagonal) at each of BLOCKED_SIZES: each float32 result's
+    relative error against the float64 factor and solve."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    sleep = int(2e7)
     for n in BLOCKED_SIZES:
         G = torch.randn((n, 2 * n), dtype=torch.float64, device="cuda", generator=gen)
         S = G @ G.T / (2 * n)
@@ -2251,22 +2026,13 @@ def blocked_chol_phase(linalg, flush, smi) -> None:
 
         line = {
             "n": n, "info": [int(info_c), int(info_b)],
-            "cholesky_ex_ms": time_ms(lambda: torch.linalg.cholesky_ex(S32), 20,
-                                      sleep, flush),
-            "blocked_cholesky_ms": time_ms(lambda: linalg.blocked_cholesky(S32), 20,
-                                           sleep, flush),
-            "blocked_tril_inv_ms": time_ms(lambda: linalg.blocked_tril_inv(Lb), 20,
-                                           sleep, flush),
-            "cholesky_solve_ms": time_ms(
-                lambda: torch.cholesky_solve(b32[:, None], Lc), 20, sleep, flush),
-            "two_matvecs_ms": time_ms(lambda: X.T @ (X @ b32), 20, sleep, flush),
             "factor_rel_err": {"cholesky_ex": rel(Lc, L64), "blocked": rel(Lb, L64)},
             "solve_rel_err": {"cholesky_solve": rel(xc, x64),
                               "blocked_tril_inv": rel(xb, x64)},
             "blocked_vs_cholesky_ex": rel(Lb, Lc.double()),
         }
         emit({"phase": "blocked_chol", **line, "dtype": "float32", "block": 384,
-              "timing": "median of 20, CUDA events, cold L2", "nvidia_smi": smi})
+              "nvidia_smi": smi})
         check(line["info"] == [0, 0], f"blocked_chol n={n}: breakdown {line['info']}")
         for what, err in (*line["factor_rel_err"].items(),
                           *line["solve_rel_err"].items()):
@@ -2302,16 +2068,12 @@ def main() -> None:
     torch.cuda.set_device(dev)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
-    bw, fp32 = card_rates(kind)
-    op_rate = fp32 / 2  # float32 instructions per second, see OPS_PER_OBS
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-          "hbm_bytes_per_s": bw, "fp32_flop_per_s": fp32,
-          "fp32_instr_per_s": op_rate})
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
 
     # -- build: one nvcc per library, started together ---------------------------
@@ -2334,20 +2096,13 @@ def main() -> None:
           "eigh_ptxas": ptxas(cuda_eigh.BUILD_INFO)})
 
     # -- kernels against their plain versions --------------------------------
-    t0 = t_phase = time.perf_counter()
+    t_phase = time.perf_counter()
     problems = {name: pm.load_bal_problem(str(path), device=dev)
                 for name, path in (("p16", P16), ("p257", P257))}
-    load_s = time.perf_counter() - t0
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    if sys.argv[1:] == ["--eigh-only"]:  # the eigensolver's phases
-        eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush, smi)
-        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-        return
     if sys.argv[1:] == ["--jit-only"]:  # the device-resident drive's phases
-        n, m, k_real = LADYBUG
-        ladybug = (balgen.generate_bal_like(n, m, seed=n, mean_degree=k_real / m), 0.0)
-        jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi)
-        eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush, smi)
+        jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug_standin(balgen),
+                   smi)
+        eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, smi)
         sharded_jit_phases(lm, multihost, problems, smi)
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
         return
@@ -2399,25 +2154,12 @@ def main() -> None:
             kern["chain_energy"]["max_abs_err"] = max(
                 kern["chain_energy"]["max_abs_err"], abs(ee_k.item() - ee_p.item()))
             if name == "p257" and state_name == "loaded":
-                timed = time_entry_points(cuda_chain, fast, prob.obs, tau2, flush)
-                case["blocks_ms"] = timed["chain_blocks"]["ms"]
-                case["energy_ms"] = timed["chain_energy"]["ms"]
-                case["blocks_plain_ms"] = time_ms(
-                    lambda: cuda_chain.chain_blocks_plain(fast, prob.obs, tau2),
-                    20, int(2e8), flush)
-                case["energy_plain_ms"] = time_ms(
-                    lambda: cuda_chain.fused_energy_plain(fast, prob.obs, tau2),
-                    20, int(2e8), flush)
-                k_obs, n, m = prob.n_observations, prob.n_cameras, prob.n_points
-                bounds = kernel_bounds(n, m, k_obs, bw, op_rate)
+                gate = entry_point_ops(cuda_chain, fast, prob.obs, tau2)
                 for which in kern:
-                    kern[which].update(
-                        bound_ms=bounds[which][0], bound_by=bounds[which][1],
-                        **timed[which], **cuda_chain.launch_shape(which, n, k_obs))
-                kern["chain_blocks"]["plain_ms"] = case["blocks_plain_ms"]
-                kern["chain_energy"]["plain_ms"] = case["energy_plain_ms"]
+                    kern[which].update(**gate[which], **cuda_chain.launch_shape(
+                        which, prob.n_cameras, prob.n_observations))
             cases.append(case)
-    emit({"phase": "kernels", "load_seconds": load_s, "cases": cases,
+    emit({"phase": "kernels", "cases": cases,
           "phase_s": time.perf_counter() - t_phase})
     for c in cases:
         where = f"{c['problem']}/{c['state']}"
@@ -2447,37 +2189,13 @@ def main() -> None:
     cfg = lm.LMConfig(drive="host", max_iter=20, **DF32)
     check(cfg.use_kernels(dev), "the df32 drive does not select the kernels")
     e0 = cuda_chain.fused_energy(pm.to_fast(p257.state), p257.obs, p257.tau2).item()
-    lm.minimize(p257, mode="cholesky",
-                config=dataclasses.replace(cfg, max_iter=2))  # warm-up
-    torch.cuda.synchronize()
     cuda_chain.reset_launches()
-    t0 = time.perf_counter()
     res = lm.minimize(p257, mode="cholesky", config=cfg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = dict(cuda_chain.LAUNCHES)
-    # Stage times after the run, at its final state and lambda: median of 5,
-    # each ending in a synchronize.
-    fast = pm.to_fast(res.state)
-    stage = {"prepare": [], "trial": []}
-    for _ in range(5):
-        t = time.perf_counter()
-        ctx, _, _ = lm._prepare_fast(fast, p257, "cholesky", "float32",
-                                     kernels=True)
-        torch.cuda.synchronize()
-        stage["prepare"].append(time.perf_counter() - t)
-        t = time.perf_counter()
-        lm._trial_fast(ctx, fast, res.lam, p257, "cholesky", "float32",
-                       kernels=True)
-        torch.cuda.synchronize()
-        stage["trial"].append(time.perf_counter() - t)
     pts = res.state.points
     emit({"phase": "main_df32", "problem": "p257", "iterations": res.iterations,
           "fun_evals": res.fun_evals, "status": res.status.name,
-          "initial_energy": e0, "final_energy": res.energy, "wall_s": wall,
-          "lm_iter_per_s": res.iterations / wall,
-          "prepare_ms_median": statistics.median(stage["prepare"]) * 1e3,
-          "trial_ms_median": statistics.median(stage["trial"]) * 1e3,
+          "initial_energy": e0, "final_energy": res.energy,
           "launches": launches, "nvidia_smi": smi,
           "phase_s": time.perf_counter() - t_phase})
     check(np.isfinite(res.energy) and res.energy < e0,
@@ -2509,18 +2227,11 @@ def main() -> None:
     t_phase = time.perf_counter()
     cfg64 = lm.LMConfig(drive="host", max_iter=10)
     e0 = float(lm._prepare(p16.state, p16, "cholesky")[1])
-    lm.minimize(p16, mode="cholesky",
-                config=dataclasses.replace(cfg64, max_iter=2))  # warm-up
-    torch.cuda.synchronize()
     cuda_chain.reset_launches()
-    t0 = time.perf_counter()
     res = lm.minimize(p16, mode="cholesky", config=cfg64)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     emit({"phase": "main_f64", "problem": "p16", "iterations": res.iterations,
           "fun_evals": res.fun_evals, "status": res.status.name,
-          "initial_energy": e0, "final_energy": res.energy, "wall_s": wall,
-          "lm_iter_per_s": res.iterations / wall,
+          "initial_energy": e0, "final_energy": res.energy,
           "launches": dict(cuda_chain.LAUNCHES), "nvidia_smi": smi,
           "phase_s": time.perf_counter() - t_phase})
     check(np.isfinite(res.energy) and res.energy < e0,
@@ -2544,12 +2255,9 @@ def main() -> None:
     modes_phases(pm, lm, schur, jacobian, cuda_chain, problems, smi)
 
     # -- the command line ---------------------------------------------------------
-    n, m, k_real = LADYBUG
-    t0 = time.perf_counter()
-    ladybug = (balgen.generate_bal_like(n, m, seed=n, mean_degree=k_real / m),
-               time.perf_counter() - t0)
+    ladybug = ladybug_standin(balgen)
     for which, more in cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain,
-                                  smi, flush, bw, op_rate, ladybug).items():
+                                  smi, ladybug).items():
         kern[which].update(more)
 
     # -- the sharded path ---------------------------------------------------------
@@ -2560,7 +2268,7 @@ def main() -> None:
     # -- the flatline stop, the ellipse example, the blocked Cholesky pair ------
     flatline_phase(flatline_campaign, cuda_chain, smi)
     ellipse_phase(lm, smi)
-    blocked_chol_phase(linalg, flush, smi)
+    blocked_chol_phase(linalg, smi)
 
     # -- the device-resident drive ------------------------------------------------
     for which, more in jit_phases(pm, lm, cuda_chain, cuda_graph, problems,
@@ -2568,8 +2276,7 @@ def main() -> None:
         kern[which].update(more)
 
     # -- the eigensolver, pair-less qrkit and the sharded jit drive -------------
-    eigh = eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, flush,
-                       smi)
+    eigh = eigh_phases(pm, lm, cuda_chain, cuda_eigh, cuda_graph, problems, smi)
     for which, more in sharded_jit_phases(lm, multihost, problems, smi).items():
         kern[which].update(more)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
@@ -2583,7 +2290,7 @@ def main() -> None:
     # kernel's energy gap is its own field, energy_abs_err.
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src,
-         "replaces": replaces[name], "library_ms": None, **k}
+         "replaces": replaces[name], **k}
         for name, k in kern.items()] + [eigh]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

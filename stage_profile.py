@@ -1,33 +1,39 @@
-"""The chain kernels on the GPU: their times and what limits them, and
-their one-operation gate.
+"""Kernels alone on the GPU, against the frozen roofline of
+``portbench/core/roofline.py``: the chain kernels, the block Jacobi
+eigensolver, and the chain entry points' one-operation gate.
 
     python3 stage_profile.py [BAL file] --chain
+    python3 stage_profile.py --eigh
     python3 stage_profile.py [BAL file] --one-op N
 
-Loads the problem (default: the in-repo p257 stand-in) onto CUDA.
-Where the LM's time goes is the benchmark's to say: ``python3
-portbench/run.py --workload <cell> --seed <n> --seconds 30 --trace 1``
-reads it from a ``torch.profiler`` trace of whole solves, by the port's
-in-graph spans (PERF.md).
+``chip_smoke.py`` checks the port and times nothing; where a solve's time
+goes is ``portbench/run.py --trace 1``'s to say (PERF.md).
 
-``--chain`` prints one line on the chain kernels at the problem's
-loaded state: per kernel its device time, its entry point's device time, the
-host time to issue one call and the device operations one call issues, as
-``chip_smoke.py`` measures them (``time_entry_points``); then what limits a
-kernel: its time against the observations it visits (the energy kernel by
-``valid_count``, the blocks kernel by a prefix of the observations), with a
-cold and a warm L2, the CUDA-event time of an empty kernel, and each
-kernel's own duration as ``torch.profiler`` records it; and each kernel with
-its cameras staged in shared memory against the same work unstaged (the
-cameras padded to 2,500, which do not fit), in turns.
+``--chain``: one line per problem at its loaded state (the BAL file given,
+or the p257 stand-in and then the generated Ladybug stand-in, whose 1,723
+cameras the kernels do not stage). Per kernel its device time alone
+(``ms``) and through its entry point (``entry_ms``), the host time to issue
+one entry-point call (``host_us``), the plain version's time
+(``plain_ms``), the bound (``roofline.kernel_bounds``) and the launch
+shape; then its time against the observations it visits, cold and warm
+L2, beside an empty kernel's and ``torch.profiler``'s durations, and staged
+cameras against the same work unstaged (padded to 2,500), in turns.
 
-``--one-op N`` profiles each chain entry point N times, one call a
-profile, with ``chip_smoke.py``'s one-operation gate
-(``device_ops_per_call``), and prints the device operations counted per
-profile and the empty profiles. To compare two
-checkouts, copy this script and ``chip_smoke.py`` into the older one
-(unpacked with ``git archive`` into an ignored directory), run both in one
-call, in turns (A, B, B, A).
+``--eigh``: ``cuda_eigh.jacobi_eigh`` against ``torch.linalg.eigh`` on the
+float64 grams that pair-less qrkit factors at p16 and p257 (n = 145 and
+2,314), the bound, and each kernel's device time and that of the sweeps
+after convergence.
+
+``--one-op N``: each chain entry point profiled N times, one call a
+profile, by ``chip_smoke.device_ops_per_call``: the operations counted per
+profile and the empty profiles.
+
+Device times are medians of 20 by CUDA events with a cold L2 (``time_ms``);
+every line names the card. To compare two checkouts, copy this script and
+``chip_smoke.py`` (and ``portbench/core/roofline.py`` where it lacks one)
+into the older one, unpacked with ``git archive`` into an ignored
+directory, and run both in one call, in turns (A, B, B, A). Without a CUDA
+device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -35,19 +41,62 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import sys
+import time
 from pathlib import Path
+from typing import Optional
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
-from chip_smoke import (P257 as DEFAULT, device_ops_per_call, nvidia_smi,
-                        time_entry_points, time_ms)
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, cuda_eigh
+from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+from bundleadjustment_benchmarks_tpu_torch.utils import balgen
+from chip_smoke import (P16, P257, device_ops_per_call, entry_points,
+                        ladybug_standin, nvidia_smi, qrkit_gram)
+from portbench.core import roofline
 
-SLEEP = int(2e7)  # ~10 ms: longer than the host's enqueue
+SLEEP = int(2e7)  # ~10 ms: longer than the host's enqueue of one kernel
+PLAIN_SLEEP = int(2e8)  # ~100 ms: longer than a plain version's enqueue
+REPS = 20
 UNSTAGED_CAMERAS = 2500  # 2,500 x 27 floats exceed a block's shared memory
+
+
+def time_ms(fn, reps: int, sleep_cycles: int, flush: torch.Tensor) -> float:
+    """Median device time of ``fn`` by CUDA events, cold L2: before each rep
+    a buffer larger than L2 is rewritten and the stream is held busy
+    (``torch.cuda._sleep``) while the host queues the rep, so the events
+    time the device work and not the host's launch overhead."""
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(sleep_cycles)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Median host time (µs) to issue one call of ``fn``, with no
+    synchronize inside the timing; the stream is drained every 10 calls,
+    outside it, so the launch queue never fills."""
+    times = []
+    for i in range(calls):
+        if i % 10 == 0:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def profiled_us(fn, flush, reps: int = 20) -> dict:
@@ -62,7 +111,61 @@ def profiled_us(fn, flush, reps: int = 20) -> dict:
             for e in prof.key_averages() if "chain" in e.key}
 
 
-def chain_line(prob, card: str, path: str) -> None:
+def device_kernels(fn, sweeps: Optional[int] = None) -> dict:
+    """Device ms and launches of each kernel one call of ``fn`` runs, by
+    short name, from ``torch.profiler`` (after a warm-up call). With the
+    eigensolver's ``sweeps``, "after_convergence" has the ms and launches
+    of its sweeps after the ``sweeps``-th (``sweep_end`` to ``sweep_end``),
+    whose launches return at once."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+             .split("(")[0].split("<")[0] for e in events]
+    split = {}
+    for name, e in zip(names, events):
+        ms, count = split.get(name, (0.0, 0))
+        split[name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    out = {k: {"ms": v[0], "launches": v[1]} for k, v in split.items()}
+    ends = [i for i, name in enumerate(names) if name == "sweep_end"]
+    if sweeps is not None and len(ends) > sweeps:
+        tail = events[ends[sweeps - 1] + 1:ends[-1] + 1]
+        out["after_convergence"] = {
+            "ms": sum(e.time_range.elapsed_us() for e in tail) / 1e3,
+            "launches": len(tail), "sweeps": len(ends) - sweeps}
+    return out
+
+
+def chain_kernels(prob, fast, flush) -> dict:
+    """Per chain kernel at ``fast``, ``prob``'s state: ``ms``, ``entry_ms``,
+    ``host_us``, ``plain_ms``, the bound and the launch shape (the module
+    docstring)."""
+    obs, tau2 = prob.obs, prob.tau2
+    n, m, k = prob.n_cameras, prob.n_points, prob.n_observations
+    bw, fp32 = roofline.card_rates(torch.cuda.get_device_name(0))
+    bounds = roofline.kernel_bounds(n, m, k, bw, fp32 / 2)
+    ops = cuda_chain.chain_operands(fast, obs)
+    entry = entry_points(cuda_chain, fast, obs, tau2)
+    plain = {"chain_blocks": lambda: cuda_chain.chain_blocks_plain(fast, obs, tau2),
+             "chain_energy": lambda: cuda_chain.fused_energy_plain(fast, obs, tau2)}
+    out = {}
+    for which in entry:
+        out[which] = {
+            "ms": time_ms(lambda: cuda_chain.launch(which, ops, tau2), REPS,
+                          SLEEP, flush),
+            "entry_ms": time_ms(entry[which], REPS, SLEEP, flush),
+            "host_us": host_us(entry[which]),
+            "plain_ms": time_ms(plain[which], REPS, PLAIN_SLEEP, flush),
+            "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
+            **cuda_chain.launch_shape(which, n, k)}
+    return out
+
+
+def chain_line(prob, card: str, name: str) -> None:
     cuda_chain.load_library()
     fast, obs, tau2 = pm.to_fast(prob.state), prob.obs, prob.tau2
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=fast.R.device)
@@ -79,16 +182,17 @@ def chain_line(prob, card: str, path: str) -> None:
                 cuda_chain.launch(which, ops, tau2, valid)
 
             sweep.append({"kernel": which, "n": n,
-                          "cold_ms": time_ms(fn, 20, SLEEP, flush),
-                          "warm_ms": time_ms(fn, 20, SLEEP, warm),
+                          "cold_ms": time_ms(fn, REPS, SLEEP, flush),
+                          "warm_ms": time_ms(fn, REPS, SLEEP, warm),
                           "profiled_us": profiled_us(fn, flush)})
     sweep.append({"kernel": "empty (torch.cuda._sleep(0))",
-                  "cold_ms": time_ms(lambda: torch.cuda._sleep(0), 20, SLEEP,
+                  "cold_ms": time_ms(lambda: torch.cuda._sleep(0), REPS, SLEEP,
                                      flush)})
     print(json.dumps({
         "card": card, "package": str(Path(cuda_chain.__file__).parents[1]),
-        "problem": Path(path).name, "K": prob.n_observations,
-        **time_entry_points(cuda_chain, fast, obs, tau2, flush),
+        "problem": name, "N": prob.n_cameras, "M": prob.n_points,
+        "K": prob.n_observations,
+        "kernels": chain_kernels(prob, fast, flush),
         "sweep": sweep, "staging": staging(fast, obs, tau2, flush)}),
         flush=True)
 
@@ -120,21 +224,42 @@ def staging(fast, obs, tau2, flush) -> dict:
                 **cuda_chain.launch_shape(which, state.R.shape[0],
                                           obs.n_observations),
                 "cold_ms": [], "profiled_us": []})
-            v["cold_ms"].append(time_ms(fn, 20, SLEEP, flush))
+            v["cold_ms"].append(time_ms(fn, REPS, SLEEP, flush))
             v["profiled_us"].append(profiled_us(fn, flush))
         out[which] = variants
     return out
+
+
+def eigh_line(S, card: str, name: str, flush) -> None:
+    """The eigensolver against ``torch.linalg.eigh`` on the gram ``S``. The
+    bound: ~10/3 n^3 flops (LAPACK's tridiagonal route) at the camera
+    solve's peak, or S read and V written once at the memory rate, whichever
+    is larger."""
+    _, _, info, sweeps = cuda_eigh.jacobi_eigh(S)
+    kind = torch.cuda.get_device_name(0)
+    n = S.shape[0]
+    ops_ms = 10 / 3 * n ** 3 / roofline.camera_solve_peak(kind) * 1e3
+    bytes_ms = 2 * n * n * 8 / roofline.card_rates(kind)[0] * 1e3
+    print(json.dumps({
+        "card": card, "package": str(Path(cuda_eigh.__file__).parents[1]),
+        "problem": name, "n": n, "dtype": str(S.dtype), "info": int(info),
+        "sweeps": int(sweeps),
+        "jacobi_ms": time_ms(lambda: cuda_eigh.jacobi_eigh(S), REPS, SLEEP, flush),
+        "plain_ms": time_ms(lambda: torch.linalg.eigh(S), REPS, SLEEP, flush),
+        "timing": f"median of {REPS}, CUDA events, cold L2",
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "kernels": device_kernels(lambda: cuda_eigh.jacobi_eigh(S), int(sweeps))}),
+        flush=True)
 
 
 def one_op_line(prob, card: str, profiles: int) -> None:
     """``device_ops_per_call`` of each entry point over ``profiles``
     profiles."""
     cuda_chain.load_library()
-    fast, obs, tau2 = pm.to_fast(prob.state), prob.obs, prob.tau2
-    entry = {"chain_blocks": lambda: cuda_chain.fused_blocks_energy(fast, obs, tau2),
-             "chain_energy": lambda: cuda_chain.fused_energy(fast, obs, tau2)}
     out = {}
-    for which, fn in entry.items():
+    for which, fn in entry_points(cuda_chain, pm.to_fast(prob.state), prob.obs,
+                                  prob.tau2).items():
         c = device_ops_per_call(fn, profiles)["counts"]
         out[which] = {"profiles": len(c), "empty_profiles": c.count(0),
                       "ops_per_profile": {str(k): c.count(k) for k in sorted(set(c))}}
@@ -144,21 +269,36 @@ def one_op_line(prob, card: str, profiles: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("path", nargs="?", default=str(DEFAULT), help="BAL file")
+    ap.add_argument("path", nargs="?", help="BAL file (--chain, --one-op)")
     what = ap.add_mutually_exclusive_group(required=True)
     what.add_argument("--chain", action="store_true",
                       help="time the chain kernels")
+    what.add_argument("--eigh", action="store_true",
+                      help="time the eigensolver on the p16 and p257 grams")
     what.add_argument("--one-op", type=int, default=0, metavar="N",
                       help="profile each chain entry point N times")
     args = ap.parse_args()
+    if args.eigh and args.path:
+        ap.error("--eigh takes no BAL file")
     if not torch.cuda.is_available():
         sys.exit("stage_profile: needs a CUDA device")
     card = nvidia_smi()
-    prob = pm.load_bal_problem(args.path, device="cuda")
     if args.one_op:
-        one_op_line(prob, card, args.one_op)
+        one_op_line(pm.load_bal_problem(args.path or str(P257), device="cuda"),
+                    card, args.one_op)
+    elif args.eigh:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        for path in (P16, P257):
+            prob = pm.load_bal_problem(str(path), device="cuda")
+            eigh_line(qrkit_gram(pm, lm, cuda_eigh, prob, df32=False), card,
+                      path.name, flush)
+    elif args.path:
+        chain_line(pm.load_bal_problem(args.path, device="cuda"), card,
+                   Path(args.path).name)
     else:
-        chain_line(prob, card, args.path)
+        chain_line(pm.load_bal_problem(str(P257), device="cuda"), card, P257.name)
+        chain_line(pm.from_bal_dataset(ladybug_standin(balgen), device="cuda"),
+                   card, "ladybug-1723-standin")
 
 
 if __name__ == "__main__":

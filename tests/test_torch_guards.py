@@ -27,6 +27,7 @@ ELLIPSE = os.path.join(ROOT, "examples", "ellipse_fitting_torch.py")
 ORACLE = os.path.join(ROOT, "oracle_prefix.py")
 BENCH = os.path.join(ROOT, "bench_torch.py")
 PROBE = os.path.join(ROOT, "numerics_probe.py")
+STAGE = os.path.join(ROOT, "stage_profile.py")
 THREADS_HELPER = os.path.join(ROOT, "tests", "torch_threads.py")
 P16 = os.path.join(ROOT, "data", "problem-16-22106-pre.txt.gz")
 
@@ -114,12 +115,13 @@ def _imported_names(path):
     return names
 
 
-@pytest.mark.parametrize("path", [CAMPAIGN, ELLIPSE, ORACLE, BENCH, PROBE],
+@pytest.mark.parametrize("path", [CAMPAIGN, ELLIPSE, ORACLE, BENCH, PROBE, STAGE],
                          ids=os.path.basename)
 def test_campaign_and_example_import_no_jax(path):
     """The flatline campaign, the ellipse example, the oracle-prefix script,
-    the bench and the numerics probe name no JAX module, and importing
-    them (and the package modules they reach) loads none."""
+    the bench, the numerics probe and the kernel profiler name no JAX
+    module, and importing them (and the package modules they reach) loads
+    none."""
     names = _imported_names(path)
     assert "bundleadjustment_benchmarks_tpu_torch.solvers" in names
     assert [n for n in names if _is_jax_side(n)] == []
@@ -143,7 +145,8 @@ PORT_FILES = sorted(
     for f in files if f.endswith(".py"))
 
 
-@pytest.mark.parametrize("path", [SMOKE, CAMPAIGN, ORACLE, BENCH, PROBE, *PORT_FILES],
+@pytest.mark.parametrize("path", [SMOKE, CAMPAIGN, ORACLE, BENCH, PROBE, STAGE,
+                                  *PORT_FILES],
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_nothing_of_the_port_imports_jax_reference(path):
     """``jax_reference.py`` runs the JAX package to write the Ladybug
@@ -219,6 +222,17 @@ def test_chip_smoke_fails_without_cuda():
     proc = _run_smoke(ROOT)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_stage_profile_fails_without_cuda():
+    """Without CUDA the kernel profiler exits non-zero and prints nothing on
+    its standard output; it never times on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, STAGE, "--chain"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "needs a CUDA device" in proc.stderr
+    assert proc.stdout == ""
 
 
 def test_chip_smoke_fails_alone(tmp_path):
