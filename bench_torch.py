@@ -33,7 +33,8 @@ bench.py's config leaves it); each run's line has its ``reads`` and
 Each workload (problem, mode) is gated, and the line says ``correct``:
 (a) every timed run equals the warm-up in status, iterations, evaluations
 and final energy, bit for bit, and no run captured inside its window;
-(b) with df32 on CUDA, the whole workload on the timed graph itself (the
+(b) where the drive runs chain kernels on CUDA (df32, and float64 without
+float32 matmuls), the whole workload on the timed graph itself (the
 graph cache's key leaves out the limits and the observers, so it replays
 without a capture), its states observed, and each of its iterations once
 more with the chain kernels' plain versions, from that run's own state
@@ -328,8 +329,10 @@ def rerun_iterations(problem, mode: str, cfg: lm.LMConfig, dev: torch.device,
 
 
 def kernels_vs_plain(problem, modes, cfg: lm.LMConfig, dev: torch.device) -> dict:
-    """Gate (b) for each of ``modes`` ({mode: record}; None off CUDA or off
-    df32): the whole workload run with the chain kernels, its states
+    """Gate (b) for each of ``modes`` ({mode: record}; None where ``cfg``
+    runs no chain kernel: off CUDA, or the float64 drive with float32
+    matmuls): the whole workload run with the chain kernels (the df32
+    pair, or the float64 pair), its states
     observed: the graph cache's key leaves out the limits and the
     observers (``lm._graph_key``), so it replays the timed graph itself,
     which it must (``captured`` false) with both chain kernels launched.
@@ -346,8 +349,9 @@ def kernels_vs_plain(problem, modes, cfg: lm.LMConfig, dev: torch.device) -> dic
     chain's energies differ by ~1e-15: summation order) and, where the two
     round to different float32 values, parts the float32 reduced systems
     and with them the energies (PERF.md)."""
-    if cfg.geometry != "df32" or dev.type != "cuda":
+    if dev.type != "cuda" or not cfg.use_kernels(dev, problem.state.T.dtype):
         return {mode: None for mode in modes}
+    drive_kernels = cuda_chain.DRIVE_KERNELS[cfg.geometry or "f64"]
     kern = {}
     for mode in modes:
         cuda_chain.reset_launches()
@@ -376,7 +380,7 @@ def kernels_vs_plain(problem, modes, cfg: lm.LMConfig, dev: torch.device) -> dic
             "ok": (k.iterations, k.fun_evals) == (plain.iterations, plain.fun_evals)
             and gap <= KERNELS_RTOL and parting["parted"] is None
             and stops == want and captured is False
-            and min(launches.values()) > 0}
+            and min(launches[name] for name in drive_kernels) > 0}
     return gates
 
 

@@ -49,20 +49,44 @@
 //    the 1e-8 flatline test compare energies). The caller owns the ticket
 //    and the partials (one workspace per device and stream).
 // Row stores stay coalesced: thread k writes rows[r * K + k].
+//
+// The float64 pair, chain_blocks_f64_kernel and chain_energy_f64_kernel
+// (math in chain_f64.cuh), replaces no TPU kernel: the JAX package's
+// float64 chain is XLA-fused jnp. In the port they take the place of ~150
+// plain PyTorch ops a prepare and ~45 a trial, and equal them bit for bit
+// (the energies up to the order of their sums). Bytes bound
+// them: the blocks kernel writes 26 float64 rows (208 B) an observation
+// against ~40 B read (indices, measurements, the point; cameras from shared
+// memory or L2), the energy kernel reads the same and writes nothing per
+// observation. Their design is the df32 pair's: one launch with a resident
+// grid and a fixed grid stride, the next observation's indices and
+// operands loaded before the current one is computed, the cameras' 15
+// float64 staged in shared memory while the table fits (N x 120 B) without
+// lowering the resident blocks per SM, planar (26, K) rows in the df32
+// kernel's layout with coalesced stores, and the same deterministic energy
+// fold in float64 (a double partial per thread, __shfl_down_sync, one
+// partial per block, the last block by a ticket folds them in block order
+// and resets the ticket).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chain_f64.cuh"
 #include "chain_math.cuh"
 
 // The split camera table, (N, 27) float32, when a kernel stages it.
 extern __shared__ float staged_cams[];
+// The float64 kernels' camera table, (N, 15) float64.
+extern __shared__ double staged_cams64[];
 
 namespace {
 
 // 512 measured best of 256, 512 and 1024 (PERF.md).
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+// The float64 kernels hold twice the registers an operand.
+constexpr int kThreads64 = 256;
+constexpr int kWarps64 = kThreads64 / 32;
 constexpr int kMaxDevices = 64;
 
 struct Operands {
@@ -89,8 +113,8 @@ struct Scratch {
 };
 
 // One camera as the state holds it: R (9), T (3), K[0, 0], k1, k2.
-__device__ __forceinline__ void fetch_cam(const Operands &op, int c,
-                                          double d[15]) {
+template <class Op>
+__device__ __forceinline__ void fetch_cam(const Op &op, int c, double d[15]) {
 #pragma unroll
   for (int i = 0; i < 9; ++i) d[i] = __ldg(op.R + (size_t)c * 9 + i);
 #pragma unroll
@@ -281,12 +305,181 @@ __global__ void __launch_bounds__(kThreads)
   chain_body<false, kStaged>(op, rows, s);
 }
 
-using Kernel = void (*)(Operands, float *, Scratch);
-enum Which { kBlocksKernel = 0, kEnergyKernel = 1 };
+// ---- the float64 pair ----------------------------------------------------
+
+struct Operands64 {
+  const double *R;       // (N, 3, 3)
+  const double *T;       // (N, 3)
+  const double *Kmat;    // (N, 3, 3); the focal length is K[n, 0, 0]
+  const double *k1;      // (N,)
+  const double *k2;      // (N,)
+  const double *points;  // (M, 3)
+  const double *meas;    // (K, 2)
+  const int *cam_idx;    // (K,)
+  const int *pt_idx;     // (K,)
+  int N, K, M;
+  double tau2, inv_tau2;  // inv_tau2 = 1 / tau2, rounded on the host
+};
+
+// The caller's workspace: the ticket, then one float64 partial per block
+// from the third word (8-byte aligned).
+struct Scratch64 {
+  unsigned *ticket;
+  double *part;
+  double *energy;
+};
+
+struct Gathered64 {
+  int c;
+  double X[3], m0, m1;
+};
+
+__device__ __forceinline__ void gather64(const Operands64 &op, int k, int c,
+                                         int p, Gathered64 &g) {
+  g.c = c;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) g.X[i] = __ldg(op.points + (size_t)p * 3 + i);
+  g.m0 = __ldg(op.meas + (size_t)k * 2);
+  g.m1 = __ldg(op.meas + (size_t)k * 2 + 1);
+}
+
+__device__ __forceinline__ double warp_sum64(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ double block_sum64(double v) {
+  __shared__ double sv[kWarps64];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum64(v);
+  if (lane == 0) sv[warp] = v;
+  __syncthreads();
+  if (warp == 0) v = warp_sum64(lane < kWarps64 ? sv[lane] : 0.0);
+  return v;
+}
+
+__device__ __forceinline__ void finish_energy64(double v, const Scratch64 &s) {
+  __shared__ bool last;
+  v = block_sum64(v);
+  if (threadIdx.x == 0) {
+    s.part[blockIdx.x] = v;
+    __threadfence();
+    last = atomicAdd(s.ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double acc = 0.0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads64)
+    acc += __ldcg(s.part + b);
+  acc = block_sum64(acc);
+  if (threadIdx.x == 0) {
+    *s.energy = acc;
+    *s.ticket = 0u;
+  }
+}
+
+// chain_body's walk for the float64 chain: kBlocks writes the 26 rows of
+// every observation, both kernels sum f0^2 + f1^2 over all of them.
+template <bool kBlocks, bool kStaged>
+__device__ __forceinline__ void chain64_body(const Operands64 &op,
+                                             double *__restrict__ rows,
+                                             const Scratch64 &s) {
+  const int n = op.K;
+  const int stride = gridDim.x * kThreads64;
+  int k = blockIdx.x * kThreads64 + threadIdx.x;
+  int kn = k + stride;
+  int c = 0, p = 0, cn = 0, pn = 0;
+  if (k < n) {
+    c = __ldg(op.cam_idx + k);
+    p = __ldg(op.pt_idx + k);
+  }
+  if (kn < n) {
+    cn = __ldg(op.cam_idx + kn);
+    pn = __ldg(op.pt_idx + kn);
+  }
+  double cam[chain64::kCam];
+  if (kStaged && (int)threadIdx.x < op.N) fetch_cam(op, threadIdx.x, cam);
+  Gathered64 g;
+  if (k < n) gather64(op, k, c, p, g);
+  if (kStaged) {
+    for (int i = threadIdx.x; i < op.N; i += kThreads64) {
+      if (i != (int)threadIdx.x) fetch_cam(op, i, cam);
+#pragma unroll
+      for (int j = 0; j < chain64::kCam; ++j)
+        staged_cams64[i * chain64::kCam + j] = cam[j];
+    }
+    __syncthreads();
+  }
+  double acc = 0.0;
+  for (; k < n; k += stride, kn += stride) {
+    const Gathered64 cur = g;
+    if (kn < n) {
+      gather64(op, kn, cn, pn, g);
+      const int knn = kn + stride;
+      if (knn < n) {
+        cn = __ldg(op.cam_idx + knn);
+        pn = __ldg(op.pt_idx + knn);
+      }
+    }
+    if (kStaged) {
+      const double *src = staged_cams64 + cur.c * chain64::kCam;
+#pragma unroll
+      for (int j = 0; j < chain64::kCam; ++j) cam[j] = src[j];
+    } else {
+      fetch_cam(op, cur.c, cam);
+    }
+    if (kBlocks)
+      acc += chain64::blocks(cam, cur.X, cur.m0, cur.m1, op.tau2,
+                             op.inv_tau2, rows + k, (size_t)op.K);
+    else
+      acc += chain64::energy(cam, cur.X, cur.m0, cur.m1, op.tau2,
+                             op.inv_tau2);
+  }
+  finish_energy64(acc, s);
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads64)
+    chain_blocks_f64_kernel(Operands64 op, double *__restrict__ rows,
+                            Scratch64 s) {
+  chain64_body<true, kStaged>(op, rows, s);
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads64)
+    chain_energy_f64_kernel(Operands64 op, double *__restrict__ rows,
+                            Scratch64 s) {
+  chain64_body<false, kStaged>(op, rows, s);
+}
+
+// ---- launches -----------------------------------------------------------------
+
+enum Which {
+  kBlocksKernel = 0,
+  kEnergyKernel = 1,
+  kBlocksF64 = 2,
+  kEnergyF64 = 3,
+  kKinds = 4
+};
 // By Which, then staged.
-const Kernel kKernels[2][2] = {
-    {chain_blocks_kernel<false>, chain_blocks_kernel<true>},
-    {chain_energy_kernel<false>, chain_energy_kernel<true>}};
+const void *const kKernels[kKinds][2] = {
+    {(const void *)chain_blocks_kernel<false>,
+     (const void *)chain_blocks_kernel<true>},
+    {(const void *)chain_energy_kernel<false>,
+     (const void *)chain_energy_kernel<true>},
+    {(const void *)chain_blocks_f64_kernel<false>,
+     (const void *)chain_blocks_f64_kernel<true>},
+    {(const void *)chain_energy_f64_kernel<false>,
+     (const void *)chain_energy_f64_kernel<true>}};
+// Threads a block and staged bytes a camera, by Which.
+constexpr int kKindThreads[kKinds] = {kThreads, kThreads, kThreads64,
+                                      kThreads64};
+constexpr int kCamBytes[kKinds] = {
+    chain::kCamPack * (int)sizeof(float), chain::kCamPack * (int)sizeof(float),
+    chain64::kCam * (int)sizeof(double), chain64::kCam * (int)sizeof(double)};
 
 // What a launch needs to know of the current device, found once per device:
 // SMs, thread slots per SM and the shared memory a block may opt in to; and,
@@ -294,8 +487,8 @@ const Kernel kKernels[2][2] = {
 // staging size asked).
 struct Device {
   int sms = 0, threads_per_sm = 0, smem_optin = 0;
-  int plain_per_sm[2] = {-1, -1};
-  int staged_smem[2] = {-1, -1}, staged_per_sm[2] = {};
+  int plain_per_sm[kKinds] = {-1, -1, -1, -1};
+  int staged_smem[kKinds] = {-1, -1, -1, -1}, staged_per_sm[kKinds] = {};
 };
 
 cudaError_t device(Device **out) {
@@ -314,7 +507,7 @@ cudaError_t device(Device **out) {
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(
           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    for (int w = 0; w < 2 && err == cudaSuccess; ++w)
+    for (int w = 0; w < kKinds && err == cudaSuccess; ++w)
       err = cudaFuncSetAttribute(kKernels[w][1],
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  optin - 1024);  // the static shared memory
@@ -328,33 +521,35 @@ cudaError_t device(Device **out) {
 }
 
 struct Shape {
-  Kernel kernel;
-  int grid, per_sm, smem;
+  const void *kernel;
+  int grid, threads, per_sm, smem;
   bool staged;
 };
 
-// The launch of kernel `which` for these operands: staged when the split
-// cameras fit in a block's shared memory and staging keeps as many blocks
-// resident per SM as the unstaged kernel (registers allow 2 of 512 per SM,
-// so up to ~1,050 cameras on the H100); as many blocks as the card holds at
-// once, but no more than the observations need.
-cudaError_t shape_for(int which, const Operands &op, Shape *out) {
+// The launch of kernel `which` over `n` observations with N cameras:
+// staged when the cameras fit in a block's shared memory and staging keeps
+// as many blocks resident per SM as the unstaged kernel (for the df32 pair
+// registers allow 2 of 512 per SM, so up to ~1,050 cameras on the H100);
+// as many blocks as the card holds at once, but no more than the
+// observations need.
+cudaError_t shape_for(int which, int N, int n, Shape *out) {
   Device *d;
   cudaError_t err = device(&d);
   if (err != cudaSuccess) return err;
+  const int threads = kKindThreads[which];
   if (d->plain_per_sm[which] < 0) {
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kKernels[which][0], kThreads, 0);
+        &per_sm, kKernels[which][0], threads, 0);
     if (err != cudaSuccess) return err;
     d->plain_per_sm[which] = per_sm;
   }
-  const int smem = op.N * chain::kCamPack * (int)sizeof(float);
+  const int smem = N * kCamBytes[which];
   bool staged = smem <= d->smem_optin;
   if (staged && d->staged_smem[which] != smem) {
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kKernels[which][1], kThreads, smem);
+        &per_sm, kKernels[which][1], threads, smem);
     if (err != cudaSuccess) return err;
     d->staged_per_sm[which] = per_sm;
     d->staged_smem[which] = smem;
@@ -362,12 +557,11 @@ cudaError_t shape_for(int which, const Operands &op, Shape *out) {
   staged = staged && d->staged_per_sm[which] >= d->plain_per_sm[which];
   const int per_sm =
       staged ? d->staged_per_sm[which] : d->plain_per_sm[which];
-  const int n = which == kBlocksKernel ? op.K : op.valid;
-  const int need = n > 0 ? (n + kThreads - 1) / kThreads : 1;
+  const int need = n > 0 ? (n + threads - 1) / threads : 1;
   const int resident = per_sm * d->sms;
   *out = Shape{kKernels[which][staged],
-               need < resident ? need : (resident > 0 ? resident : 1), per_sm,
-               staged ? smem : 0, staged};
+               need < resident ? need : (resident > 0 ? resident : 1),
+               threads, per_sm, staged ? smem : 0, staged};
   return cudaSuccess;
 }
 
@@ -381,16 +575,34 @@ Operands operands(const double *R, const double *T, const double *Kmat,
                   cam_idx, pt_idx, N, K, M, valid, tau2};
 }
 
-int launch(int which, const Operands &op, float *rows, int *workspace,
-           double *energy, void *stream) {
+// One launch of `which` over `n` observations; `args` are its three
+// arguments (operands, rows, scratch).
+int launch(int which, int N, int n, void **args, void *stream) {
   Shape sh;
-  cudaError_t err = shape_for(which, op, &sh);
+  cudaError_t err = shape_for(which, N, n, &sh);
   if (err != cudaSuccess) return (int)err;
-  const Scratch s{reinterpret_cast<unsigned *>(workspace),
-                  reinterpret_cast<float *>(workspace + 1), energy};
-  sh.kernel<<<sh.grid, kThreads, sh.smem,
-              static_cast<cudaStream_t>(stream)>>>(op, rows, s);
+  err = cudaLaunchKernel(sh.kernel, dim3(sh.grid), dim3(sh.threads), args,
+                         sh.smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+int launch32(int which, const Operands &op, float *rows, int *workspace,
+             double *energy, void *stream) {
+  Operands o = op;
+  Scratch s{reinterpret_cast<unsigned *>(workspace),
+            reinterpret_cast<float *>(workspace + 1), energy};
+  void *args[] = {&o, &rows, &s};
+  return launch(which, op.N, which == kBlocksKernel ? op.K : op.valid, args,
+                stream);
+}
+
+int launch64(int which, Operands64 op, double *rows, int *workspace,
+             double *energy, void *stream) {
+  Scratch64 s{reinterpret_cast<unsigned *>(workspace),
+              reinterpret_cast<double *>(workspace + 2), energy};
+  void *args[] = {&op, &rows, &s};
+  return launch(which, op.N, op.K, args, stream);
 }
 
 }  // namespace
@@ -398,32 +610,31 @@ int launch(int which, const Operands &op, float *rows, int *workspace,
 extern "C" {
 
 // int32 words of the workspace the launches need on the current device: a
-// ticket (zero between launches) and one DF partial per block of the
-// largest grid the device can hold at once.
+// ticket (zero between launches), a pad word, and room for one float64 (or
+// DF) partial per block of the largest grid the device can hold at once.
 int chain_workspace_words(int *words) {
   Device *d;
   cudaError_t err = device(&d);
   if (err != cudaSuccess) return (int)err;
-  *words = 1 + 2 * d->sms * (d->threads_per_sm / kThreads);
+  *words = 2 + 2 * d->sms * (d->threads_per_sm / kThreads64);
   return 0;
 }
 
-// The launch of kernel `which` (0 blocks, 1 energy) for N cameras and K
-// observations, `valid` of them in the energy: out = {grid, threads,
-// resident blocks per SM, SMs, staged (0 or 1)}.
+// The launch of kernel `which` (0 blocks, 1 energy, 2 float64 blocks, 3
+// float64 energy) for N cameras and K observations, `valid` of them in the
+// df32 energy: out = {grid, threads, resident blocks per SM, SMs, staged
+// (0 or 1)}.
 int chain_launch_shape(int which, int N, int K, int valid, int *out) {
   Device *d;
   Shape sh;
+  if (which < 0 || which >= kKinds) return (int)cudaErrorInvalidValue;
+  valid = valid < 0 ? 0 : (valid > K ? K : valid);
   cudaError_t err = device(&d);
   if (err == cudaSuccess)
-    err = shape_for(which,
-                    operands(nullptr, nullptr, nullptr, nullptr, nullptr,
-                             nullptr, nullptr, nullptr, nullptr, nullptr, N, K,
-                             0, valid, 0.0f),
-                    &sh);
+    err = shape_for(which, N, which == kEnergyKernel ? valid : K, &sh);
   if (err != cudaSuccess) return (int)err;
   out[0] = sh.grid;
-  out[1] = kThreads;
+  out[1] = sh.threads;
   out[2] = sh.per_sm;
   out[3] = d->sms;
   out[4] = sh.staged;
@@ -437,10 +648,10 @@ int chain_blocks(const double *R, const double *T, const double *Kmat,
                  const float *pts_lo, const float *meas, const int *cam_idx,
                  const int *pt_idx, int N, int K, int M, int valid, float tau2,
                  float *rows, int *workspace, double *energy, void *stream) {
-  return launch(kBlocksKernel,
-                operands(R, T, Kmat, k1, k2, pts_hi, pts_lo, meas, cam_idx,
-                         pt_idx, N, K, M, valid, tau2),
-                rows, workspace, energy, stream);
+  return launch32(kBlocksKernel,
+                  operands(R, T, Kmat, k1, k2, pts_hi, pts_lo, meas, cam_idx,
+                           pt_idx, N, K, M, valid, tau2),
+                  rows, workspace, energy, stream);
 }
 
 int chain_energy(const double *R, const double *T, const double *Kmat,
@@ -448,10 +659,26 @@ int chain_energy(const double *R, const double *T, const double *Kmat,
                  const float *pts_lo, const float *meas, const int *cam_idx,
                  const int *pt_idx, int N, int K, int M, int valid, float tau2,
                  int *workspace, double *energy, void *stream) {
-  return launch(kEnergyKernel,
-                operands(R, T, Kmat, k1, k2, pts_hi, pts_lo, meas, cam_idx,
-                         pt_idx, N, K, M, valid, tau2),
-                nullptr, workspace, energy, stream);
+  return launch32(kEnergyKernel,
+                  operands(R, T, Kmat, k1, k2, pts_hi, pts_lo, meas, cam_idx,
+                           pt_idx, N, K, M, valid, tau2),
+                  nullptr, workspace, energy, stream);
+}
+
+// The float64 pair. points (M, 3), measurements (K, 2); rows: (26, K)
+// float64 out, or null for the energy kernel (which = 3); workspace and
+// energy as above.
+int chain_f64(int which, const double *R, const double *T, const double *Kmat,
+              const double *k1, const double *k2, const double *points,
+              const double *meas, const int *cam_idx, const int *pt_idx,
+              int N, int K, int M, double tau2, double inv_tau2, double *rows,
+              int *workspace, double *energy, void *stream) {
+  if (which != kBlocksF64 && which != kEnergyF64)
+    return (int)cudaErrorInvalidValue;
+  return launch64(which,
+                  Operands64{R, T, Kmat, k1, k2, points, meas, cam_idx, pt_idx,
+                             N, K, M, tau2, inv_tau2},
+                  rows, workspace, energy, stream);
 }
 
 const char *chain_error_string(int err) {

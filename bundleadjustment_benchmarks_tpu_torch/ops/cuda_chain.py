@@ -9,7 +9,16 @@ Replaces the two Pallas TPU kernels of the reference package
   fused_energy         <- _energy_kernel: the trial energy, once per damping
                           trial.
 
-The kernels (csrc/chain_kernels.cu, math in csrc/chain_math.cuh) are built on
+and gives the float64 drive its own pair, which replaces no TPU kernel (the
+JAX package's float64 chain is XLA-fused jnp):
+
+  blocks_energy_f64    the robustified residuals, Jacobian blocks and
+                       energy of jacobian.residuals_and_jacobian, as (26, K)
+                       float64 planar rows;
+  energy_f64           the trial energy of projection.energy.
+
+The kernels (csrc/chain_kernels.cu, math in csrc/chain_math.cuh and
+csrc/chain_f64.cuh) are built on
 first use with nvcc for sm_90a into ``_build/`` beside the package and bound
 through ctypes (``ops/nvcc.py``). Each entry point issues one device kernel: it reads the
 state's float64 cameras and DF points as they are and folds its energy in
@@ -37,17 +46,22 @@ import torch
 
 from bundleadjustment_benchmarks_tpu_torch.ops import cuda_graph, jacobian, nvcc, projection
 
-SOURCES = ("chain_kernels.cu", "chain_math.cuh")
+SOURCES = ("chain_kernels.cu", "chain_math.cuh", "chain_f64.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
     "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
+#: The kernels, in the C library's order (its ``which``) and in the order of
+#: their slots of the in-graph record.
+KERNELS = ("chain_blocks", "chain_energy", "chain_blocks_f64", "chain_energy_f64")
+#: The kernels each drive launches, by geometry ("f64": the float64 drive).
+DRIVE_KERNELS = {"df32": KERNELS[:2], "f64": KERNELS[2:]}
 #: Launch counts of the kernels, by name. Only the wrappers' launches count;
 #: a launch captured into a CUDA graph counts once per time the graph runs
 #: it (see ``collect_graph_launches``).
-LAUNCHES = {"chain_blocks": 0, "chain_energy": 0}
+LAUNCHES = dict.fromkeys(KERNELS, 0)
 #: What the last build did: seconds, library path, nvcc's -Xptxas=-v output.
 BUILD_INFO: dict = {}
 
@@ -56,10 +70,9 @@ _lock = threading.Lock()
 
 
 def _graph_counts(dev) -> torch.Tensor:
-    """The device's (chain_blocks, chain_energy) slots of its in-graph
-    record, which a captured launch's graph adds one to each time it runs
-    the launch."""
-    return cuda_graph.counter(dev, "chain_blocks", 2)
+    """The device's slots of its in-graph record for ``KERNELS``, which a
+    captured launch's graph adds one to each time it runs the launch."""
+    return cuda_graph.counter(dev, KERNELS[0], len(KERNELS))
 
 
 def reset_launches() -> None:
@@ -69,11 +82,12 @@ def reset_launches() -> None:
         _graph_counts(dev).zero_()
 
 
-def credit_graph_launches(dev, blocks: int, energy: int) -> None:
-    """Add ``blocks`` and ``energy`` launches, which a caller read from the
-    device's record, to ``LAUNCHES`` and zero their slots there."""
-    LAUNCHES["chain_blocks"] += blocks
-    LAUNCHES["chain_energy"] += energy
+def credit_graph_launches(dev, counts) -> None:
+    """Add the launches ``counts[kernel]`` of each of ``KERNELS``, which a
+    caller read from the device's record, to ``LAUNCHES`` and zero their
+    slots there."""
+    for k in KERNELS:
+        LAUNCHES[k] += counts[k]
     _graph_counts(dev).zero_()
 
 
@@ -81,7 +95,7 @@ def collect_graph_launches() -> None:
     """Add the launches that CUDA graphs ran since the last call to
     ``LAUNCHES`` (one host read per device that has a record)."""
     for dev in cuda_graph.cuda_devices():
-        credit_graph_launches(dev, *_graph_counts(dev).tolist())
+        credit_graph_launches(dev, dict(zip(KERNELS, _graph_counts(dev).tolist())))
 
 
 def prepare_capture(dev: torch.device) -> None:
@@ -115,6 +129,9 @@ def load_library():
         lib.chain_blocks.restype = i
         lib.chain_energy.argtypes = operands + [p, p, p]
         lib.chain_energy.restype = i
+        d = ctypes.c_double
+        lib.chain_f64.argtypes = [i] + [p] * 9 + [i, i, i, d, d, p, p, p, p]
+        lib.chain_f64.restype = i
         lib.chain_workspace_words.argtypes = [p]
         lib.chain_workspace_words.restype = i
         lib.chain_launch_shape.argtypes = [i, i, i, i, p]
@@ -200,11 +217,53 @@ def launch(which: str, operands, tau2: float, valid_count=None):
     else:
         raise ValueError(f"unknown chain kernel {which!r}")
     _raise(lib, f"{which} launch", err)
+    _count(dev, which)
+    return rows, energy
+
+
+def _count(dev, which: str) -> None:
     if torch.cuda.is_current_stream_capturing():
         # The graph counts the launch each time it runs it.
         cuda_graph.counter(dev, which).add_(1)
     else:
         LAUNCHES[which] += 1
+
+
+def launch_f64(which: str, operands, tau2: float):
+    """Check the operands and launch one float64 chain kernel (``which`` is
+    "chain_blocks_f64" or "chain_energy_f64") on the current stream.
+
+    ``operands`` is ``f64_operands``'s tuple. Returns ((26, K) float64 rows
+    or None, float64 0-dim energy over every observation)."""
+    R, T, Kmat, k1, k2, points, meas, cam_idx, pt_idx = operands
+    dev = points.device
+    k, n, m = cam_idx.shape[0], R.shape[0], points.shape[0]
+    f64 = torch.float64
+    for t, name, dtype, shape in (
+            (R, "R", f64, (n, 3, 3)), (T, "T", f64, (n, 3)),
+            (Kmat, "K", f64, (n, 3, 3)), (k1, "k1", f64, (n,)),
+            (k2, "k2", f64, (n,)), (points, "points", f64, (m, 3)),
+            (meas, "measurements", f64, (k, 2)),
+            (cam_idx, "cam_idx", torch.int32, (k,)),
+            (pt_idx, "pt_idx", torch.int32, (k,))):
+        _check(t, name, dtype, shape, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"{which}: operands must be CUDA tensors, got {dev}")
+    if which not in DRIVE_KERNELS["f64"]:
+        raise ValueError(f"unknown float64 chain kernel {which!r}")
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _workspace(lib, dev, stream).data_ptr()
+    energy = torch.empty((), dtype=f64, device=dev)
+    rows = (torch.empty((jacobian.PLANAR_CHAIN_ROWS, k), dtype=f64, device=dev)
+            if which == "chain_blocks_f64" else None)
+    tau2 = float(tau2)
+    err = lib.chain_f64(KERNELS.index(which), *(t.data_ptr() for t in operands),
+                        n, k, m, tau2, 1.0 / tau2,
+                        None if rows is None else rows.data_ptr(), ws,
+                        energy.data_ptr(), stream)
+    _raise(lib, f"{which} launch", err)
+    _count(dev, which)
     return rows, energy
 
 
@@ -217,10 +276,9 @@ def launch_shape(which: str, n_cameras: int, k: int, valid_count=None) -> dict:
     out = (ctypes.c_int * 5)()
     valid = k if valid_count is None else int(valid_count)
     _raise(lib, "launch shape", lib.chain_launch_shape(
-        {"chain_blocks": 0, "chain_energy": 1}[which], n_cameras, k, valid,
-        out))
+        KERNELS.index(which), n_cameras, k, valid, out))
     grid, threads, per_sm, sms, staged = out
-    n = k if which == "chain_blocks" else max(0, min(valid, k))
+    n = max(0, min(valid, k)) if which == "chain_energy" else k
     return {"grid": grid, "threads": threads, "blocks_per_sm": per_sm,
             "sms": sms, "waves": grid / (per_sm * sms),
             "obs_per_thread": -(-n // (grid * threads)),
@@ -234,6 +292,17 @@ def chain_operands(fast, obs):
     (2, K) and the int32 indices (K,)."""
     return (fast.R, fast.T, fast.K, fast.k1, fast.k2, fast.points.hi,
             fast.points.lo, obs.measurements_pl, obs.cam_idx, obs.pt_idx)
+
+
+def f64_operands(state, obs):
+    """The float64 kernels' operands as the BAState holds them: R (N, 3, 3),
+    T (N, 3), K (N, 3, 3), k1 and k2 (N,), the points (M, 3), the
+    measurements (K, 2) and the int32 indices (K,); a tensor that is not
+    contiguous (the points of ``models.problem.from_fast``, which the
+    two-phase drive's float64 phase starts from) is copied."""
+    return tuple(t.contiguous() for t in (
+        state.R, state.T, state.K, state.k1, state.k2, state.points,
+        obs.measurements, obs.cam_idx, obs.pt_idx))
 
 
 # -- plain PyTorch versions ------------------------------------------------------
@@ -259,6 +328,15 @@ def fused_energy_plain(fast, obs, tau2, valid_count=None) -> torch.Tensor:
     if valid_count is not None:
         obs = _prefix(obs, int(valid_count))
     return projection.energy_fast(fast, obs, tau2)
+
+
+def chain_blocks_f64_plain(state, obs, tau2):
+    """Plain version of the float64 blocks kernel: the blocks of
+    residuals_and_jacobian as (26, K) planar rows, and
+    compensated_square_sum of its residuals."""
+    blocks = jacobian.residuals_and_jacobian(state, obs, tau2)
+    return (jacobian.planar_rows_from_blocks(blocks),
+            projection.compensated_square_sum(blocks.f))
 
 
 def _prefix(obs, n):
@@ -290,3 +368,21 @@ def fused_energy(fast, obs, tau2, valid_count=None) -> torch.Tensor:
     return launch("chain_energy", chain_operands(fast, obs), tau2,
                   valid_count)[1]
 
+
+def blocks_energy_f64(state, obs, tau2):
+    """(JacobianBlocks, float64 energy) of the float64 chain on a BAState;
+    drop-in for residuals_and_jacobian + compensated_square_sum. The blocks
+    are views of (26, K) planar rows, as ``fused_blocks_energy`` gives."""
+    if state.points.device.type == "cpu":
+        rows, energy = chain_blocks_f64_plain(state, obs, tau2)
+    else:
+        rows, energy = launch_f64("chain_blocks_f64", f64_operands(state, obs),
+                                  tau2)
+    return jacobian.blocks_from_planar_rows(rows), energy
+
+
+def energy_f64(state, obs, tau2) -> torch.Tensor:
+    """Trial objective on a BAState; drop-in for projection.energy."""
+    if state.points.device.type == "cpu":
+        return projection.energy(state, obs, tau2)
+    return launch_f64("chain_energy_f64", f64_operands(state, obs), tau2)[1]

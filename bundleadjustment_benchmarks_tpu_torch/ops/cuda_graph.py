@@ -129,12 +129,21 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     and Cholesky solve captured on a stream fresh to capture record
     stream-ordered allocations (cudaMallocAsync nodes), which a graph
     cannot hold in a conditional body or a child graph; on a stream that
-    has been captured on before they record none."""
+    has been captured on before they record none.
+
+    Its cuBLAS workspace (32 MiB on an H100) is made here too, by one tiny
+    GEMM: torch allocates it at the stream's first GEMM and keeps it. Made
+    inside a capture's warm-up after the warm-up's large temporaries were
+    freed, it lands in one of their cached segments and pins it, and the
+    ``empty_cache`` after the warm-up cannot return that segment (a 202 MB
+    one at p257 on the float64 drive, whose chain runs no GEMM before
+    ``schur.build_context``)."""
     stream = _streams.get(device.index)
     if stream is None:
         stream = torch.cuda.Stream(device)
         with torch.cuda.stream(stream):
             x = torch.zeros(1, device=device)
+            torch.mm(x.view(1, 1), x.view(1, 1))
             g = torch.cuda.CUDAGraph()
             g.capture_begin()
             x.add_(1)
@@ -204,9 +213,10 @@ def device_cond(pred: torch.Tensor, true_fn, false_fn, out: torch.Tensor):
 SPANS = ("prepare", "trial", "camera_solve")
 #: The record's counters, after the spans' slots: the camera solve's
 #: fallbacks (a mark), then the launches a replay ran of the chain kernels
-#: (``cuda_chain``) and the eigensolver (``cuda_eigh``), each a captured
-#: add to its slot.
-COUNTERS = ("camera_fallback", "chain_blocks", "chain_energy", "jacobi_eigh")
+#: (``cuda_chain.KERNELS``, in its order) and the eigensolver
+#: (``cuda_eigh``), each a captured add to its slot.
+COUNTERS = ("camera_fallback", "chain_blocks", "chain_energy",
+            "chain_blocks_f64", "chain_energy_f64", "jacobi_eigh")
 #: The marks, in csrc/graph_cond.cu's order; mark ``m`` is the kernel
 #: ``ba_mark_<m>`` in a profiler trace.
 MARKS = tuple(f"{s}_{end}" for s in SPANS for end in ("begin", "end")) + (

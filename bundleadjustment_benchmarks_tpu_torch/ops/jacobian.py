@@ -35,7 +35,7 @@ def residuals_and_jacobian(state, obs, tau2, compute_dtype=None) -> JacobianBloc
     R, T = state.R[ci], state.T[ci]
     focal, k1, k2 = state.K[ci, 0, 0], state.k1[ci], state.k2[ci]
     X = state.points[obs.pt_idx]
-    XX = torch.einsum("kij,kj->ki", R, X) + T
+    XX = projection.ordered_bmm(R, X[:, :, None])[:, :, 0] + T
     meas = obs.measurements
     if compute_dtype is not None and XX.dtype != compute_dtype:
         XX, R, T, focal, k1, k2, meas = (
@@ -69,18 +69,19 @@ def residuals_and_jacobian(state, obs, tau2, compute_dtype=None) -> JacobianBloc
         ],
         -2,
     )
-    dp_dXX = (focal[:, None, None] * dxd_dxu) @ dxu_dXX  # (K, 2, 3)
-    dp_dw = dp_dXX @ (-rodrigues.cross_product_matrix(RX))
+    bmm = projection.ordered_bmm
+    dp_dXX = bmm(focal[:, None, None] * dxd_dxu, dxu_dXX)  # (K, 2, 3)
+    dp_dw = bmm(dp_dXX, -rodrigues.cross_product_matrix(RX))
     r4 = r2 * r2
     d_dk = focal[:, None, None] * torch.stack(
         [torch.stack([x * r2, x * r4], -1), torch.stack([y * r2, y * r4], -1)],
         -2,
     )
     Jc = torch.cat([dp_dXX, dp_dw, xd[..., None], d_dk], dim=-1)  # (K, 2, 9)
-    Jp = dp_dXX @ R
+    Jp = bmm(dp_dXX, R)
 
     outer = robust.robust_outer_derivative(tau2, r)  # (K, 2, 2)
-    return JacobianBlocks(Jc=outer @ Jc, Jp=outer @ Jp,
+    return JacobianBlocks(Jc=bmm(outer, Jc), Jp=bmm(outer, Jp),
                           f=r * robust.robust_scale(tau2, r)[:, None])
 
 
@@ -157,6 +158,14 @@ def blocks_from_planar_rows(rows: torch.Tensor) -> JacobianBlocks:
         Jp=rows[20:26].T.reshape(-1, 2, 3),
         f=rows[0:2].T,
     )
+
+
+def planar_rows_from_blocks(blocks: JacobianBlocks) -> torch.Tensor:
+    """JacobianBlocks -> (26, K) planar rows, the inverse of
+    blocks_from_planar_rows."""
+    k = blocks.f.shape[0]
+    return torch.cat([blocks.f.T, blocks.Jc.reshape(k, 18).T,
+                      blocks.Jp.reshape(k, 6).T])
 
 
 def residuals_and_jacobian_fast(fast, obs, tau2) -> JacobianBlocks:

@@ -18,6 +18,20 @@ from bundleadjustment_benchmarks_tpu_torch.ops import robust
 from bundleadjustment_benchmarks_tpu_torch.ops import twofloat as tf
 
 
+def ordered_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of per-observation blocks, (..., n, p) @ (..., p, q), summed in
+    index order by elementwise ops, so it rounds alike on every device and
+    as the float64 chain kernels do (csrc/chain_f64.cuh). A batched GEMM
+    rounds in other places on the card (cuBLAS fuses its multiply-adds) than
+    on the CPU, and where a residual is near zero the robust outer factor
+    turns one such rounding into an O(1) change of the Jacobian
+    (robust.robust_outer_derivative's eps guards)."""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for s in range(1, a.shape[-1]):
+        out = out + a[..., :, s:s + 1] * b[..., s:s + 1, :]
+    return out
+
+
 def distort(k1, k2, xu):
     """xd = (1 + k1 r^2 + k2 r^4) xu with r^2 = |xu|^2."""
     r2 = (xu * xu).sum(-1)
@@ -56,7 +70,7 @@ def residuals_raw(state, obs, compute_dtype=None) -> torch.Tensor:
     R, T = state.R[ci], state.T[ci]
     focal, k1, k2 = state.K[ci, 0, 0], state.k1[ci], state.k2[ci]
     X = state.points[obs.pt_idx]
-    XX = torch.einsum("kij,kj->ki", R, X) + T
+    XX = ordered_bmm(R, X[:, :, None])[:, :, 0] + T
     meas = obs.measurements
     if compute_dtype is not None and XX.dtype != compute_dtype:
         XX, focal, k1, k2, meas = (

@@ -16,8 +16,10 @@ BacktrackLevMarqCholesky.h:190-361):
 
 Each outer iteration runs ``prepare`` (residuals, Jacobian, the Schur
 context; the chain kernel ``cuda_chain.fused_blocks_energy`` on the df32
-drive) and then damping ``trial``s (the reduced solve, the manifold step and
-the trial energy, ``cuda_chain.fused_energy`` on the df32 drive). Two drives
+drive, ``cuda_chain.blocks_energy_f64`` on the float64 drive on CUDA) and
+then damping ``trial``s (the reduced solve, the manifold step and the trial
+energy, ``cuda_chain.fused_energy`` on the df32 drive,
+``cuda_chain.energy_f64`` on the float64 drive on CUDA). Two drives
 run that control flow (``LMConfig.drive``):
 
   * "jit" (``DeviceLoop``, the default, as in the JAX package, and
@@ -113,9 +115,11 @@ class LMConfig:
     matmul_dtype: Optional[str] = None
     #: None = state dtype geometry (float64); "df32" = two-float float32.
     geometry: Optional[str] = None
-    #: Run the df32 chain through the CUDA kernels (ops/cuda_chain.py).
-    #: None = exactly when the device is CUDA and geometry is "df32";
-    #: True off CUDA raises; False on CUDA is for kernel-vs-plain checks.
+    #: Run the chain through the CUDA kernels (ops/cuda_chain.py): the df32
+    #: drive's, or the float64 drive's where matmul_dtype is None and the
+    #: state is float64. None = exactly when the device is CUDA and the drive
+    #: has kernels; True off CUDA raises; False on CUDA is for
+    #: kernel-vs-plain checks.
     kernels: Optional[bool] = None
     #: History depth of the flatline test (BacktrackLevMarqCholesky.h:150).
     energy_history_size: int = 2
@@ -151,11 +155,17 @@ class LMConfig:
     #: Ignored on a shard, as JAX's ``minimize_sharded`` ignores it.
     chunked: bool = False
 
-    def use_kernels(self, device: torch.device) -> bool:
+    def use_kernels(self, device: torch.device,
+                    dtype: torch.dtype = torch.float64) -> bool:
+        """Whether the chain runs through the kernels on ``device`` for a
+        state of ``dtype``: the df32 drive's pair, or the float64 drive's
+        where geometry and matmul_dtype are None and ``dtype`` is float64."""
         if self.kernels and device.type != "cuda":
             raise ValueError(
                 f"LMConfig(kernels=True) needs a CUDA device, got {device}")
-        if self.geometry != "df32":
+        if self.geometry != "df32" and (self.geometry is not None
+                                        or self.matmul_dtype is not None
+                                        or dtype != torch.float64):
             return False
         return device.type == "cuda" if self.kernels is None else self.kernels
 
@@ -188,14 +198,21 @@ def _mm(matmul_dtype: Optional[str]):
 
 
 def _prepare(state, problem, mode: str, matmul_dtype: Optional[str] = None,
-             reduce: schur.Reduce = schur.LOCAL):
+             reduce: schur.Reduce = schur.LOCAL, kernels: bool = False):
     """Residuals, Jacobian, energy and the Schur context (state geometry).
     Returns (ctx, float64 energy, float64 lambda0). On a shard (``reduce``)
-    the energy and the camera totals cover every rank."""
+    the energy and the camera totals cover every rank. ``kernels=True``
+    runs the residual/Jacobian/energy chain as one float64 CUDA kernel
+    launch (the plain path's math; float64, no matmul_dtype)."""
     mm = _mm(matmul_dtype)
-    blocks = jacobian.residuals_and_jacobian(
-        state, problem.obs, problem.tau2, compute_dtype=mm)
-    (energy,) = reduce.sum(projection.compensated_square_sum(blocks.f))
+    if kernels:
+        blocks, energy = cuda_chain.blocks_energy_f64(state, problem.obs,
+                                                      problem.tau2)
+    else:
+        blocks = jacobian.residuals_and_jacobian(
+            state, problem.obs, problem.tau2, compute_dtype=mm)
+        energy = projection.compensated_square_sum(blocks.f)
+    (energy,) = reduce.sum(energy)
     ctx = schur.build_context(blocks, problem, mode, mm_dtype=mm, reduce=reduce)
     return ctx, energy, schur.initial_lambda(ctx, mode).to(torch.float64)
 
@@ -229,13 +246,19 @@ def _solve(ctx, lam, problem, mode: str, mm, refine: int,
 
 def _trial(ctx, state, lam, problem, mode: str,
            matmul_dtype: Optional[str] = None, refine: int = 0,
-           reduce: schur.Reduce = schur.LOCAL):
-    """One damping trial: solve, step, trial energy, rho's denominator."""
+           reduce: schur.Reduce = schur.LOCAL, kernels: bool = False):
+    """One damping trial: solve, step, trial energy, rho's denominator.
+    ``kernels=True`` computes the trial energy in one float64 CUDA kernel
+    launch."""
     mm = _mm(matmul_dtype)
     dxp, dxc = _solve(ctx, lam, problem, mode, mm, refine, reduce)
     x_test = problem_mod.apply_step(state, dxp, dxc)
-    (e_test,) = reduce.sum(projection.energy(x_test, problem.obs, problem.tau2,
-                                             compute_dtype=mm))
+    if kernels:
+        e_test = cuda_chain.energy_f64(x_test, problem.obs, problem.tau2)
+    else:
+        e_test = projection.energy(x_test, problem.obs, problem.tau2,
+                                   compute_dtype=mm)
+    (e_test,) = reduce.sum(e_test)
     return x_test, e_test, schur.gradient_dot(ctx, dxp, dxc, lam, reduce)
 
 
@@ -278,7 +301,7 @@ def step_functions(problem, mode: str, config: "LMConfig", device,
         raise ValueError(
             f"refine_steps={config.refine_steps} is not supported on the "
             "sharded path (its residual sums over every rank's observations)")
-    kernels = config.use_kernels(torch.device(device))
+    kernels = config.use_kernels(torch.device(device), problem.state.T.dtype)
     mm, refine = config.matmul_dtype, config.refine_steps
     if config.geometry == "df32":
         def prepare(x):
@@ -293,10 +316,10 @@ def step_functions(problem, mode: str, config: "LMConfig", device,
                 lambda x: problem_mod.from_fast(x, dtype=dtype))
 
     def prepare(x):
-        return _prepare(x, problem, mode, mm, reduce)
+        return _prepare(x, problem, mode, mm, reduce, kernels)
 
     def trial(ctx, x, lam):
-        return _trial(ctx, x, lam, problem, mode, mm, refine, reduce)
+        return _trial(ctx, x, lam, problem, mode, mm, refine, reduce, kernels)
 
     return prepare, trial, (lambda s: s), (lambda x: x)
 
@@ -1113,7 +1136,7 @@ def _device_loop(problem, mode, config, x0, dev, prepare, trial,
         return hit[1], 0.0
     _free_other_problems(key, problem)
     loop = DeviceLoop(x0, prepare, trial, config, dev, reduce)
-    capture_s = loop.capture(config.use_kernels(dev))
+    capture_s = loop.capture(config.use_kernels(dev, problem.state.T.dtype))
     _GRAPHS[key] = (problem, loop)
     return loop, capture_s
 
@@ -1276,8 +1299,7 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
             marks = loop.marks
             if loop.graph is not None:
                 # The launch counters came back with the last read.
-                cuda_chain.credit_graph_launches(dev, marks["chain_blocks"],
-                                                 marks["chain_energy"])
+                cuda_chain.credit_graph_launches(dev, marks)
                 cuda_eigh.credit_graph_launches(dev, marks["jacobi_eigh"])
             LAST_JIT_RUN.clear()
             LAST_JIT_RUN.update(

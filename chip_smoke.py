@@ -231,20 +231,65 @@ def graph_ops_per_call(fn, which: str) -> dict:
             "graph_ops_per_call": sum(f"{which}_kernel" in n for n in names)}
 
 
+#: The float64 kernels against the plain float64 chain: the rows bit for bit
+#: (projection.ordered_bmm sums the small products in the kernel's order),
+#: the energies, summed in other orders, within this.
+F64_ENERGY_RTOL = 1e-13
+
+
+def f64_kernels_case(cuda_chain, state, prob) -> dict:
+    """The float64 pair at ``state`` against the plain chain
+    (``chain_blocks_f64_plain``, ``projection.energy``): the rows equal, and
+    their largest gap over each row's largest magnitude, the energies'
+    relative gaps, and three more launches of each, back to back, equal bit
+    for bit."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import projection
+
+    ops = cuda_chain.f64_operands(state, prob.obs)
+
+    def both():
+        rows, eb = cuda_chain.launch_f64("chain_blocks_f64", ops, prob.tau2)
+        return rows, eb, cuda_chain.launch_f64("chain_energy_f64", ops, prob.tau2)[1]
+
+    rows_k, eb_k, ee_k = both()
+    repeats = [both() for _ in range(3)]
+    rows_p, eb_p = cuda_chain.chain_blocks_f64_plain(state, prob.obs, prob.tau2)
+    ee_p = projection.energy(state, prob.obs, prob.tau2)
+    scale = rows_p.abs().amax(1, keepdim=True)
+    return {"drive": "f64", "K": prob.n_observations,
+            "rows_equal": torch.equal(rows_k, rows_p),
+            "rows_rel_err": ((rows_k - rows_p).abs() / scale).max().item(),
+            "rows_finite": bool(torch.isfinite(rows_k).all()),
+            "blocks_energy": eb_k.item(),
+            "blocks_energy_rel_err": abs(eb_k.item() / eb_p.item() - 1.0),
+            "energy": ee_k.item(),
+            "energy_rel_err": abs(ee_k.item() / ee_p.item() - 1.0),
+            "repeats_identical": all(
+                torch.equal(r, rows_k) and b.item() == eb_k.item()
+                and e.item() == ee_k.item() for r, b, e in repeats)}
+
+
 def entry_points(cuda_chain, fast, obs, tau2) -> dict:
-    """Each chain kernel's entry point on a FastBAState, called as the LM
-    calls it: ``fused_blocks_energy`` / ``fused_energy``."""
+    """Each df32 chain kernel's entry point on a FastBAState, called as the
+    LM calls it: ``fused_blocks_energy`` / ``fused_energy``."""
     return {"chain_blocks": lambda: cuda_chain.fused_blocks_energy(fast, obs, tau2),
             "chain_energy": lambda: cuda_chain.fused_energy(fast, obs, tau2)}
 
 
-def entry_point_ops(cuda_chain, fast, obs, tau2) -> dict:
-    """Per chain kernel, the device operations one call of its entry point
-    issues: ``kernels_per_call`` and ``empty_profiles``
-    (``device_ops_per_call``) and the call in a CUDA graph
-    (``graph_ops_per_call``)."""
+def f64_entry_points(cuda_chain, state, obs, tau2) -> dict:
+    """Each float64 chain kernel's entry point on a BAState, called as the
+    LM calls it: ``blocks_energy_f64`` / ``energy_f64``."""
+    return {"chain_blocks_f64": lambda: cuda_chain.blocks_energy_f64(state, obs, tau2),
+            "chain_energy_f64": lambda: cuda_chain.energy_f64(state, obs, tau2)}
+
+
+def entry_point_ops(entries: dict) -> dict:
+    """Per chain kernel of ``entries`` ({kernel: its entry point}), the
+    device operations one call issues: ``kernels_per_call`` and
+    ``empty_profiles`` (``device_ops_per_call``) and the call in a CUDA
+    graph (``graph_ops_per_call``)."""
     return {which: {**device_ops_per_call(fn), **graph_ops_per_call(fn, which)}
-            for which, fn in entry_points(cuda_chain, fast, obs, tau2).items()}
+            for which, fn in entries.items()}
 
 
 def drive_mode(lm, cuda_chain, prob, mode: str, max_iter: int,
@@ -500,8 +545,9 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi,
         check(resume["resumed"] and resume["first_row_iter"] == meta["iteration"] + 1,
               f"cli_mixed_p257: resume began at {resume['first_row_iter']}")
         for run in runs.values():
-            for which, count in run["launches"].items():
-                check(count > 0, f"cli_mixed_p257 {run['run']}: {which} not launched")
+            for which in cuda_chain.DRIVE_KERNELS["df32"]:
+                check(run["launches"][which] > 0,
+                      f"cli_mixed_p257 {run['run']}: {which} not launched")
         for which in extra:
             extra[which]["launches_cli_mixed_p257"] = first["launches"][which]
 
@@ -542,8 +588,10 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi,
         check(phases and phases[0] == "fast" and phases[-1] == "polish"
               and phases == sorted(phases),
               "cli_f64_p16 polish: records not tagged fast, then polish")
-        check(all(c > 0 for c in launches.values()),
+        check(all(launches[k] > 0 for k in cuda_chain.DRIVE_KERNELS["df32"]),
               "cli_f64_p16 polish: the fast phase did not launch both kernels")
+        check(all(launches[k] > 0 for k in cuda_chain.DRIVE_KERNELS["f64"]),
+              "cli_f64_p16 polish: the float64 phase did not launch its kernels")
 
         # -- Ladybug stand-in, mixed: cameras past the shared-memory stage ------
         t_phase = time.perf_counter()
@@ -567,9 +615,9 @@ def cli_phases(cli, pm, bal, balgen, checkpoint, cuda_chain, smi,
               f"K(measurements) = {k_obs}", f"cli_ladybug_df32: {line['header']!r}")
         check(line["objective_post"] < line["objective_pre"],
               "cli_ladybug_df32: the true objective did not descend")
-        for which, count in launches.items():
-            check(count > 0, f"cli_ladybug_df32: {which} not launched")
-            extra[which]["launches_cli_ladybug_df32"] = count
+        for which in cuda_chain.DRIVE_KERNELS["df32"]:
+            check(launches[which] > 0, f"cli_ladybug_df32: {which} not launched")
+            extra[which]["launches_cli_ladybug_df32"] = launches[which]
 
         # Both kernels at this K against their plain versions.
         prob = pm.load_bal_problem(str(path), device="cuda")
@@ -880,10 +928,10 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
                   and run["final_energy"] < run["initial_energy"],
                   f"{where}: energy {run['final_energy']} not below "
                   f"{run['initial_energy']}")
-            if run["drive"] == "df32":
-                for launches in run["launches_per_rank"]:
-                    check(all(c > 0 for c in launches.values()),
-                          f"{where}: a rank did not launch both kernels")
+            for launches in run["launches_per_rank"]:
+                check(all(launches[k] > 0
+                          for k in cuda_chain.DRIVE_KERNELS[run["drive"]]),
+                      f"{where}: a rank did not launch both kernels")
             if run["drive"] == "f64":
                 check((run["iterations"], run["fun_evals"], run["status"])
                       == tuple(single[name][:3]) and run["rel_gap"] <= tol,
@@ -932,7 +980,8 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
           "phase_s": time.perf_counter() - t_phase})
     check(line["objective_post"] < line["objective_pre"],
           "cli_shards: the true objective did not descend")
-    check(all(c > 0 for c in launches.values()), "cli_shards: a kernel not launched")
+    check(all(launches[k] > 0 for k in cuda_chain.DRIVE_KERNELS["df32"]),
+          "cli_shards: a kernel not launched")
     check(rc2 == want, f"cli_shards: --shards 2 with {gpus} GPU(s) returned {rc2}")
     for which in extra:
         extra[which]["launches_cli_shards_1"] = launches[which]
@@ -948,7 +997,8 @@ def sharded_phases(pm, lm, sharded, multihost, cli, checkpoint, cuda_chain,
           "dryrun_multichip: NCCL did not replay a captured step, or gloo did")
     for name, run in runs.items():
         check(all(c > 0 for c in run["launches"].values()),
-              f"dryrun_multichip {name}: the df32 configuration launched no kernel")
+              f"dryrun_multichip {name}: a configuration launched no kernel: "
+              f"{run['launches']}")
     return extra
 
 
@@ -1127,8 +1177,9 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
         check(case["blocks_energy_rel_err_plain"] <= ENERGY_RTOL
               and case["energy_rel_err_plain"] <= ENERGY_RTOL,
               f"jit_kernels_replayed {name}: energies against plain {case}")
-        check(case["launches_3_replays_2_taken"] == {"chain_blocks": 2,
-                                                     "chain_energy": 2},
+        check(case["launches_3_replays_2_taken"] == {
+            "chain_blocks": 2, "chain_energy": 2, "chain_blocks_f64": 0,
+            "chain_energy_f64": 0},
               f"jit_kernels_replayed {name}: counted {case['launches_3_replays_2_taken']}")
     emit({"phase": "jit_kernels_replayed", "cases": cases, "nvidia_smi": smi,
           "phase_s": time.perf_counter() - t_phase})
@@ -1157,9 +1208,10 @@ def jit_phases(pm, lm, cuda_chain, cuda_graph, problems, ladybug, smi) -> dict:
           "host": [summary(r) for r in runs["host"]],
           "jit": [summary(r) for r in runs["jit"]],
           "nvidia_smi": smi, "phase_s": time.perf_counter() - t_phase})
-    for which, count in jit_launches.items():
-        check(count > 0, f"jit_p257_df32: {which} not launched in the graph")
-        extra[which]["launches_jit_p257_df32"] = count
+    for which in cuda_chain.DRIVE_KERNELS["df32"]:
+        check(jit_launches[which] > 0,
+              f"jit_p257_df32: {which} not launched in the graph")
+        extra[which]["launches_jit_p257_df32"] = jit_launches[which]
     for r in runs["jit"]:
         reads, trials = reads_and_trials(lm, r["res"])
         check((r["jit"]["reads"], r["jit"]["replays"], r["jit"]["slots"])
@@ -1600,8 +1652,9 @@ def sharded_jit_phases(lm, multihost, problems, smi) -> dict:
         check(per["allreduce_per_prepare"]["calls"] > 0
               and per["allreduce_per_trial"]["calls"] > 0,
               f"jit_sharded_nccl_p257: collectives {per}")
-        for which, count in per["launches"].items():
-            check(count > 0, f"jit_sharded_nccl_p257: {which} not launched in the graph")
+        for which in lm.cuda_chain.DRIVE_KERNELS["df32"]:
+            check(per["launches"][which] > 0,
+                  f"jit_sharded_nccl_p257: {which} not launched in the graph")
     no_sync = out["no_sync"]
     emit({"phase": "jit_sharded_no_sync", **no_sync, "nvidia_smi": smi})
     jit0 = p257["sharded_jit"][0]
@@ -1643,8 +1696,9 @@ def sharded_jit_phases(lm, multihost, problems, smi) -> dict:
             check(same_path({"jit": {**jit, "energy": jit["final_energy"]},
                              "host": {**host, "energy": host["final_energy"]}},
                             NCCL_RTOL), f"jit_sharded_nccl_d2 {prob}: {jit} {host}")
-    return {which: {"launches_jit_sharded_nccl_p257": count}
-            for which, count in p257["sharded_jit"][0]["launches"].items()}
+    return {which: {"launches_jit_sharded_nccl_p257":
+                    p257["sharded_jit"][0]["launches"][which]}
+            for which in lm.cuda_chain.DRIVE_KERNELS["df32"]}
 
 
 P16_ORACLE = HERE / "benchmarks" / "results" / "cpu_p16_flatline.json"
@@ -1655,7 +1709,8 @@ def flatline_phase(campaign, cuda_chain, smi) -> None:
     flatline stop on the float64 drive (``flatline_campaign.run_row``: a
     2-iteration warm-up, then the timed run), each held to the JAX
     campaign's f64 budget (``flatline_campaign.BUDGETS``) against the scipy
-    oracle's p16 flatline. The float64 drive launches no chain kernel."""
+    oracle's p16 flatline. The float64 drive launches the float64 chain
+    kernels and no df32 one."""
     t_phase = time.perf_counter()
     budget = campaign.BUDGETS["f64"]
     oracle = json.loads(P16_ORACLE.read_text())["post"]
@@ -1675,7 +1730,8 @@ def flatline_phase(campaign, cuda_chain, smi) -> None:
               f"flatline_p16_f64 {mode}: points not finite")
         check(verdict["within"],
               f"flatline_p16_f64 {mode}: {verdict} outside {budget}")
-        check(all(c == 0 for c in row["launches"].values()),
+        check(all(row["launches"][k] == 0 for k in cuda_chain.DRIVE_KERNELS["df32"])
+              and all(row["launches"][k] > 0 for k in cuda_chain.DRIVE_KERNELS["f64"]),
               f"flatline_p16_f64 {mode}: the float64 drive launched {row['launches']}")
     emit({"phase": "flatline_p16_f64_done", "phase_s": time.perf_counter() - t_phase})
 
@@ -1695,11 +1751,14 @@ def default_drive_phase(pm, lm, cuda_chain, problems, p126, smi) -> dict:
     gate), the default and the host drive alternated (D, H, H, D, D, H).
     Then the graph cache's bound: the default float64 config
     (2 iterations) on p16, p126, p257 and p16 again, the cached entries and
-    ``torch.cuda.memory_reserved()`` after each. Returns the df32 default
-    run's chain-kernel launches: the main path's."""
+    ``torch.cuda.memory_reserved()`` after each. Each default run's
+    chain-kernel launches, counted from zero before it, are its own drive's
+    pair alone: one blocks launch a prepare and one energy launch a trial.
+    Returns the first default run's launches by drive ("f64", "df32"): the
+    main path's."""
     t_phase = time.perf_counter()
     p257 = problems["p257"]
-    launches = None
+    launches = {}
     for name, kw in (("f64", {}), ("df32", DF32)):
         default = lm.LMConfig(max_iter=20, **kw)
         check(default.drive == "jit", f"default_drive: LMConfig().drive is "
@@ -1731,10 +1790,16 @@ def default_drive_phase(pm, lm, cuda_chain, problems, p126, smi) -> dict:
                                          p257.tau2).item()
             line["gate"] = hold_jit(lm, p257, "cholesky", host_cfg, runs["host"][0],
                                     runs["default"][0], e0, "default_drive df32")
-            launches = runs["default"][0]["launches"]
-            line["launches"] = launches
+        launches[name] = line["launches"] = runs["default"][0]["launches"]
         emit(line)
         where = f"default_drive {name}"
+        for r in runs["default"]:
+            blocks, energy = cuda_chain.DRIVE_KERNELS[name]
+            want = dict.fromkeys(cuda_chain.KERNELS, 0)
+            want.update({blocks: r["jit"]["prepares"], energy: r["jit"]["slots"]})
+            check(r["jit"]["prepares"] > 0 and r["launches"] == want,
+                  f"{where}: launches {r['launches']}, not one {blocks} a "
+                  f"prepare and one {energy} a trial ({r['jit']})")
         check(capture["captured"] and capture["replays"] > 0,
               f"{where}: the default config did not capture and replay ({capture})")
         check(all(r["jit"]["replays"] > 0 and not r["jit"]["captured"]
@@ -1752,8 +1817,6 @@ def default_drive_phase(pm, lm, cuda_chain, problems, p126, smi) -> dict:
         if not kw:
             check(line["host_rel_gap"] == 0.0,
                   f"{where}: default and host {line['host_rel_gap']} apart")
-    for which, count in launches.items():
-        check(count > 0, f"default_drive df32: {which} was not launched")
     lm.clear_graphs()
 
     cache = []
@@ -1850,7 +1913,8 @@ def bench_phase(bench_torch, lm, smi) -> dict:
     check(all(r["reads"] == r["replays"] == 1 for r in runs),
           f"bench: a timed run read or replayed more than once: "
           f"{[(r['mode'], r['reads'], r['replays']) for r in runs]}")
-    check(all(min(r["launches"].values()) > 0 for r in runs),
+    check(all(min(r["launches"][k] for k in lm.cuda_chain.DRIVE_KERNELS["df32"]) > 0
+              for r in runs),
           f"bench: a df32 timed run launched no chain kernel: "
           f"{[r['launches'] for r in runs]}")
     return {m: next(r["launches"] for r in runs if r["mode"] == m)
@@ -2108,14 +2172,34 @@ def main() -> None:
         return
     rng = np.random.default_rng(0)
     kern = {"chain_blocks": {"max_abs_err": 0.0, "energy_abs_err": 0.0},
-            "chain_energy": {"max_abs_err": 0.0}}
+            "chain_energy": {"max_abs_err": 0.0},
+            "chain_blocks_f64": {"max_rel_err": 0.0, "energy_rel_err": 0.0},
+            "chain_energy_f64": {"max_rel_err": 0.0}}
     cases = []
     for name, prob in problems.items():
         tau2 = prob.tau2
         fast0 = pm.to_fast(prob.state)
         step = (torch.from_numpy(rng.normal(scale=1e-2, size=(prob.n_points, 3))),
                 torch.from_numpy(rng.normal(scale=1e-3, size=(prob.n_cameras, 9))))
-        fast1 = pm.apply_step_fast(fast0, *(s.to(dev) for s in step))
+        step = tuple(s.to(dev) for s in step)
+        fast1 = pm.apply_step_fast(fast0, *step)
+        f64_states = (("loaded", prob.state), ("perturbed", pm.apply_step(prob.state, *step)))
+        for state_name, state in f64_states:
+            case = f64_kernels_case(cuda_chain, state, prob)
+            case.update(problem=name, state=state_name)
+            kern["chain_blocks_f64"]["max_rel_err"] = max(
+                kern["chain_blocks_f64"]["max_rel_err"], case["rows_rel_err"])
+            kern["chain_blocks_f64"]["energy_rel_err"] = max(
+                kern["chain_blocks_f64"]["energy_rel_err"], case["blocks_energy_rel_err"])
+            kern["chain_energy_f64"]["max_rel_err"] = max(
+                kern["chain_energy_f64"]["max_rel_err"], case["energy_rel_err"])
+            if name == "p257" and state_name == "loaded":
+                gate = entry_point_ops(f64_entry_points(cuda_chain, state, prob.obs,
+                                                        tau2))
+                for which in cuda_chain.DRIVE_KERNELS["f64"]:
+                    kern[which].update(**gate[which], **cuda_chain.launch_shape(
+                        which, prob.n_cameras, prob.n_observations))
+            cases.append(case)
         for state_name, fast in (("loaded", fast0), ("perturbed", fast1)):
             ops = cuda_chain.chain_operands(fast, prob.obs)
             rows_k, eb_k = cuda_chain.launch("chain_blocks", ops, tau2)
@@ -2133,7 +2217,8 @@ def main() -> None:
             torch.cuda.synchronize()
             rows_err = (rows_k - rows_p).abs().max().item()
             case = {
-                "problem": name, "state": state_name, "K": prob.n_observations,
+                "problem": name, "state": state_name, "drive": "df32",
+                "K": prob.n_observations,
                 "rows_equal": torch.equal(rows_k, rows_p),
                 "rows_max_abs_err": rows_err,
                 "rows_finite": bool(torch.isfinite(rows_k).all()),
@@ -2154,8 +2239,8 @@ def main() -> None:
             kern["chain_energy"]["max_abs_err"] = max(
                 kern["chain_energy"]["max_abs_err"], abs(ee_k.item() - ee_p.item()))
             if name == "p257" and state_name == "loaded":
-                gate = entry_point_ops(cuda_chain, fast, prob.obs, tau2)
-                for which in kern:
+                gate = entry_point_ops(entry_points(cuda_chain, fast, prob.obs, tau2))
+                for which in cuda_chain.DRIVE_KERNELS["df32"]:
                     kern[which].update(**gate[which], **cuda_chain.launch_shape(
                         which, prob.n_cameras, prob.n_observations))
             cases.append(case)
@@ -2163,6 +2248,15 @@ def main() -> None:
           "phase_s": time.perf_counter() - t_phase})
     for c in cases:
         where = f"{c['problem']}/{c['state']}"
+        if c["drive"] == "f64":
+            check(c["rows_finite"] and c["rows_equal"],
+                  f"{where} float64: rows {c['rows_rel_err']} from the plain chain's")
+            check(c["blocks_energy_rel_err"] <= F64_ENERGY_RTOL
+                  and c["energy_rel_err"] <= F64_ENERGY_RTOL,
+                  f"{where} float64: energies {c['blocks_energy_rel_err']}, "
+                  f"{c['energy_rel_err']} from the plain chain's")
+            check(c["repeats_identical"], f"{where} float64: repeat launches differ")
+            continue
         check(c["rows_finite"], f"{where}: non-finite rows")
         check(c["rows_equal"],
               f"{where}: rows differ from the plain version by {c['rows_max_abs_err']}")
@@ -2202,9 +2296,9 @@ def main() -> None:
           f"df32 p257: energy {res.energy} not finite and below {e0}")
     check(tuple(pts.shape) == (p257.n_points, 3) and bool(torch.isfinite(pts).all()),
           "df32 p257: final points not finite of shape (M, 3)")
-    for which, count in launches.items():
-        check(count > 0, f"{which} was not launched on the main path")
-    for which in kern:
+    for which in cuda_chain.DRIVE_KERNELS["df32"]:
+        check(launches[which] > 0, f"{which} was not launched on the main path")
+    for which in cuda_chain.DRIVE_KERNELS["df32"]:
         kern[which]["launches_main_df32_host"] = launches[which]
 
     # The same drive on p16 with the kernels and with the plain chain.
@@ -2236,18 +2330,24 @@ def main() -> None:
           "phase_s": time.perf_counter() - t_phase})
     check(np.isfinite(res.energy) and res.energy < e0,
           f"f64 p16: energy {res.energy} not finite and below {e0}")
+    check(all((cuda_chain.LAUNCHES[which] > 0) == (which in cuda_chain.DRIVE_KERNELS["f64"])
+              for which in cuda_chain.KERNELS),
+          f"f64 p16: launches {cuda_chain.LAUNCHES}, not the float64 pair alone")
+    for which in cuda_chain.DRIVE_KERNELS["f64"]:
+        kern[which]["launches_main_f64_host"] = cuda_chain.LAUNCHES[which]
 
     # -- the default LM drive (the main path) and the scipy oracle's prefix -----
     oracle = {"p126": oracle_prefix.load("p126", dev),
               "p257": oracle_prefix.load("p257", dev, problems["p257"])}
     default_launches = default_drive_phase(pm, lm, cuda_chain, problems,
                                            oracle["p126"][0], smi)
-    for which in kern:
-        kern[which]["launches"] = default_launches[which]
+    for drive, kernels in cuda_chain.DRIVE_KERNELS.items():
+        for which in kernels:
+            kern[which]["launches"] = default_launches[drive][which]
     oracle_prefix_phase(oracle_prefix, oracle, smi)
     del oracle
     for mode, launches in bench_phase(bench_torch, lm, smi).items():
-        for which in kern:
+        for which in cuda_chain.DRIVE_KERNELS["df32"]:
             kern[which][f"launches_bench_p257_{mode}"] = launches[which]
     bench_planted_phase(bench_torch, flatline_campaign, lm, problems, smi)
 
@@ -2282,12 +2382,15 @@ def main() -> None:
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     src = "bundleadjustment_benchmarks_tpu_torch/ops/csrc/chain_kernels.cu"
+    jnp_chain = "none: the JAX package's float64 chain is XLA-fused jnp"
     replaces = {
         "chain_blocks": "bundleadjustment_benchmarks_tpu/ops/pallas_chain.py:83",
         "chain_energy": "bundleadjustment_benchmarks_tpu/ops/pallas_chain.py:98",
+        "chain_blocks_f64": jnp_chain, "chain_energy_f64": jnp_chain,
     }
     # max_abs_err: chain_blocks' rows, chain_energy's energy; the blocks
-    # kernel's energy gap is its own field, energy_abs_err.
+    # kernel's energy gap is its own field, energy_abs_err. The float64
+    # pair's max_rel_err and energy_rel_err: f64_kernels_case's.
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src,
          "replaces": replaces[name], **k}

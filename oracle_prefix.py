@@ -27,9 +27,10 @@ on the port's state and on the oracle's at the npz's iteration
 run too, in float64 on the jit drive. A row's ``wall_s`` is its first run
 alone, with no warm-up: on the jit drive it includes the graph's capture
 (``jit.capture_s``). Every row is held to its budget (``budget_for``):
-cholesky to ``CHOLESKY``, set at about 3x the gaps measured on the CPU, the
-other modes to the JAX package's test_oracle_prefix budget
-(tests/test_flatline_parity.py:105-131).
+cholesky to ``CHOLESKY`` (tight on the first iterations, then one-sided:
+past them the path turns on the rounding, and a deeper descent than the
+oracle's is no fault), the other modes to the JAX package's
+test_oracle_prefix budget (tests/test_flatline_parity.py:105-131).
 
 The artifact (``--json``, relative to this file's directory) holds a
 header that names the card (``nvidia-smi --query-gpu=name,power.limit``)
@@ -71,17 +72,25 @@ CONFIGS = {
 OTHER_MODES = ("qrchol", "qrkit", "moreqr", "spqr")
 #: The LM drives of the cholesky rows: host equal to jit is part of the gate.
 LM_DRIVES = ("host", "jit")
-#: cholesky: energies within ``first_rel`` at iterations 1..``first_iters``
-#: and ``rel`` at every one; at the matched iteration the inlier mean error
-#: within ``inlier_px``, the true objective within ``obj_rtol`` and the inlier
-#: count within ``inlier_count_rtol``, all relative to the oracle. Measured
-#: on the CPU (float64, both drives alike): p126 rel <= 5.8e-6 at
-#: iterations 1-3, <= 5.7e-4 over 15; 8.9e-5 px, 1.2e-3 and 1.0e-4 at
-#: iteration 10; p257 7.3e-7 and 4.6e-7; 2.1e-6 px, 2.3e-7 and 5.5e-6 at
-#: iteration 2. The other modes at p126 (jit drive): rel <= 1.7e-3 over
-#: the first 5, <= 2.2e-3 over 15; <= 1.1e-4 px, 1.3e-3 and 1.1e-3.
-CHOLESKY = dict(first_rel=1e-4, first_iters=3, rel=2e-3, inlier_px=1e-3,
-                obj_rtol=1e-2, inlier_count_rtol=1e-2)
+#: cholesky: energies within ``first_rel`` at iterations 1..``first_iters``;
+#: at every one within ``rel`` and no more than ``rel_above`` above the
+#: oracle's (``rel_above`` is signed: the port's largest excess over the
+#: oracle, negative where it is below at every iteration); at the matched
+#: iteration the inlier mean error within ``inlier_px``, the true objective
+#: within ``obj_rtol`` and the inlier count within ``inlier_count_rtol``,
+#: all relative to the oracle. Measured on the CPU (float64, both drives
+#: alike): p126 rel <= 5.8e-6 at iterations 1-3; 8.9e-5 px, 1.2e-3 and
+#: 1.0e-4 at iteration 10; p257 7.3e-7 and 4.6e-7; 2.1e-6 px, 2.3e-7 and
+#: 5.5e-6 at iteration 2. Past its first five iterations the p126 path
+#: turns on the rounding: from starts 1e-15 apart (relative, in the points)
+#: one code's float64 cholesky ends its 15 iterations anywhere from 2.7e-2
+#: below the oracle to 1.1e-3 above it (24 starts on an H100 and 7 on the
+#: CPU, of two versions of the chain; each energy that of its state to
+#: 1e-15). So the budget holds a lag behind the oracle tightly and a lead
+#: loosely. The other modes at p126 (jit drive): rel <= 1.7e-3 over the
+#: first 5, <= 2.2e-3 over 15; <= 1.1e-4 px, 1.3e-3 and 1.1e-3.
+CHOLESKY = dict(first_rel=1e-4, first_iters=3, rel=1e-1, rel_above=2e-3,
+                inlier_px=1e-3, obj_rtol=1e-2, inlier_count_rtol=1e-2)
 #: The JAX package's budget (tests/test_flatline_parity.py:118-131): the
 #: first five pairs within 1e-2, all within 1e-1, 5e-3 px and 5%.
 JAX_BUDGET = dict(first_rel=1e-2, first_iters=5, rel=1e-1, inlier_px=5e-3,
@@ -148,7 +157,9 @@ def gaps(pairs: list, matched, budget: dict) -> dict:
     ``matched``) and whether each is within ``budget``."""
     first = pairs[:budget["first_iters"]]
     out = {"first_rel": max((p["rel"] for p in first), default=math.inf),
-           "rel": max((q["rel"] for q in pairs), default=math.inf)}
+           "rel": max((q["rel"] for q in pairs), default=math.inf),
+           "rel_above": max(((q["port_energy"] - q["oracle_energy"])
+                             / q["oracle_energy"] for q in pairs), default=math.inf)}
     factors = [p["lam_factor_rel"] for p in first if "lam_factor_rel" in p]
     if factors:
         out["lam_factor_rel"] = max(factors)

@@ -1,10 +1,12 @@
 """Kernels alone on the GPU, against the frozen roofline of
 ``portbench/core/roofline.py``: the chain kernels, the block Jacobi
-eigensolver, and the chain entry points' one-operation gate.
+eigensolver, the chain entry points' one-operation gate, and where one
+float64 prepare's and trial's device time goes.
 
     python3 stage_profile.py [BAL file] --chain
     python3 stage_profile.py --eigh
     python3 stage_profile.py [BAL file] --one-op N
+    python3 stage_profile.py [BAL file] --prepare
 
 ``chip_smoke.py`` checks the port and times nothing; where a solve's time
 goes is ``portbench/run.py --trace 1``'s to say (PERF.md).
@@ -17,7 +19,11 @@ one entry-point call (``host_us``), the plain version's time
 (``plain_ms``), the bound (``roofline.kernel_bounds``) and the launch
 shape; then its time against the observations it visits, cold and warm
 L2, beside an empty kernel's and ``torch.profiler``'s durations, and staged
-cameras against the same work unstaged (padded to 2,500), in turns.
+cameras against the same work unstaged (padded to 2,500), in turns. The
+float64 pair (``f64_kernels``) at the loaded float64 state: the same
+times, the plain chain it replaces (``residuals_and_jacobian`` +
+``compensated_square_sum``; ``projection.energy``) as ``plain_ms``, and its
+byte bound (``f64_bounds``, at ``roofline``'s memory rate).
 
 ``--eigh``: ``cuda_eigh.jacobi_eigh`` against ``torch.linalg.eigh`` on the
 float64 grams that pair-less qrkit factors at p16 and p257 (n = 145 and
@@ -27,6 +33,14 @@ after convergence.
 ``--one-op N``: each chain entry point profiled N times, one call a
 profile, by ``chip_smoke.device_ops_per_call``: the operations counted per
 profile and the empty profiles.
+
+``--prepare``: one eager float64 cholesky ``lm._prepare`` and one
+``lm._trial`` at the loaded state (p257 unless a BAL file is given), by
+``torch.profiler``: each one's device time (the kernels' durations, the
+mean of PROFILE_REPS calls) with the plain chain and with the float64
+kernels, split into the chain (residuals, Jacobian and energy; the trial's
+energy) and the rest (``schur.build_context`` and the initial lambda; the
+trial's solve and step), with each part's largest kernels.
 
 Device times are medians of 20 by CUDA events with a cold L2 (``time_ms``);
 every line names the card. To compare two checkouts, copy this script and
@@ -52,16 +66,18 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, cuda_eigh
-from bundleadjustment_benchmarks_tpu_torch.solvers import lm
+from bundleadjustment_benchmarks_tpu_torch.ops import (cuda_chain, cuda_eigh, jacobian,
+                                                       projection)
+from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 from bundleadjustment_benchmarks_tpu_torch.utils import balgen
 from chip_smoke import (P16, P257, device_ops_per_call, entry_points,
-                        ladybug_standin, nvidia_smi, qrkit_gram)
+                        f64_entry_points, ladybug_standin, nvidia_smi, qrkit_gram)
 from portbench.core import roofline
 
 SLEEP = int(2e7)  # ~10 ms: longer than the host's enqueue of one kernel
 PLAIN_SLEEP = int(2e8)  # ~100 ms: longer than a plain version's enqueue
 REPS = 20
+PROFILE_REPS = 5
 UNSTAGED_CAMERAS = 2500  # 2,500 x 27 floats exceed a block's shared memory
 
 
@@ -165,6 +181,43 @@ def chain_kernels(prob, fast, flush) -> dict:
     return out
 
 
+def f64_bounds(n: int, m: int, k: int, bw: float) -> dict:
+    """Per float64 chain kernel, its least time by bytes (ms) at the memory
+    rate ``bw``: each input read once (the cameras' 15 float64, the float64
+    points, the (K, 2) measurements and both int32 indices), each output
+    written once (the energy; the blocks kernel's (26, K) float64 rows).
+    Their float64 arithmetic, ~200 operations an observation, would take a
+    twentieth of that at the card's float64 rate: bytes bound them."""
+    inputs = 8 * 15 * n + 8 * 3 * m + 8 * 2 * k + 4 * 2 * k
+    return {"chain_blocks_f64": (inputs + 8 * 26 * k + 8) / bw * 1e3,
+            "chain_energy_f64": (inputs + 8) / bw * 1e3}
+
+
+def f64_kernels(prob, flush) -> dict:
+    """Per float64 chain kernel at ``prob``'s loaded state: ``ms``,
+    ``entry_ms``, ``host_us``, ``plain_ms``, the byte bound and the launch
+    shape."""
+    state, obs, tau2 = prob.state, prob.obs, prob.tau2
+    n, m, k = prob.n_cameras, prob.n_points, prob.n_observations
+    bounds = f64_bounds(n, m, k, roofline.card_rates(torch.cuda.get_device_name(0))[0])
+    ops = cuda_chain.f64_operands(state, obs)
+    entry = f64_entry_points(cuda_chain, state, obs, tau2)
+    plain = {"chain_blocks_f64": lambda: projection.compensated_square_sum(
+                 jacobian.residuals_and_jacobian(state, obs, tau2).f),
+             "chain_energy_f64": lambda: projection.energy(state, obs, tau2)}
+    out = {}
+    for which in entry:
+        out[which] = {
+            "ms": time_ms(lambda: cuda_chain.launch_f64(which, ops, tau2), REPS,
+                          SLEEP, flush),
+            "entry_ms": time_ms(entry[which], REPS, SLEEP, flush),
+            "host_us": host_us(entry[which]),
+            "plain_ms": time_ms(plain[which], REPS, PLAIN_SLEEP, flush),
+            "bound_ms": bounds[which], "bound_by": "bytes",
+            **cuda_chain.launch_shape(which, n, k)}
+    return out
+
+
 def chain_line(prob, card: str, name: str) -> None:
     cuda_chain.load_library()
     fast, obs, tau2 = pm.to_fast(prob.state), prob.obs, prob.tau2
@@ -193,6 +246,7 @@ def chain_line(prob, card: str, name: str) -> None:
         "problem": name, "N": prob.n_cameras, "M": prob.n_points,
         "K": prob.n_observations,
         "kernels": chain_kernels(prob, fast, flush),
+        "f64_kernels": f64_kernels(prob, flush),
         "sweep": sweep, "staging": staging(fast, obs, tau2, flush)}),
         flush=True)
 
@@ -253,13 +307,65 @@ def eigh_line(S, card: str, name: str, flush) -> None:
         flush=True)
 
 
+def device_split(fn, reps: int = PROFILE_REPS) -> dict:
+    """The device time of one call of ``fn`` (ms; the mean of ``reps``
+    calls in one profile, ``device_kernels``), its kernel launches and its
+    five largest kernels by short name."""
+    split = device_kernels(lambda: [fn() for _ in range(reps)])
+    top = sorted(split.items(), key=lambda kv: -kv[1]["ms"])[:5]
+    return {"ms": sum(v["ms"] for v in split.values()) / reps,
+            "launches": sum(v["launches"] for v in split.values()) / reps,
+            "top": {k: v["ms"] / reps for k, v in top}}
+
+
+def prepare_line(prob, card: str, name: str) -> None:
+    """``--prepare``: the float64 cholesky prepare and trial at ``prob``'s
+    loaded state, plain and with the float64 kernels, and their parts."""
+    state, obs, tau2, mode = prob.state, prob.obs, prob.tau2, "cholesky"
+
+    def chain_plain():
+        blocks = jacobian.residuals_and_jacobian(state, obs, tau2)
+        return blocks, projection.compensated_square_sum(blocks.f)
+
+    def rest(blocks):
+        ctx = schur.build_context(blocks, prob, mode)
+        return ctx, schur.initial_lambda(ctx, mode).to(torch.float64)
+
+    ctx, lam0 = rest(chain_plain()[0])
+    dxp, dxc = schur.solve_damped(ctx, lam0, prob, mode)
+    x_test = pm.apply_step(state, dxp, dxc)
+    cuda_chain.load_library()
+    kernel_blocks = cuda_chain.blocks_energy_f64(state, obs, tau2)[0]
+    plain_blocks = chain_plain()[0]
+    parts = {
+        "prepare_plain": lambda: lm._prepare(state, prob, mode),
+        "prepare_kernels": lambda: lm._prepare(state, prob, mode, kernels=True),
+        "chain_plain": chain_plain,
+        "chain_kernel": lambda: cuda_chain.blocks_energy_f64(state, obs, tau2),
+        "rest_plain_blocks": lambda: rest(plain_blocks),
+        "rest_planar_blocks": lambda: rest(kernel_blocks),
+        "trial_plain": lambda: lm._trial(ctx, state, lam0, prob, mode),
+        "trial_kernels": lambda: lm._trial(ctx, state, lam0, prob, mode,
+                                           kernels=True),
+        "trial_energy_plain": lambda: projection.energy(x_test, obs, tau2),
+        "trial_energy_kernel": lambda: cuda_chain.energy_f64(x_test, obs, tau2),
+    }
+    print(json.dumps({
+        "card": card, "package": str(Path(cuda_chain.__file__).parents[1]),
+        "problem": name, "N": prob.n_cameras, "M": prob.n_points,
+        "K": prob.n_observations, "mode": mode,
+        "timing": f"torch.profiler kernel durations, mean of {PROFILE_REPS} calls",
+        "parts": {k: device_split(fn) for k, fn in parts.items()}}), flush=True)
+
+
 def one_op_line(prob, card: str, profiles: int) -> None:
     """``device_ops_per_call`` of each entry point over ``profiles``
     profiles."""
     cuda_chain.load_library()
     out = {}
-    for which, fn in entry_points(cuda_chain, pm.to_fast(prob.state), prob.obs,
-                                  prob.tau2).items():
+    entries = {**entry_points(cuda_chain, pm.to_fast(prob.state), prob.obs, prob.tau2),
+               **f64_entry_points(cuda_chain, prob.state, prob.obs, prob.tau2)}
+    for which, fn in entries.items():
         c = device_ops_per_call(fn, profiles)["counts"]
         out[which] = {"profiles": len(c), "empty_profiles": c.count(0),
                       "ops_per_profile": {str(k): c.count(k) for k in sorted(set(c))}}
@@ -277,13 +383,18 @@ def main() -> None:
                       help="time the eigensolver on the p16 and p257 grams")
     what.add_argument("--one-op", type=int, default=0, metavar="N",
                       help="profile each chain entry point N times")
+    what.add_argument("--prepare", action="store_true",
+                      help="split a float64 prepare's and trial's device time")
     args = ap.parse_args()
     if args.eigh and args.path:
         ap.error("--eigh takes no BAL file")
     if not torch.cuda.is_available():
         sys.exit("stage_profile: needs a CUDA device")
     card = nvidia_smi()
-    if args.one_op:
+    if args.prepare:
+        path = args.path or str(P257)
+        prepare_line(pm.load_bal_problem(path, device="cuda"), card, Path(path).name)
+    elif args.one_op:
         one_op_line(pm.load_bal_problem(args.path or str(P257), device="cuda"),
                     card, args.one_op)
     elif args.eigh:

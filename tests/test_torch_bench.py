@@ -354,6 +354,7 @@ def test_p16_workload_held_to_the_oracle_prefix(p16_f64):
     assert prefix["matched"] is None and prefix["budget"] == op.CHOLESKY
     assert prefix["gaps"]["first_rel"] < op.CHOLESKY["first_rel"]
     assert prefix["gaps"]["rel"] < op.CHOLESKY["rel"]
+    assert prefix["gaps"]["rel_above"] < op.CHOLESKY["rel_above"]
     assert prefix["within"] and ref["within"] and "error" not in ref
 
 

@@ -19,13 +19,14 @@ import torch_threads  # noqa: F401  (sizes torch's thread pool to the xdist work
 
 from bundleadjustment_benchmarks_tpu_torch import cli
 from bundleadjustment_benchmarks_tpu_torch.models import problem as pm
-from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, jacobian
+from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain, cuda_graph, jacobian, projection
 from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 
 pytestmark = pytest.mark.cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P16 = os.path.join(ROOT, "data", "problem-16-22106-pre.txt.gz")
+P257 = os.path.join(ROOT, "data", "problem-257-65132-pre.txt.gz")
 
 
 @pytest.fixture(scope="module")
@@ -168,6 +169,193 @@ def test_cameras_must_be_contiguous_float64(p16_cuda, bad):
     for which in ("chain_blocks", "chain_energy"):
         with pytest.raises(err, match=match):
             cuda_chain.launch(which, ops, prob.tau2)
+
+
+# -- the float64 pair -------------------------------------------------------------
+
+#: The float64 kernels against the plain float64 chain: the rows bit for
+#: bit (both round every operation alike: projection.ordered_bmm sums the
+#: products in the kernel's order), the energies, summed in other orders,
+#: within F64_ENERGY_RTOL.
+F64_ENERGY_RTOL = 1e-13
+
+
+def _stepped_f64(prob, seed):
+    """``prob``'s float64 state moved by a seeded step (points 1e-2,
+    cameras 1e-3), so that residuals are large and many are outliers."""
+    rng = np.random.default_rng(seed)
+    step = (torch.from_numpy(rng.normal(scale=1e-2, size=(prob.n_points, 3))),
+            torch.from_numpy(rng.normal(scale=1e-3, size=(prob.n_cameras, 9))))
+    return pm.apply_step(prob.state, *(t.to(prob.state.T.device) for t in step))
+
+
+@pytest.fixture(scope="module")
+def f64_states(p16_cuda):
+    """{"p16": (problem, stepped state), "p257": ...} on the card."""
+    prob, _ = p16_cuda
+    p257 = pm.load_bal_problem(P257, device="cuda")
+    return {"p16": (prob, _stepped_f64(prob, 7)),
+            "p257": (p257, _stepped_f64(p257, 8))}
+
+
+def _f64_launches(state, obs, tau2):
+    ops = cuda_chain.f64_operands(state, obs)
+    rows, e_blocks = cuda_chain.launch_f64("chain_blocks_f64", ops, tau2)
+    _, e_energy = cuda_chain.launch_f64("chain_energy_f64", ops, tau2)
+    return rows, e_blocks, e_energy
+
+
+@pytest.mark.parametrize("name", ["p16", "p257"])
+def test_f64_kernels_match_plain(f64_states, name):
+    """Both float64 kernels at a stepped state against
+    residuals_and_jacobian's rows (bit for bit) and energy and
+    projection.energy, one launch counted each."""
+    prob, state = f64_states[name]
+    before = dict(cuda_chain.LAUNCHES)
+    rows, e_blocks, e_energy = _f64_launches(state, prob.obs, prob.tau2)
+    assert {k: cuda_chain.LAUNCHES[k] - before[k] for k in before} == {
+        "chain_blocks": 0, "chain_energy": 0, "chain_blocks_f64": 1,
+        "chain_energy_f64": 1}
+    want, e_want = cuda_chain.chain_blocks_f64_plain(state, prob.obs, prob.tau2)
+    e_trial = projection.energy(state, prob.obs, prob.tau2).item()
+    gap = ((rows - want).abs() / want.abs().amax(1, keepdim=True)).max().item()
+    print(f"{name}: rows {gap:.3g} of each row's largest, blocks energy "
+          f"{abs(e_blocks.item() / e_want.item() - 1):.3g}, trial energy "
+          f"{abs(e_energy.item() / e_trial - 1):.3g}")
+    assert rows.shape == want.shape and rows.dtype == torch.float64
+    assert torch.equal(rows, want)
+    assert abs(e_blocks.item() - e_want.item()) <= F64_ENERGY_RTOL * e_want.item()
+    assert abs(e_energy.item() - e_trial) <= F64_ENERGY_RTOL * e_trial
+
+
+@pytest.mark.parametrize("k", [1, 255, 256, 257, 77391])
+def test_f64_prefixes(f64_states, k):
+    """Ragged grids (one observation, one short of a block, a block, one
+    past it, all but one of p16): each observation's rows are those of the
+    whole problem's launch and the plain chain's bit for bit, the energies
+    the plain chain's."""
+    prob, state = f64_states["p16"]
+    rows_all = _f64_launches(state, prob.obs, prob.tau2)[0]
+    obs = cuda_chain._prefix(prob.obs, k)
+    rows, e_blocks, e_energy = _f64_launches(state, obs, prob.tau2)
+    assert rows.shape == (26, k) and torch.equal(rows, rows_all[:, :k])
+    assert torch.equal(rows, cuda_chain.chain_blocks_f64_plain(state, obs, prob.tau2)[0])
+    e_want = projection.energy(state, obs, prob.tau2).item()
+    for e in (e_blocks.item(), e_energy.item()):
+        assert abs(e - e_want) <= F64_ENERGY_RTOL * e_want
+
+
+def test_f64_no_observations(f64_states):
+    prob, state = f64_states["p16"]
+    rows, e_blocks, e_energy = _f64_launches(state, cuda_chain._prefix(prob.obs, 0),
+                                             prob.tau2)
+    assert rows.shape == (26, 0)
+    assert e_blocks.item() == 0.0 and e_energy.item() == 0.0
+
+
+@pytest.mark.parametrize("name", ["p16", "p257"])
+def test_f64_repeat_launches_identical(f64_states, name):
+    """Five launches of each kernel, two back to back and three after a
+    synchronize each: the same rows and energies bit for bit."""
+    prob, state = f64_states[name]
+    runs = [_f64_launches(state, prob.obs, prob.tau2) for _ in range(2)]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        runs.append(_f64_launches(state, prob.obs, prob.tau2))
+    for rows, e_blocks, e_energy in runs[1:]:
+        assert torch.equal(rows, runs[0][0])
+        assert e_blocks.item() == runs[0][1].item()
+        assert e_energy.item() == runs[0][2].item()
+
+
+def test_f64_cameras_past_shared_memory(f64_states):
+    """With 2,500 cameras (2,500 x 120 B exceed a block's shared memory)
+    each observation reads its own camera: the same rows and energies as
+    the staged launch, bit for bit. The extra cameras repeat camera 0 and
+    are not observed."""
+    prob, state = f64_states["p16"]
+    assert cuda_chain.launch_shape("chain_blocks_f64", prob.n_cameras,
+                                   prob.n_observations)["staged_cameras"]
+    pad = 2500 - prob.n_cameras
+
+    def grow(t):
+        return torch.cat([t, t[:1].expand(pad, *t.shape[1:])]).contiguous()
+
+    wide = dataclasses.replace(state, R=grow(state.R), T=grow(state.T),
+                               K=grow(state.K), k1=grow(state.k1),
+                               k2=grow(state.k2))
+    for which in cuda_chain.DRIVE_KERNELS["f64"]:
+        assert not cuda_chain.launch_shape(which, 2500,
+                                           prob.n_observations)["staged_cameras"]
+    got = _f64_launches(wide, prob.obs, prob.tau2)
+    want = _f64_launches(state, prob.obs, prob.tau2)
+    assert torch.equal(got[0], want[0])
+    assert got[1].item() == want[1].item() and got[2].item() == want[2].item()
+
+
+def test_f64_replay_equals_eager(f64_states):
+    """Both float64 kernels captured into a DeviceGraph: each replay gives
+    the eager rows and energies bit for bit, and counts one launch of each
+    in the device's record."""
+    prob, state = f64_states["p257"]
+    dev = state.T.device
+    graph = cuda_graph.DeviceGraph(dev)
+    with torch.cuda.stream(graph.stream):
+        cuda_chain.prepare_capture(dev)
+        eager = _f64_launches(state, prob.obs, prob.tau2)
+    torch.cuda.synchronize()
+    cuda_chain.reset_launches()
+    out = graph.capture(lambda: _f64_launches(state, prob.obs, prob.tau2))
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0])
+        assert out[1].item() == eager[1].item() and out[2].item() == eager[2].item()
+    cuda_chain.collect_graph_launches()
+    assert cuda_chain.LAUNCHES == {"chain_blocks": 0, "chain_energy": 0,
+                                   "chain_blocks_f64": 3, "chain_energy_f64": 3}
+    graph.close()
+
+
+def test_jit_f64_one_launch_a_prepare_and_a_trial(p16_cuda):
+    """The float64 jit drive on p16 (LMConfig()'s defaults): one blocks
+    launch a prepare and one energy launch a trial, counted in the graph
+    and brought back by the run's one read, no df32 launch; the LM path of
+    the host drive through the same kernels, energies within 1e-9. (Whole
+    runs on the kernels and on the plain chain part by the chain's
+    rounding, ~6e-7 in the energy after 6 iterations, as lambda follows
+    rho; gate (b) of ``bench_torch.py`` holds them iteration by
+    iteration.)"""
+    prob, _ = p16_cuda
+    cfg = lm.LMConfig(max_iter=6)
+    host = lm.minimize(prob, config=dataclasses.replace(cfg, drive="host"))
+    lm.minimize(prob, config=cfg)  # captures
+    cuda_chain.reset_launches()
+    res = lm.minimize(prob, config=cfg)
+    jit = lm.LAST_JIT_RUN
+    assert not jit["captured"] and jit["reads"] == jit["replays"] == 1
+    assert cuda_chain.LAUNCHES == {"chain_blocks": 0, "chain_energy": 0,
+                                   "chain_blocks_f64": jit["prepares"],
+                                   "chain_energy_f64": jit["slots"]}
+    assert jit["prepares"] > 0 and jit["slots"] >= jit["prepares"]
+    assert (res.iterations, res.fun_evals, res.status) == (
+        host.iterations, host.fun_evals, host.status)
+    assert abs(res.energy - host.energy) <= 1e-9 * host.energy
+    lm.clear_graphs()
+
+
+def test_polish_runs_the_f64_kernels(p16_cuda):
+    """The two-phase drive on p16: the df32 phase launches the df32 pair,
+    the float64 polish, from ``from_fast``'s state, the float64 pair; the
+    energy descends."""
+    prob, _ = p16_cuda
+    e0 = lm._prepare(prob.state, prob, "cholesky")[1].item()
+    cuda_chain.reset_launches()
+    res = lm.minimize(prob, config=lm.LMConfig(
+        drive="host", max_iter=3, geometry="df32", matmul_dtype="float32",
+        polish_iters=2))
+    assert all(n > 0 for n in cuda_chain.LAUNCHES.values()), cuda_chain.LAUNCHES
+    assert res.energy < e0
 
 
 REALIZATIONS = [("cholesky", None), ("qrchol", None), ("moreqr", None),
@@ -644,12 +832,36 @@ def test_bench_workload_p16_df32(p16_cuda):
     assert rec["gates"]["kernels_vs_plain"]["ok"]
     assert rec["gates"]["kernels_vs_plain"]["kernels_captured"] is False
     assert all(r["captured"] is False and r["replays"] > 0 for r in rec["runs"])
-    assert all(min(r["launches"].values()) > 0 for r in rec["runs"])
+    assert all(min(r["launches"][k] for k in cuda_chain.DRIVE_KERNELS["df32"]) > 0
+               for r in rec["runs"])
     assert rec["peak_bytes"] > 0 and rec["reserved_bytes"] >= rec["peak_bytes"]
     control = rec["control"]
     assert control["ok"] and control["captured"] is False and control["chunked"]
     # Gate (e) observes every iteration's state: one replay and read each.
     assert control["replays"] == control["reads"] == control["iterations"]
+    assert rec["numerics"]["ok"] and rec["numerics"]["checked"] > 0
+
+
+def test_bench_workload_p16_f64(p16_cuda):
+    """``bench_torch.py``'s workload on p16 float64 (cholesky, 20
+    iterations, 3 timed runs): every gate holds, gate (b) runs the float64
+    kernels against the plain chain, each timed run launches the float64
+    pair and no df32 kernel, and gate (e) passes."""
+    sys.path.insert(0, ROOT)
+    try:
+        import bench_torch
+    finally:
+        sys.path.remove(ROOT)
+    prob, _ = p16_cuda
+    (rec,) = bench_torch.run_workloads(
+        prob, "p16", ("cholesky",), bench_torch.campaign.drive_config("f64", 20), 3,
+        "cuda", out=lambda _: None)
+    lm.clear_graphs()
+    assert rec["correct"], rec["gates"]
+    assert rec["gates"]["kernels_vs_plain"]["ok"]
+    for r in rec["runs"]:
+        assert min(r["launches"][k] for k in cuda_chain.DRIVE_KERNELS["f64"]) > 0
+        assert max(r["launches"][k] for k in cuda_chain.DRIVE_KERNELS["df32"]) == 0
     assert rec["numerics"]["ok"] and rec["numerics"]["checked"] > 0
 
 

@@ -345,7 +345,8 @@ def test_row_function_on_cpu(tiny_bal, drive):
     assert (row["problem"], row["mode"], row["drive"], row["lm_drive"],
             row["platform"]) == ("tiny.txt", "cholesky", drive, "host", "cpu")
     assert row["peak_bytes"] is None and row["jit"] is None
-    assert row["launches"] == {"chain_blocks": 0, "chain_energy": 0}
+    assert row["launches"] == {"chain_blocks": 0, "chain_energy": 0,
+                               "chain_blocks_f64": 0, "chain_energy_f64": 0}
     assert row["trace"] and set(row["trace"][0]) >= {"iter", "energy", "lam"}
     assert json.loads(json.dumps(row)) == row
     jp = jload(tiny_bal)

@@ -219,6 +219,83 @@ def test_launch_checks_the_cameras(pair, fast_pair, bad, err, match):
         cuda_chain.launch("chain_energy", ops, tp.tau2)
 
 
+def test_f64_wrappers_equal_plain_on_cpu(pair):
+    """On CPU tensors the float64 entry points are the plain chain:
+    residuals_and_jacobian's blocks (through planar rows) and energy, and
+    projection.energy, bit for bit, with no launch counted."""
+    _, tp = pair
+    before = dict(cuda_chain.LAUNCHES)
+    blocks, energy = cuda_chain.blocks_energy_f64(tp.state, tp.obs, tp.tau2)
+    want = jacobian.residuals_and_jacobian(tp.state, tp.obs, tp.tau2)
+    for got, ref in zip(blocks, want):
+        assert got.shape == ref.shape and torch.equal(got, ref)
+    assert torch.equal(energy, projection.compensated_square_sum(want.f))
+    assert torch.equal(cuda_chain.energy_f64(tp.state, tp.obs, tp.tau2),
+                       projection.energy(tp.state, tp.obs, tp.tau2))
+    assert cuda_chain.LAUNCHES == before
+
+
+def test_f64_blocks_are_views_of_planar_rows(pair):
+    """The float64 entry point gives build_context the df32 drive's layout:
+    views of (26, K) rows f0 f1, Jc row 0 and 1, Jp row 0 and 1."""
+    _, tp = pair
+    blocks, _ = cuda_chain.blocks_energy_f64(tp.state, tp.obs, tp.tau2)
+    rows, _ = cuda_chain.chain_blocks_f64_plain(tp.state, tp.obs, tp.tau2)
+    k = tp.obs.n_observations
+    assert rows.shape == (jacobian.PLANAR_CHAIN_ROWS, k)
+    assert rows.dtype == torch.float64
+    for b in blocks:
+        assert b.stride()[0] == 1
+    assert torch.equal(rows[0:2], blocks.f.T)
+    assert torch.equal(rows[2:11], blocks.Jc[:, 0].T)
+    assert torch.equal(rows[11:20], blocks.Jc[:, 1].T)
+    assert torch.equal(rows[20:23], blocks.Jp[:, 0].T)
+    assert torch.equal(rows[23:26], blocks.Jp[:, 1].T)
+    again = jacobian.blocks_from_planar_rows(jacobian.planar_rows_from_blocks(blocks))
+    assert all(torch.equal(a, b) for a, b in zip(again, blocks))
+
+
+def test_f64_operands_are_the_state_tensors(pair):
+    _, tp = pair
+    s = tp.state
+    want = (s.R, s.T, s.K, s.k1, s.k2, s.points, tp.obs.measurements,
+            tp.obs.cam_idx, tp.obs.pt_idx)
+    ops = cuda_chain.f64_operands(s, tp.obs)
+    assert len(ops) == len(want)
+    assert all(a is b for a, b in zip(ops, want))
+
+
+def test_f64_operands_copy_what_is_not_contiguous(pair):
+    """The two-phase drive's float64 phase starts from ``from_fast``, whose
+    points are a transposed view: the operands are its values, contiguous."""
+    _, tp = pair
+    state = pm.from_fast(pm.to_fast(tp.state))
+    assert not state.points.is_contiguous()
+    ops = cuda_chain.f64_operands(state, tp.obs)
+    assert all(t.is_contiguous() for t in ops)
+    assert torch.equal(ops[5], state.points)
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    ("float32", TypeError, "points has dtype"),
+    ("noncontiguous", ValueError, "R must be contiguous"),
+    ("planar", ValueError, "measurements has shape"),
+    ("cpu", ValueError, "CUDA tensors"),
+])
+def test_launch_f64_checks_operands(pair, bad, err, match):
+    """The float64 launch checks every operand, then refuses CPU tensors."""
+    _, tp = pair
+    ops = list(cuda_chain.f64_operands(tp.state, tp.obs))
+    if bad == "float32":
+        ops[5] = ops[5].float()
+    elif bad == "noncontiguous":
+        ops[0] = ops[0].transpose(1, 2)
+    elif bad == "planar":
+        ops[6] = ops[6].T.contiguous()
+    with pytest.raises(err, match=match):
+        cuda_chain.launch_f64("chain_energy_f64", ops, tp.tau2)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_twofloat_ops_bitwise(seed):
     rng = np.random.default_rng(seed)

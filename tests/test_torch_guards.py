@@ -293,11 +293,75 @@ def test_kernels_on_cpu_raise():
     ("df32", None, "cuda", True),
     ("df32", None, "cpu", False),
     ("df32", False, "cuda", False),
-    (None, None, "cuda", False),
+    (None, None, "cuda", True),
 ])
 def test_kernels_default_follows_device(geometry, kernels, device, want):
     cfg = lm.LMConfig(geometry=geometry, kernels=kernels)
     assert cfg.use_kernels(torch.device(device)) is want
+
+
+def test_f64_kernels_on_cpu_raise():
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        lm.LMConfig(kernels=True).use_kernels(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("matmul_dtype,kernels,dtype,device,want", [
+    (None, None, torch.float64, "cuda", True),
+    (None, True, torch.float64, "cuda", True),
+    (None, False, torch.float64, "cuda", False),
+    (None, None, torch.float64, "cpu", False),
+    (None, None, torch.float32, "cuda", False),
+    (None, True, torch.float32, "cuda", False),
+    ("float32", None, torch.float64, "cuda", False),
+    ("float32", True, torch.float64, "cuda", False),
+], ids=["default", "asked", "plain", "cpu", "f32-state", "f32-state-asked",
+        "mixed", "mixed-asked"])
+def test_f64_kernels_follow_state_and_matmul(matmul_dtype, kernels, dtype,
+                                             device, want):
+    """The float64 drive's kernels engage only for a float64 state with
+    geometry and matmul_dtype None on CUDA; ``kernels=False`` keeps the
+    plain path there."""
+    cfg = lm.LMConfig(matmul_dtype=matmul_dtype, kernels=kernels)
+    assert cfg.use_kernels(torch.device(device), dtype) is want
+
+
+def test_f64_kernel_path_wiring_on_cpu(monkeypatch):
+    """Where the float64 drive takes the kernels, every prepare goes through
+    ``cuda_chain.blocks_energy_f64`` and every trial's energy through
+    ``cuda_chain.energy_f64`` (forced here on the CPU, where the entry
+    points are the plain chain), on both drives; the LM path is the plain
+    drive's, its energy within 1e-12 (the blocks reach build_context as
+    views of planar rows)."""
+    from bundleadjustment_benchmarks_tpu_torch.ops import cuda_chain
+    from bundleadjustment_benchmarks_tpu_torch.utils.synthetic import (
+        make_synthetic_problem)
+
+    prob = make_synthetic_problem(n_cameras=5, n_points=40, obs_per_point=4,
+                                  seed=4, device="cpu")
+    cfg = lm.LMConfig(max_iter=4, drive="host")
+    plain = lm.minimize(prob, config=cfg, device="cpu")
+    calls = {"blocks": 0, "energy": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(cuda_chain, "blocks_energy_f64",
+                        counted("blocks", cuda_chain.blocks_energy_f64))
+    monkeypatch.setattr(cuda_chain, "energy_f64",
+                        counted("energy", cuda_chain.energy_f64))
+    monkeypatch.setattr(lm.LMConfig, "use_kernels", lambda self, *a: True)
+    for drive in ("host", "jit"):
+        calls.update(blocks=0, energy=0)
+        res = lm.minimize(prob, config=lm.LMConfig(max_iter=4, drive=drive),
+                          device="cpu")
+        assert (res.iterations, res.fun_evals, res.status) == (
+            plain.iterations, plain.fun_evals, plain.status), drive
+        assert abs(res.energy - plain.energy) <= 1e-12 * plain.energy, drive
+        assert calls["energy"] == res.fun_evals - calls["blocks"] > 0, drive
+        assert 0 < calls["blocks"] <= res.iterations, drive
 
 
 @pytest.mark.parametrize("environ,cpus,want", [

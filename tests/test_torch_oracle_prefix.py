@@ -3,9 +3,11 @@ p257 stand-ins (``oracle_prefix.py``, the counterpart of the JAX package's
 ``benchmarks/p126_oracle_check.py``), on the CPU, and the committed run of
 the card (``torch_results/oracle_prefix_h100.json``).
 
-Budgets (``oracle_prefix.CHOLESKY``, about 3x the gaps measured on the CPU,
-printed with ``pytest -rP``): cholesky energies within 1e-4 relative at
-iterations 1-3 and 2e-3 at every one; at the oracle state's iteration the
+Budgets (``oracle_prefix.CHOLESKY``, gaps printed with ``pytest -rP``):
+cholesky energies within 1e-4 relative at iterations 1-3, and at every
+one within 1e-1 and no more than 2e-3 above the oracle's (past the first
+iterations the path turns on the rounding, and starts 1e-15 apart end
+p126's 15 iterations up to 2.7e-2 below the oracle); at the oracle state's iteration the
 inlier mean error within 1e-3 px, the true objective within 1e-2 relative
 and the inlier count within 1%. The card's other modes at p126 are held to
 the JAX package's test_oracle_prefix budget (``oracle_prefix.JAX_BUDGET``).
@@ -92,6 +94,28 @@ def test_host_equals_jit_at_p257(cpu_rows):
     assert host["matched"]["port"] == jit["matched"]["port"]
     assert (host["iterations"], host["fun_evals"], host["energy"]) == (
         jit["iterations"], jit["fun_evals"], jit["energy"])
+
+
+@pytest.mark.parametrize("late,within", [
+    (-2.7e-2, True), (-9e-2, True), (-1.1e-1, False),
+    (1.1e-3, True), (2.1e-3, False)],
+    ids=["below-2.7e-2", "below-9e-2", "below-1.1e-1", "above-1.1e-3",
+         "above-2.1e-3"])
+def test_cholesky_budget_holds_a_lag_tightly_and_a_lead_loosely(late, within):
+    """Past the first iterations a cholesky energy may lie below the
+    oracle's by up to ``rel`` (a deeper descent: perturbed starts reach
+    2.7e-2 below at p126) and above it by less than ``rel_above``; the
+    first iterations stay within ``first_rel`` either way."""
+    oracle = [5000.0, 4000.0, 3000.0, 2500.0, 2400.0]
+    port = oracle[:3] + [e * (1.0 + late) for e in oracle[3:]]
+    pairs = [{"iter": i, "oracle_energy": o, "port_energy": e,
+              "rel": abs(e - o) / o} for i, (o, e) in enumerate(zip(oracle, port), 1)]
+    got = op.gaps(pairs, None, op.CHOLESKY)
+    assert got["within"] is within
+    assert got["gaps"]["rel_above"] == pytest.approx(max(0.0, late))
+    early = [dict(p, port_energy=p["oracle_energy"] * (1.0 - 2e-4),
+                  rel=2e-4) if p["iter"] == 2 else p for p in pairs]
+    assert not op.gaps(early, None, op.CHOLESKY)["within"]
 
 
 def _artifact():

@@ -427,7 +427,8 @@ def test_dryrun_multichip_cpu():
         "launches", "backend", "captured"}
     for name, _, _ in sharded.DRYRUN_CONFIGS:
         assert np.isfinite(out[name]).all()
-    assert out["launches"] == {"chain_blocks": 0, "chain_energy": 0}
+    assert out["launches"] == {"chain_blocks": 0, "chain_energy": 0,
+                               "chain_blocks_f64": 0, "chain_energy_f64": 0}
 
 
 def test_sharded_needs_a_group():
