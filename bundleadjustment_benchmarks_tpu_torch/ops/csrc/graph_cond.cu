@@ -37,7 +37,7 @@ __global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
 
 // The record: begin times, totals (ns) and counts of CG_SPANS spans, then
 // the counters (cuda_graph.SPANS, COUNTERS).
-#define CG_SPANS 3
+#define CG_SPANS 4
 
 __device__ __forceinline__ void mark(long long *record, int slot, int kind) {
   unsigned long long now;
@@ -64,12 +64,15 @@ CG_MARK(ba_mark_trial_begin, 1, 0)
 CG_MARK(ba_mark_trial_end, 1, 1)
 CG_MARK(ba_mark_camera_solve_begin, 2, 0)
 CG_MARK(ba_mark_camera_solve_end, 2, 1)
+CG_MARK(ba_mark_pair_gram_begin, 3, 0)
+CG_MARK(ba_mark_pair_gram_end, 3, 1)
 CG_MARK(ba_mark_camera_fallback, 0, 2)
 
 static void (*const MARKS[])(long long *) = {
     ba_mark_prepare_begin,      ba_mark_prepare_end,
     ba_mark_trial_begin,        ba_mark_trial_end,
     ba_mark_camera_solve_begin, ba_mark_camera_solve_end,
+    ba_mark_pair_gram_begin,    ba_mark_pair_gram_end,
     ba_mark_camera_fallback};
 
 extern "C" {

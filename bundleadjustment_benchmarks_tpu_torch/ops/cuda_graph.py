@@ -33,11 +33,12 @@ tensor per device, allocated outside any capture (``DeviceGraph``
 allocates its device's). ``mark`` puts a mark kernel of
 ``csrc/graph_cond.cu`` on the current stream, so a capture records it: a
 begin or end mark of one of ``SPANS`` (the drive's prepare and trial, the
-reduced camera solve), timed by the device's clock, or the camera solve's
-fallback counter. The chain kernels' and the eigensolver's captured
-launch counters are ``counter`` slots of the same record. On the CPU,
-where nothing is captured, a mark records ``time.perf_counter_ns()`` and
-its count on the host, into a CPU record of the same layout.
+reduced camera solve, the trial's pair gram), timed by the device's clock,
+or the camera solve's fallback counter. The chain kernels' and the
+eigensolver's captured launch counters are ``counter`` slots of the same
+record. On the CPU, where nothing is captured, a mark records
+``time.perf_counter_ns()`` and its count on the host, into a CPU record of
+the same layout.
 """
 
 from __future__ import annotations
@@ -208,9 +209,11 @@ def device_cond(pred: torch.Tensor, true_fn, false_fn, out: torch.Tensor):
 # -- the in-graph record -------------------------------------------------------
 
 #: The spans the marks time, in the record's order: the LM drive's prepare
-#: (``lm.DeviceLoop._begin``) and damped trial (``DeviceLoop._step``), and
-#: the reduced camera solve (``schur._camera_solve_chol``).
-SPANS = ("prepare", "trial", "camera_solve")
+#: (``lm.DeviceLoop._begin``) and damped trial (``DeviceLoop._step``), the
+#: reduced camera solve (``schur._camera_solve_chol``) and a trial's
+#: weighted pair gram (``schur._pair_gram_cached``,
+#: ``schur.qrkit_pair_trial_sums``).
+SPANS = ("prepare", "trial", "camera_solve", "pair_gram")
 #: The record's counters, after the spans' slots: the camera solve's
 #: fallbacks (a mark), then the launches a replay ran of the chain kernels
 #: (``cuda_chain.KERNELS``, in its order) and the eigensolver

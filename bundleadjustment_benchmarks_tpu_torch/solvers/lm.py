@@ -715,8 +715,8 @@ class DeviceLoop:
     bound on the whole run.
 
     Every prepare and every trial is a span of the device's in-graph record
-    (``cuda_graph.mark``; the reduced camera solve inside a trial is one
-    too), zeroed by ``run`` and brought back by each read with the state:
+    (``cuda_graph.mark``; the reduced camera solve and the pair gram inside
+    a trial are two more), zeroed by ``run`` and brought back by each read with the state:
     ``marks`` holds the last read's totals and counts
     (``cuda_graph.unpack``). The host's steps are ``torch.profiler``
     ranges: ``ba.warmup`` and ``ba.capture`` in ``capture``, ``ba.replay``
@@ -1216,11 +1216,13 @@ def minimize(problem: problem_mod.BAProblem, mode: str = "cholesky",
       of the LM state, one a chunk;
     * ``slots``: trials run and ``prepares``: iterations started, both
       counted on the device;
-    * ``device_s``: {"prepare", "trial", "camera_solve"}, the seconds each
-      span took in all, by the device's clock between its in-graph marks
-      (the host's on the CPU), and ``span_counts`` the count of each:
-      ``prepares``, ``slots`` and ``slots`` (a trial holds one camera
-      solve; with ``refine_steps`` one more per pass);
+    * ``device_s``: {"prepare", "trial", "camera_solve", "pair_gram"}, the
+      seconds each span took in all, by the device's clock between its
+      in-graph marks (the host's on the CPU), and ``span_counts`` the count
+      of each: ``prepares``, ``slots``, ``slots`` (a trial holds one camera
+      solve; with ``refine_steps`` one more per pass) and, where the mode
+      sums the reduced system from the problem's pair tables (cholesky,
+      qrchol, moreqr, qrkit), ``slots`` (else 0);
       ``camera_fallbacks``: camera solves (float32 or float64) whose
       Cholesky broke down and took the fallback; all brought back by
       the reads above;

@@ -326,12 +326,17 @@ def _gather_pair_stacks(C_ext, problem):
 
 def _pair_gram_cached(ctx, lam, pairs, n: int, mm):
     """(S_sum (9N, 9N), b_sum (N, 9)) of sum W (V + lam I)^-1 W^T from the
-    cached stacks: weights 1/(evals + lam) gathered per slot."""
+    cached stacks: weights 1/(evals + lam) gathered per slot. The
+    ``pair_gram`` span of the device's in-graph record."""
+    dev = ctx.pairA.device
+    cuda_graph.mark(dev, "pair_gram_begin")
     sd = ctx.pairA.dtype
     winv = 1.0 / (ctx.evals + lam)  # (M, 3)
     w_ext = _ext(winv.T.to(sd))
     py_ext = _ext((winv * ctx.y0).T.to(sd))
-    return _pair_gram_tables(ctx, w_ext, py_ext, pairs, n, mm)
+    S_sum, b_sum = _pair_gram_tables(ctx, w_ext, py_ext, pairs, n, mm)
+    cuda_graph.mark(dev, "pair_gram_end")
+    return S_sum, b_sum
 
 
 def _pair_gram_tables(ctx, w_ext, py_ext, pairs, n: int, acc):
@@ -752,11 +757,17 @@ def qrkit_pair_trial_sums(ctx: SchurContext, lam, pairs, n: int):
     """qrkit re-damp sums with pair tables: S_sum = sum_k B_k^T
     (lam/(eh+lam)) B_k and its rhs companion, through the weighted
     pair-gram tables. Deficient directions (eh = 0, w = 1) have zero B
-    rows."""
+    rows. The ``pair_gram`` span of the device's in-graph record (the
+    lambda-free S0 of the prepare is not)."""
+    dev = ctx.pairA.device
+    cuda_graph.mark(dev, "pair_gram_begin")
     w = _redamp_scale(ctx.fill_evals, lam).T  # (3, M)
     sd = ctx.pairA.dtype
-    return _pair_gram_tables(ctx, _ext(w.to(sd)), _ext((w * ctx.qr_cqT).to(sd)),
-                             pairs, n, ctx.qr_S0cam.dtype)
+    S_sum, b_sum = _pair_gram_tables(
+        ctx, _ext(w.to(sd)), _ext((w * ctx.qr_cqT).to(sd)), pairs, n,
+        ctx.qr_S0cam.dtype)
+    cuda_graph.mark(dev, "pair_gram_end")
+    return S_sum, b_sum
 
 
 def _camera_solve_qr_cached(ctx: SchurContext, lam, problem, n: int,

@@ -1,12 +1,17 @@
 """The spans and the counter of the port's in-graph record
-(``ops/cuda_graph.py``): the LM drive's prepares and trials and the reduced
-camera solve, timed between marks, and the camera solve's fallbacks,
-brought back by the drive's one host read into ``lm.LAST_JIT_RUN``.
+(``ops/cuda_graph.py``): the LM drive's prepares and trials, the reduced
+camera solve and the trial's pair gram, timed between marks, and the
+camera solve's fallbacks, brought back by the drive's one host read into
+``lm.LAST_JIT_RUN``.
 
 On the CPU the same marks record the host's clock, so the layout of the
 spans is checked here: one prepare span per iteration started, one trial
-and one camera solve per trial, the camera solve inside its trial, still
-one read for an unchunked run. The tests marked ``cuda`` run on the card:
+and one camera solve per trial, the camera solve inside its trial, one
+pair gram inside each trial where the problem has pair tables and none
+where it has not, still one read for an unchunked run. The benchmark's
+two readers of the pair gram's span (``portbench/metrics/pair_gram_ms.py``,
+``pair_gram_roofline_pct.py``) are held on hand-made traces. The tests
+marked ``cuda`` run on the card:
 
     python -m pytest tests/test_torch_spans.py -m cuda --noconftest
 
@@ -15,8 +20,10 @@ where the device's totals are held against the same spans in a
 kernels. This file imports nothing of JAX.
 """
 
+import dataclasses
 import os
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -31,11 +38,17 @@ from bundleadjustment_benchmarks_tpu_torch.solvers import lm, schur
 from bundleadjustment_benchmarks_tpu_torch.utils.synthetic import make_synthetic_problem
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from portbench.core import marks, registry, roofline, session  # noqa: E402
+from portbench.core.trace import Trace  # noqa: E402
+
 P257 = os.path.join(ROOT, "data", "problem-257-65132-pre.txt.gz")
 DF32 = dict(geometry="df32", matmul_dtype="float32")
 #: (mode, LMConfig keywords) of the drives the spans are checked on.
 DRIVES = {"cholesky": ("cholesky", DF32), "qrchol": ("qrchol", DF32),
-          "f64": ("cholesky", {})}
+          "f64": ("cholesky", {}), "qrkit": ("qrkit", DF32)}
 #: Substrings by which the benchmark's trace readers find other layers'
 #: kernels (``portbench/metrics/camera_solve_roofline_pct.py``'s patterns
 #: and the chain kernels' prefix).
@@ -49,9 +62,12 @@ def small():
                                   seed=1, device="cpu")
 
 
-def _held_to_counts(jit):
+def _held_to_counts(jit, pairs=True):
+    """One prepare span an iteration started, one trial, camera solve and,
+    where the problem has pair tables, pair gram a trial."""
     assert jit["span_counts"] == {"prepare": jit["prepares"], "trial": jit["slots"],
-                                  "camera_solve": jit["slots"]}
+                                  "camera_solve": jit["slots"],
+                                  "pair_gram": jit["slots"] if pairs else 0}
 
 
 @pytest.mark.parametrize("drive", sorted(DRIVES))
@@ -65,8 +81,8 @@ def test_span_counts_and_layout(small, drive):
     assert jit["reads"] == 1 and not jit["chunked"]
     secs = jit["device_s"]
     assert all(secs[s] > 0 for s in cuda_graph.SPANS)
-    # The camera solve runs inside its trial.
-    assert secs["camera_solve"] <= secs["trial"]
+    # The camera solve and the pair gram run inside their trial.
+    assert secs["camera_solve"] + secs["pair_gram"] <= secs["trial"]
     assert jit["camera_fallbacks"] <= jit["slots"]
     if drive == "f64":
         assert jit["camera_fallbacks"] == 0
@@ -104,7 +120,8 @@ def test_indefinite_system_takes_the_counted_fallback(dtype):
     x = schur._camera_solve_chol(S, b)
     got = cuda_graph.unpack(cuda_graph.readable("cpu").tolist())
     assert got["camera_fallback"] == 1
-    assert got["span_counts"] == {"prepare": 0, "trial": 0, "camera_solve": 1}
+    assert got["span_counts"] == {"prepare": 0, "trial": 0, "camera_solve": 1,
+                                  "pair_gram": 0}
     # The fallback branch, eagerly.
     f64 = torch.float64
     S64, b64 = S.to(f64), b.to(f64)
@@ -133,17 +150,17 @@ def test_indefinite_system_takes_the_counted_fallback(dtype):
 
 def test_mark_kernel_names():
     """Each mark is its own kernel name; none holds a substring the
-    benchmark's readers match, and the benchmark's own table of them is
-    the port's."""
-    assert len(set(cuda_graph.MARK_KERNELS)) == len(cuda_graph.MARKS) == 7
+    benchmark's readers match, and the benchmark's own tables of them
+    (``core/marks.py``'s first three spans and the fallback, the pair
+    gram's reader's span) are the port's."""
+    assert len(set(cuda_graph.MARK_KERNELS)) == len(cuda_graph.MARKS) == 9
     assert not [n for n in cuda_graph.MARK_KERNELS
                 if any(p in n for p in HARNESS_PATTERNS)]
-    if ROOT not in sys.path:
-        sys.path.insert(0, ROOT)
-    from portbench.core import marks
-
-    assert marks.NAMES == frozenset(cuda_graph.MARK_KERNELS)
-    assert set(marks.SPANS) == set(cuda_graph.SPANS)
+    gram = registry.reader("pair_gram_ms")
+    assert marks.NAMES | {gram.BEGIN, gram.END} == frozenset(cuda_graph.MARK_KERNELS)
+    assert set(marks.SPANS) | {"pair_gram"} == set(cuda_graph.SPANS)
+    assert (gram.BEGIN, gram.END) == tuple(
+        f"ba_mark_pair_gram_{end}" for end in ("begin", "end"))
     with pytest.raises(ValueError):
         cuda_graph.mark("cpu", "solve_begin")
 
@@ -155,6 +172,147 @@ def test_host_steps_are_profiler_ranges(small):
         lm.minimize(small, mode, lm.LMConfig(max_iter=2, **kw), device="cpu")
     names = {e.name for e in prof.events()}
     assert {"ba.enter", "ba.replay", "ba.read"} <= names
+
+
+@pytest.mark.parametrize("drive", ["cholesky", "qrchol", "qrkit"])
+def test_one_pair_gram_inside_each_trial(small, drive, monkeypatch):
+    """Every trial holds one pair gram span, after the trial's begin and
+    before its camera solve; none runs outside a trial (qrkit's lambda-free
+    S0 of the prepare is not a span)."""
+    mode, kw = DRIVES[drive]
+    names = []
+    real = cuda_graph.mark
+
+    def mark(device, name):
+        names.append(name)
+        real(device, name)
+
+    monkeypatch.setattr(cuda_graph, "mark", mark)
+    lm.minimize(small, mode, lm.LMConfig(max_iter=4, **kw), device="cpu")
+    jit = lm.LAST_JIT_RUN
+    _held_to_counts(jit)
+    trial = ["trial_begin", "pair_gram_begin", "pair_gram_end",
+             "camera_solve_begin", "camera_solve_end", "trial_end"]
+    assert [n for n in names if n in trial] == trial * jit["slots"]
+    assert 0 < jit["device_s"]["pair_gram"] < jit["device_s"]["trial"]
+
+
+@pytest.mark.parametrize("drive", ["cholesky", "qrkit"])
+def test_no_pair_gram_without_pair_tables(small, drive):
+    """Without pair tables cholesky sums the reduced system by chunks and
+    qrkit re-damps its dense rows: no pair gram span."""
+    mode, kw = DRIVES[drive]
+    lm.minimize(dataclasses.replace(small, pairs=None), mode,
+                lm.LMConfig(max_iter=3, **kw), device="cpu")
+    jit = lm.LAST_JIT_RUN
+    counts = jit["span_counts"]
+    assert counts["trial"] == jit["slots"] > 0
+    assert counts["pair_gram"] == 0 and jit["device_s"]["pair_gram"] == 0
+
+
+#: A tiny configuration of the frozen generator, for the roofline's counts.
+TINY_CONFIG = {"name": "tiny-long-tracks", "n_cameras": 12, "n_points": 300,
+               "data": {"kind": "balgen", "seed": 3, "mean_degree": 6.0}}
+CARD = "NVIDIA H100 80GB HBM3"
+
+
+@dataclasses.dataclass
+class _Run:
+    """What the pair gram's readers read of a run."""
+
+    trace: object
+    traced: list
+    cell: object
+    trace_complete: bool = True
+    card: str = CARD
+
+
+def _gram_run(trials=(3, 2), drop=(), **kw):
+    """Solves of one prepare and ``trials`` trials each, laid out in ns: in
+    a trial, the pair gram i (its marks and 20 + 10 i ns of kernels), then
+    the camera solve. Ops named in ``drop`` are left out (by index of the
+    pair gram's end marks, or "marks": every pair gram mark)."""
+    t, ops, ends = 0, [], 0
+
+    def op(name, ns):
+        nonlocal t
+        ops.append((name, t, t + ns))
+        t += ns
+
+    i = 0
+    for n in trials:
+        t += 100
+        op("ba_mark_prepare_begin", 2)
+        op("chain_blocks_kernel", 40)
+        op("ba_mark_prepare_end", 2)
+        for _ in range(n):
+            op("ba_mark_trial_begin", 2)
+            op("ba_mark_pair_gram_begin", 2)
+            op("gemmSN_NN_kernel", 20 + 10 * i)
+            if "marks" not in drop and ends not in drop:
+                op("ba_mark_pair_gram_end", 2)
+            ends += 1
+            op("ba_mark_camera_solve_begin", 2)
+            op("getrf_wo_pivot", 30)
+            op("ba_mark_camera_solve_end", 2)
+            op("ba_mark_trial_end", 2)
+            i += 1
+    if "marks" in drop:
+        ops = [o for o in ops if "pair_gram" not in o[0]]
+    cell = types.SimpleNamespace(config=TINY_CONFIG, traffic={"geometry": "df32"})
+    traced = [{"prepares": 1, "slots": n} for n in trials]
+    return _Run(trace=Trace(ops=ops, spans=[], window=(0, t + 50)),
+                traced=traced, cell=cell, **kw)
+
+
+def test_pair_count_of_a_tiny_configuration():
+    """The roofline's sizes: the configuration's cameras, points and
+    observations, and its pairs, as many as the port's pair tables hold."""
+    roof = registry.reader("pair_gram_roofline_pct")
+    raw = session.raw_arrays(TINY_CONFIG)
+    n, m, k, p = roof.sizes(TINY_CONFIG)
+    assert (n, m, k) == (12, 300, len(raw["cam_idx"]))
+    order = np.argsort(raw["pt_idx"], kind="stable")
+    tables = pm._pair_tables_np(raw["pt_idx"][order], raw["cam_idx"][order], n)
+    assert p == int((tables["row_a"] < k).sum()) > k
+
+
+def test_pair_gram_readers_on_a_hand_made_trace():
+    """Five pair grams over two solves: the mean span, and the least time of
+    one pair gram (float32 stacks on the df32 drive) times five over the
+    spans' time."""
+    run = _gram_run()
+    spans_ns = [2 + 20 + 10 * i + 2 for i in range(5)]
+    assert registry.reader("pair_gram_ms").read(run) == pytest.approx(
+        sum(spans_ns) / 5 / 1e6, rel=1e-12)
+    roof = registry.reader("pair_gram_roofline_pct")
+    n, m, k, p = roof.sizes(TINY_CONFIG)
+    bw, fp32 = roofline.card_rates(CARD)
+    least = max(4 * (54 * p + 27 * k + 6 * m + 81 * n * n + 9 * n) / bw,
+                486 * p / fp32)
+    assert roof.read(run) == pytest.approx(100 * 5 * least / (sum(spans_ns) / 1e9),
+                                           rel=1e-12)
+    run.cell.traffic = {"geometry": "f64"}
+    least64 = max(8 * (54 * p + 27 * k + 6 * m + 81 * n * n + 9 * n) / bw,
+                  486 * p / fp32)
+    assert roof.read(run) == pytest.approx(100 * 5 * least64 / (sum(spans_ns) / 1e9),
+                                           rel=1e-12)
+
+
+@pytest.mark.parametrize("case", ["no_marks", "count_differs", "lost_end",
+                                  "incomplete"])
+def test_pair_gram_readers_read_nothing(case):
+    """No number from a program without the marks (the parent's), from a
+    trace with another count of pair grams than the port's trials, from one
+    that lost a mark, or from an incomplete trace."""
+    run = {"no_marks": lambda: _gram_run(drop=("marks",)),
+           "count_differs": lambda: _gram_run(),
+           "lost_end": lambda: _gram_run(drop=(3,)),
+           "incomplete": lambda: _gram_run(trace_complete=False)}[case]()
+    if case == "count_differs":
+        run.traced[1]["slots"] += 1
+    for name in ("pair_gram_ms", "pair_gram_roofline_pct"):
+        assert registry.reader(name).read(run) is None, name
 
 
 # -- on the card -------------------------------------------------------------------
@@ -195,7 +353,7 @@ def _trace_spans(prof) -> dict:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("drive", ["cholesky", "f64"])
+@pytest.mark.parametrize("drive", ["cholesky", "f64", "qrkit"])
 def test_device_totals_match_the_trace(p257_cuda, drive):
     """The record's totals, by the device's clock, against the same spans in
     a profiler trace of the replay: equal counts, totals within 2%."""
@@ -222,10 +380,9 @@ def test_device_totals_match_the_trace(p257_cuda, drive):
 @pytest.mark.cuda
 def test_p257_graph_holds_the_marks(p257_cuda):
     """The captured p257 df32 cholesky graph holds each mark kernel once:
-    the prepare's in its iteration-start branch, the trial's and the
-    camera solve's in the loop body, the fallback's in the QR branch."""
-    if ROOT not in sys.path:
-        sys.path.insert(0, ROOT)
+    the prepare's in its iteration-start branch, the trial's, the pair
+    gram's and the camera solve's in the loop body, the fallback's in the
+    fallback branch."""
     import chip_smoke
 
     mode, kw = DRIVES["cholesky"]
